@@ -110,11 +110,16 @@ def test_constant_matrices_match_jax():
 
 def test_pack_dft_keeps_every_column():
     """The kernel's coefficient layout holds the DFT matrix's columns
-    exactly: bins 0..255 as [re | im] rows, the rest as contiguous rows."""
+    exactly: bins 0..255 as [re | im] rows, the rest as contiguous rows.
+    The rows it skips are exactly zero: the 320-sample window sits at rows
+    96..415 of 512, and its first and last samples are zero."""
     cfg = FeaturizerConfig(dither=0.0)
     nb = cfg.fft_length // 2 + 1
     dft = torch.as_tensor(_windowed_dft_matrix(cfg))
-    coef, extra = pack_dft(dft, nb)
+    coef, extra, row_lo, row_hi = pack_dft(dft, nb)
+    assert (row_lo, row_hi) == (96, 416)
+    assert not dft[:row_lo].any() and not dft[row_hi:].any()
+    assert dft[row_lo + 1].any() and dft[row_hi - 2].any()
     assert coef.shape == (512, 512) and extra.shape == (nb - 256, 2, 512)
     assert coef.is_contiguous() and extra.is_contiguous()
     assert torch.equal(coef[:, :256], dft[:, :256])

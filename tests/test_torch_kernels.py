@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from vietasr_tpu_torch.frontend.cuda_frontend import (
-    fused_log_mel_features, fused_log_mel_features_plain, log_mel_tiles_cuda)
+    fused_log_mel_features, fused_log_mel_features_plain, log_mel_tiles_cuda,
+    pack_dft)
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix,
                                                  _windowed_dft_matrix)
@@ -65,9 +66,10 @@ def test_frontend_kernel_refuses_cpu_tensors():
     """The CUDA entry never falls back: given CPU tensors it raises."""
     cfg = FeaturizerConfig(dither=0.0)
     xp = torch.zeros(1, 16000 + cfg.fft_length)
+    dft = pack_dft(torch.as_tensor(_windowed_dft_matrix(cfg)),
+                   cfg.fft_length // 2 + 1)
     with pytest.raises(ValueError, match="CUDA"):
-        log_mel_tiles_cuda(xp, torch.tensor([100], dtype=torch.int32),
-                           torch.as_tensor(_windowed_dft_matrix(cfg)),
+        log_mel_tiles_cuda(xp, torch.tensor([100], dtype=torch.int32), dft,
                            torch.as_tensor(_mel_matrix(cfg)), cfg=cfg)
 
 

@@ -19,7 +19,9 @@ from vietasr_tpu.ops.greedy import greedy_decode as jax_greedy
 from vietasr_tpu_torch.config import BlockConfig, EncoderConfig, load_config
 from vietasr_tpu_torch.models.convert import (load_anchor, msgpack_restore,
                                               params_from_jax)
-from vietasr_tpu_torch.models.quartznet import (fold_batchnorm, map_tree,
+from vietasr_tpu_torch.models.quartznet import (_apply_block,
+                                                _apply_block_ops,
+                                                fold_batchnorm, map_tree,
                                                 quartznet_apply)
 from vietasr_tpu_torch.ops.greedy import (collapse_batch, ctc_collapse,
                                           greedy_decode, ids_to_text)
@@ -134,21 +136,33 @@ def test_forward_bf16_kernel_route_matches_jax_pallas_route():
 
 
 def test_bf16_routes_agree():
-    """The kernel route, its explicit plain version and the unfused per-op
-    route compute the same function in bf16. The unfused route rounds the
-    depthwise output to bf16 where the fused one keeps it fp32, and keeps
-    block outputs fp32 where the fused one rounds them: measured max
-    |d log p| ~1.6e-3, bound 2e-2."""
+    """The kernel route and its explicit plain version compute the same
+    function in bf16, and the fused block agrees with the per-op block on
+    the eligible block. The per-op block rounds the depthwise output to
+    bf16 where the fused one keeps it fp32, and keeps the block output fp32
+    where the fused one rounds it: measured max |d| ~2.2e-3 * max|want|,
+    bound one bf16 step, 2^-7 * max|want|."""
     variables, ecfg = _narrow_variables(seed=5)
     folded = params_from_jax(jax_fold(variables, ecfg), device="cpu")
     feats, lens = (torch.from_numpy(a) for a in _feats(seed=6))
-    out = {impl: quartznet_apply(folded, feats, lens, cfg=_port_encoder(),
+    cfg = _port_encoder()
+    out = {impl: quartznet_apply(folded, feats, lens, cfg=cfg,
                                  compute_dtype=torch.bfloat16,
                                  block_impl=impl)[0]
-           for impl in ("auto", "kernel", "plain", "unfused")}
+           for impl in ("auto", "kernel", "plain")}
     assert torch.equal(out["auto"], out["kernel"])
     assert torch.equal(out["kernel"], out["plain"])
-    assert float((out["plain"] - out["unfused"]).abs().max()) <= 2e-2
+    params, stats = (folded[k]["encoder"] for k in ("params", "batch_stats"))
+    x, lens = _apply_block(feats, lens, params[0], stats[0], cfg.blocks[0],
+                           cfg, torch.bfloat16, "plain")
+    fused, fused_lens = _apply_block(x, lens, params[1], stats[1],
+                                     cfg.blocks[1], cfg, torch.bfloat16,
+                                     "plain")
+    ops, ops_lens = _apply_block_ops(x, lens, params[1], stats[1],
+                                     cfg.blocks[1], cfg, torch.bfloat16)
+    assert fused.dtype == torch.bfloat16 and torch.equal(fused_lens, ops_lens)
+    assert float((fused.float() - ops).abs().max()) \
+        <= 2.0 ** -7 * float(ops.abs().max())
     with pytest.raises(ValueError):
         quartznet_apply(folded, feats, lens, cfg=_port_encoder(),
                         block_impl="pallas")

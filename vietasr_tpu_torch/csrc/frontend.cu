@@ -13,9 +13,11 @@
 // frames read overlapping windows without the overlapping tile copies the
 // TPU kernel needed.
 //
-// What bounds it on the H100: the DFT is 2 * n_fft * (2 * n_bins) fp32
-// operations per frame (0.53 MFLOP; 7.5 GFLOP for 8 x 16.7 s) against
-// ~13 MB of bytes moved, so it is bound by operations. It must be IEEE
+// What bounds it on the H100: the DFT is 2 * rows * (2 * n_bins) fp32
+// operations per frame, where rows are the window's nonzero samples (318
+// of n_fft = 512 at win_length 320: 0.33 MFLOP per frame, 4.4 GFLOP for
+// 8 x 16.7 s with the band-limited mel), against ~13 MB of bytes moved, so
+// it is bound by operations. It must be IEEE
 // fp32 (the DFT has heavy cancellation and log() turns TF32/bf16 error
 // into O(1) feature error), so it runs on the CUDA cores' FFMA
 // (67 TFLOP/s), not the tensor cores. The DFT is a (frames x n_fft) x
@@ -30,8 +32,11 @@
 //     im] with 2 KB rows, and they stream through two shared-memory buffers
 //     of CHUNK rows with 16-byte cp.async copies while the previous chunk is
 //     used (8 copies per thread per chunk); each chunk's frame values are
-//     transposed into a small (CHUNK x FRAMES) tile; n_fft is a multiple of
-//     CHUNK, so the sample loop over a chunk unrolls fully;
+//     transposed into a small (CHUNK x FRAMES) tile; the sample loop over a
+//     chunk unrolls fully;
+//   - only the rows [row_lo, row_hi) run: the wrapper finds the window's
+//     nonzero rows once and rounds them out to CHUNK (rows 96..415 of 512
+//     at win_length 320); every row skipped is exactly zero;
 //   - the last n_bins - nb_main bins (the Nyquist bin) are one warp dot
 //     product per (frame, bin), over coefficient rows the wrapper packs
 //     contiguous ((n_bins - 256, 2, n_fft));
@@ -39,7 +44,8 @@
 //     coefficient buffers); the mel product runs over each filter's nonzero
 //     band only (found once per block), then log, store, and the partials
 //     over valid frames.
-// Sums over samples run in order n = 0..n_fft-1 in fp32 for the main bins.
+// Sums over samples run in order n = row_lo..row_hi-1 in fp32 for the main
+// bins; the skipped rows would add exact zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,7 +107,8 @@ logmel_kernel(const float* __restrict__ xp, int sp,
               float* __restrict__ out,          // (B, t_out, n_mels)
               float* __restrict__ parts,        // (B, n_tiles, 2, n_mels)
               int t_out, int n_tiles, int n_fft, int hop, int nb,
-              int n_mels, float guard, int guard_clamp) {
+              int n_mels, int row_lo, int row_hi, float guard,
+              int guard_clamp) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int band_lo[MAX_MELS], band_hi[MAX_MELS];
   const int spad = span_pad(n_fft, hop);
@@ -114,9 +121,9 @@ logmel_kernel(const float* __restrict__ xp, int sp,
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const int f0 = tile * FRAMES;
-  const int nt = n_fft / CHUNK;
+  const int nt = (row_hi - row_lo) / CHUNK;
 
-  load_coef(cbuf, coef, 0);
+  load_coef(cbuf, coef, row_lo);
   const float* row = xp + (size_t)b * sp;
   const int span = (FRAMES - 1) * hop + n_fft;
   for (int i = tid; i < spad; i += THREADS) {
@@ -153,7 +160,7 @@ logmel_kernel(const float* __restrict__ xp, int sp,
     }
 
   for (int t = 0; t < nt; ++t) {
-    const int n0 = t * CHUNK;
+    const int n0 = row_lo + t * CHUNK;
     __syncthreads();                   // sig loaded / chunk t-1 consumed
     if (t + 1 < nt)                    // into the buffer chunk t-1 used
       load_coef(cbuf + ((t + 1) & 1) * CHUNK * BPITCH, coef, n0 + CHUNK);
@@ -205,7 +212,7 @@ logmel_kernel(const float* __restrict__ xp, int sp,
     const int e = p - f * n_extra;
     const float* er = extra + (size_t)e * 2 * n_fft;
     float r = 0.f, m = 0.f;
-    for (int n = lane; n < n_fft; n += 32) {
+    for (int n = row_lo + lane; n < row_hi; n += 32) {
       const float v = sig[f * hop + n];
       r = fmaf(v, __ldg(er + n), r);
       m = fmaf(v, __ldg(er + n_fft + n), m);
@@ -253,6 +260,8 @@ logmel_kernel(const float* __restrict__ xp, int sp,
 
 extern "C" int vt_logmel_frames_per_tile() { return FRAMES; }
 
+extern "C" int vt_logmel_row_chunk() { return CHUNK; }
+
 extern "C" const char* vt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -268,12 +277,17 @@ extern "C" long long vt_logmel_smem_bytes(int n_fft, int hop, int nb,
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched).
+// [row_lo, row_hi) is a nonempty range of whole CHUNKs inside [0, n_fft).
 extern "C" int vt_logmel_forward(const void* xp, const void* seq_len,
                                  const void* coef, const void* extra,
                                  const void* mel, void* out, void* parts,
                                  int batch, int sp, int t_out, int n_fft,
-                                 int hop, int nb, int n_mels, float guard,
-                                 int guard_clamp, void* stream) {
+                                 int hop, int nb, int n_mels, int row_lo,
+                                 int row_hi, float guard, int guard_clamp,
+                                 void* stream) {
+  if (row_lo < 0 || row_hi > n_fft || row_lo >= row_hi || row_lo % CHUNK ||
+      row_hi % CHUNK)
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (t_out + FRAMES - 1) / FRAMES;
   const size_t smem = smem_floats(n_fft, hop, nb) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -283,6 +297,7 @@ extern "C" int vt_logmel_forward(const void* xp, const void* seq_len,
   logmel_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)xp, sp, (const int*)seq_len, (const float*)coef,
       (const float*)extra, (const float*)mel, (float*)out, (float*)parts,
-      t_out, n_tiles, n_fft, hop, nb, n_mels, guard, guard_clamp);
+      t_out, n_tiles, n_fft, hop, nb, n_mels, row_lo, row_hi, guard,
+      guard_clamp);
   return (int)cudaGetLastError();
 }

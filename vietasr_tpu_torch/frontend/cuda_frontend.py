@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -34,6 +34,7 @@ from vietasr_tpu_torch.utils.typing import assert_audio_batch
 
 FRAMES_PER_TILE = 32          # FRAMES in csrc/frontend.cu
 MAIN_BINS = 256               # NB_MAIN in csrc/frontend.cu
+ROW_CHUNK = 16                # CHUNK in csrc/frontend.cu
 
 
 def fused_supported(cfg: FeaturizerConfig) -> bool:
@@ -75,41 +76,60 @@ def log_mel_tiles_plain(xp: torch.Tensor, seq_len: torch.Tensor,
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frontend")
-    if lib.vt_logmel_frames_per_tile() != FRAMES_PER_TILE:
-        raise RuntimeError("csrc/frontend.cu FRAMES != FRAMES_PER_TILE")
+    if lib.vt_logmel_frames_per_tile() != FRAMES_PER_TILE \
+            or lib.vt_logmel_row_chunk() != ROW_CHUNK:
+        raise RuntimeError("csrc/frontend.cu FRAMES / CHUNK differ from "
+                           "FRAMES_PER_TILE / ROW_CHUNK")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vt_logmel_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                      i, ctypes.c_float, i, p]
+                                      i, i, i, ctypes.c_float, i, p]
     lib.vt_logmel_forward.restype = i
     lib.vt_logmel_smem_bytes.argtypes = [i, i, i, i]
     lib.vt_logmel_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def pack_dft(dft: torch.Tensor, n_bins: int):
-    """The kernel's layout of the (n_fft, 2 * n_bins) [re | im] DFT matrix:
-    coef (n_fft, 512) = [re | im] of bins 0..255, rows 16-byte aligned for
-    cp.async, and extra (n_bins - 256, 2, n_fft), the remaining bins'
-    columns as contiguous rows."""
+class PackedDFT(NamedTuple):
+    """The kernel's layout of the (n_fft, 2 * n_bins) [re | im] DFT matrix
+    (pack_dft): a constant of the config, packed once."""
+    coef: torch.Tensor     # (n_fft, 512): [re | im] of bins 0..255
+    extra: torch.Tensor    # (n_bins - 256, 2, n_fft): the other bins
+    row_lo: int            # rows outside [row_lo, row_hi) are all zero
+    row_hi: int
+
+
+def pack_dft(dft: torch.Tensor, n_bins: int) -> PackedDFT:
+    """coef rows are 16-byte aligned for cp.async and extra holds the
+    remaining bins' columns as contiguous rows. [row_lo, row_hi) covers
+    every row with a nonzero entry (the window's support), rounded out to
+    whole ROW_CHUNKs: the kernel skips the rest, which add exact zeros."""
     m = MAIN_BINS
     coef = torch.cat([dft[:, :m], dft[:, n_bins:n_bins + m]], dim=1)
     extra = torch.stack([dft[:, m:n_bins].t(), dft[:, n_bins + m:].t()], 1)
-    return coef.contiguous(), extra.contiguous()
+    nonzero = torch.nonzero(dft.abs().amax(dim=1)).flatten().tolist()
+    if nonzero:
+        row_lo = nonzero[0] // ROW_CHUNK * ROW_CHUNK
+        row_hi = -(-(nonzero[-1] + 1) // ROW_CHUNK) * ROW_CHUNK
+    else:
+        row_lo, row_hi = 0, ROW_CHUNK
+    return PackedDFT(coef.contiguous(), extra.contiguous(), row_lo, row_hi)
 
 
 def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
-                       dft: torch.Tensor, mel: torch.Tensor, *,
+                       dft: PackedDFT, mel: torch.Tensor, *,
                        cfg: FeaturizerConfig):
-    """The kernel: same contract as log_mel_tiles_plain, CUDA tensors only.
-    The DFT matrix is repacked for the kernel on every call (pack_dft, 1 MB
-    at n_fft 512)."""
+    """The kernel: same contract as log_mel_tiles_plain, CUDA tensors only,
+    with the DFT matrix in the kernel's layout (pack_dft)."""
     n_fft, hop = cfg.fft_length, cfg.hop_length
     n_bins = n_fft // 2 + 1
     n_mels = cfg.features
     bsz, sp = xp.shape
+    if not isinstance(dft, PackedDFT):
+        raise TypeError("frontend kernel: dft must be pack_dft's PackedDFT")
     for name, tsr, dtype in (("xp", xp, torch.float32),
                              ("seq_len", seq_len, torch.int32),
-                             ("dft", dft, torch.float32),
+                             ("dft.coef", dft.coef, torch.float32),
+                             ("dft.extra", dft.extra, torch.float32),
                              ("mel", mel, torch.float32)):
         if tsr.device.type != "cuda" or tsr.device != xp.device:
             raise ValueError(f"frontend kernel: {name} must be on "
@@ -117,14 +137,15 @@ def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
         if tsr.dtype != dtype or not tsr.is_contiguous():
             raise ValueError(f"frontend kernel: {name} must be contiguous "
                              f"{dtype}, got {tsr.dtype}")
-    if dft.shape != (n_fft, 2 * n_bins) or mel.shape != (n_bins, n_mels) \
-            or seq_len.shape != (bsz,):
+    if dft.coef.shape != (n_fft, 2 * MAIN_BINS) \
+            or dft.extra.shape != (n_bins - MAIN_BINS, 2, n_fft) \
+            or not 0 <= dft.row_lo < dft.row_hi <= n_fft \
+            or mel.shape != (n_bins, n_mels) or seq_len.shape != (bsz,):
         raise ValueError("frontend kernel: dft/mel/seq_len shapes do not "
                          "match the config")
     if not fused_supported(cfg):
         raise ValueError("frontend kernel: config not covered "
                          "(see fused_supported)")
-    coef, extra = pack_dft(dft, n_bins)
     lib = _lib()
     smem = lib.vt_logmel_smem_bytes(n_fft, hop, n_bins, n_mels)
     if not 0 < smem <= _build.SMEM_LIMIT:
@@ -138,10 +159,10 @@ def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
                         device=xp.device)
     with torch.cuda.device(xp.device):
         err = lib.vt_logmel_forward(
-            xp.data_ptr(), seq_len.data_ptr(), coef.data_ptr(),
-            extra.data_ptr(), mel.data_ptr(), logmel.data_ptr(),
+            xp.data_ptr(), seq_len.data_ptr(), dft.coef.data_ptr(),
+            dft.extra.data_ptr(), mel.data_ptr(), logmel.data_ptr(),
             parts.data_ptr(), bsz, sp,
-            t_out, n_fft, hop, n_bins, n_mels,
+            t_out, n_fft, hop, n_bins, n_mels, dft.row_lo, dft.row_hi,
             float(cfg.log_zero_guard_value),
             int(cfg.log_zero_guard_type == "clamp"),
             torch.cuda.current_stream(xp.device).cuda_stream)
@@ -161,6 +182,9 @@ def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles_fn,
     if dft_matrix is None:
         dft_matrix = torch.as_tensor(_windowed_dft_matrix(cfg),
                                      device=xp.device)
+    if tiles_fn is log_mel_tiles_cuda and not isinstance(dft_matrix,
+                                                         PackedDFT):
+        dft_matrix = pack_dft(dft_matrix, cfg.fft_length // 2 + 1)
     if mel_matrix is None:
         mel_matrix = torch.as_tensor(_mel_matrix(cfg), device=xp.device)
     logmel, parts = tiles_fn(xp, seq_len, dft_matrix, mel_matrix, cfg=cfg)
@@ -182,15 +206,16 @@ def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles_fn,
 
 def fused_log_mel_features(signal: torch.Tensor, lengths: torch.Tensor, *,
                            cfg: FeaturizerConfig,
-                           dft_matrix: Optional[torch.Tensor] = None,
+                           dft_matrix: Union[torch.Tensor, PackedDFT,
+                                             None] = None,
                            mel_matrix: Optional[torch.Tensor] = None):
     """(B, S) float waveform + (B,) int lengths ->
     (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32).
 
     CUDA tensors go through the kernel (counted in `.launches`); CPU
     tensors through its plain version. The constant DFT / mel matrices are
-    built on the signal's device unless given (make_fused_featurizer binds
-    them once)."""
+    built on the signal's device, and the DFT packed for the kernel, unless
+    given (make_fused_featurizer builds and packs them once)."""
     tiles = log_mel_tiles_plain if signal.device.type == "cpu" \
         else log_mel_tiles_cuda
     return _featurize(signal, lengths, cfg, tiles, dft_matrix, mel_matrix)
@@ -209,9 +234,12 @@ def fused_log_mel_features_plain(signal: torch.Tensor, lengths: torch.Tensor,
 
 
 def make_fused_featurizer(cfg: FeaturizerConfig, *, device=None):
-    """Same factory contract as features.make_featurizer."""
+    """Same factory contract as features.make_featurizer. On the GPU the
+    DFT matrix is bound in the kernel's layout, packed once here."""
     dev = resolve_device(device)
+    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
+    if dev.type == "cuda":
+        dft = pack_dft(dft, cfg.fft_length // 2 + 1)
     return functools.partial(
-        fused_log_mel_features, cfg=cfg,
-        dft_matrix=torch.as_tensor(_windowed_dft_matrix(cfg), device=dev),
+        fused_log_mel_features, cfg=cfg, dft_matrix=dft,
         mel_matrix=torch.as_tensor(_mel_matrix(cfg), device=dev))

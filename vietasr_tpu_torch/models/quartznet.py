@@ -14,9 +14,9 @@ block kernel (ops/repeat_block.py) whenever the compute dtype is bf16 and
 `block_impl` is "auto" or "kernel": this is the encoder's main-path kernel
 on the GPU (in the JAX package the Pallas block was opt-in, through
 `block_impl="pallas"`). `block_impl="plain"` runs the same blocks through
-the kernel's plain PyTorch version, and "unfused" through the per-op path
-below, as JAX's default XLA path does. Blocks 0 (stride 2) and 14 (dense
-1x1) and the head always take the per-op path.
+the kernel's plain PyTorch version. Other blocks, and every block outside
+bf16, take the per-op path (`_apply_block_ops`), as JAX's default XLA path
+does: blocks 0 (stride 2) and 14 (dense 1x1) and the head always do.
 
 bf16 semantics follow the JAX package: convolutions take bf16 operands,
 1x1 products accumulate in fp32 and return fp32, biases are added in
@@ -39,7 +39,7 @@ from vietasr_tpu_torch.ops.repeat_block import (block_eligible,
                                                 fused_repeat_block,
                                                 fused_repeat_block_plain)
 
-BLOCK_IMPLS = ("auto", "kernel", "plain", "unfused")
+BLOCK_IMPLS = ("auto", "kernel", "plain")
 
 
 def map_tree(fn: Callable, tree):
@@ -90,9 +90,10 @@ def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
 
 def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
                  cfg: EncoderConfig, compute_dtype, block_impl: str):
-    """JasperBlock forward: R sub-layers (ReLU between), + residual, ReLU."""
-    if (block_impl != "unfused" and compute_dtype == torch.bfloat16
-            and cfg.conv_mask and block_eligible(bcfg, params, False)):
+    """JasperBlock forward: R sub-layers (ReLU between), + residual, ReLU;
+    an eligible bf16 block as one fused repeat block."""
+    if (compute_dtype == torch.bfloat16 and cfg.conv_mask
+            and block_eligible(bcfg, params, False)):
         fused = fused_repeat_block_plain if block_impl == "plain" \
             else fused_repeat_block
         r = bcfg.repeat
@@ -105,6 +106,12 @@ def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
                     res["b"] if res else None,
                     kernel=bcfg.effective_kernel)
         return out, lens
+    return _apply_block_ops(x, lens, params, stats, bcfg, cfg, compute_dtype)
+
+
+def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
+                     cfg: EncoderConfig, compute_dtype):
+    """The per-op JasperBlock: each sub-layer's conv and bias apart."""
     out, out_lens = x, lens
     for r in range(bcfg.repeat):
         out, out_lens = _apply_sub(out, out_lens, params["sub"][r],

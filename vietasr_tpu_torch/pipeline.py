@@ -55,8 +55,8 @@ class TranscriberOptions:
     # the plain chain on the CPU; "on" / "off" force one or the other
     fused_frontend: str = "auto"
     # eligible encoder blocks in bf16: "auto" / "kernel" = the fused
-    # repeat-block kernel, "plain" = its plain PyTorch version, "unfused" =
-    # the per-op path (models/quartznet.py)
+    # repeat-block kernel, "plain" = its plain PyTorch version
+    # (models/quartznet.py)
     block_impl: str = "auto"
 
 
@@ -114,7 +114,7 @@ class Transcriber:
                            else make_featurizer)(fcfg, device=self.device)
         sr = fcfg.sample_rate
         self.buckets = [int(s * sr) for s in opts.buckets_seconds]
-        self._pinned: dict = {}     # (rows, samples) -> page-locked buffer
+        self._pinned: dict = {}     # bucket samples -> page-locked buffer
 
     # -- core ----------------------------------------------------------------
 
@@ -135,17 +135,22 @@ class Transcriber:
 
     def _host_batch(self, rows: int, samples: int) -> np.ndarray:
         """A zeroed (rows, samples) float32 host array to pad a batch into.
-        On the GPU it lives in page-locked memory, kept per shape, so the
-        upload is one DMA at full rate; callers read the forward's results
-        back (which synchronises) before the buffer is filled again."""
-        if self.device.type != "cuda":
+        On the GPU a batch of a fixed bucket goes into page-locked memory,
+        one (max_batch, bucket) buffer per bucket (24 MB for the default
+        buckets), so the upload is one DMA at full rate; callers read the
+        forward's results back (which synchronises) before the buffer is
+        filled again. Long audio (rounded up to whole seconds past the last
+        bucket) and oversized batches use ordinary memory, so the pinned
+        total stays bounded."""
+        if (self.device.type != "cuda" or samples not in self.buckets
+                or rows > self.opts.max_batch):
             return np.zeros((rows, samples), np.float32)
-        buf = self._pinned.get((rows, samples))
+        buf = self._pinned.get(samples)
         if buf is None:
-            buf = torch.empty((rows, samples), dtype=torch.float32,
-                              pin_memory=True)
-            self._pinned[(rows, samples)] = buf
-        arr = buf.numpy()
+            buf = torch.empty((self.opts.max_batch, samples),
+                              dtype=torch.float32, pin_memory=True)
+            self._pinned[samples] = buf
+        arr = buf.numpy()[:rows]
         arr.fill(0.0)
         return arr
 
