@@ -12,7 +12,18 @@ Phases, each of which raises on failure:
      shape (T = 840, B = 8, ragged lengths) and at two R > 1 shapes
   5. end to end: Transcriber on the anchor checkpoint in bf16 over 16
      seeded signals of 1.5-16.5 s, with the launch counters read around the
-     run; log-probs held against a plain-path Transcriber on the same card
+     run; log-probs held against a plain-path Transcriber on the same card.
+     Then the beam tier on the same signals: Transcriber(decoder=
+     "device_beam") at its default W = 100 with a word 3-gram trained on
+     the repo's text, one beam launch per forward, transcripts held against
+     the plain device_beam_search on the same log-probs
+  6. beam kernel vs its plain version (device_beam_search) on seeded
+     synthetic log-probs (B = 8, T = 840, ragged) and on the anchor's
+     posteriors of phase 5's signals, word 3-gram and 5-gram at W in
+     {16, 50, 100} and no LM at W = 16, cutoff 8, alpha 0.5, beta 1.5:
+     ids identical at W = 16, transcripts identical on the anchor
+     posteriors, and any other row that differs within 1e-4 |total| of the
+     plain final best total
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -22,12 +33,25 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "vietasr_tpu_torch", "configs",
                       "quartznet12x1_vi.yaml")
 ANCHOR = os.path.join(HERE, "artifacts", "real_speech_qn12x1_vi.msgpack.gz")
+MANIFEST = os.path.join(HERE, "artifacts", "real_speech_manifest.json")
+# the benchmark's small Vietnamese corpus (every char in the labels); the
+# word LMs are trained on it plus the manifest's transcripts
+VI_CORPUS = [
+    "xin chào các bạn", "bản tin thời sự hôm nay", "chào mừng quý vị",
+    "tin tức trong ngày", "cảm ơn các bạn đã lắng nghe",
+    "thời tiết hà nội hôm nay", "chúc các bạn một ngày tốt lành",
+    "đây là đài tiếng nói việt nam", "tin thể thao quốc tế",
+    "giá xăng dầu trong nước", "tình hình giao thông buổi sáng",
+    "xin kính chào quý vị và các bạn", "bản tin cuối ngày",
+    "chương trình ca nhạc theo yêu cầu", "dự báo thời tiết ngày mai",
+] * 2
 
 # one NVIDIA H100 SXM (data sheet, dense): fp32 on the CUDA cores, bf16 on
 # the tensor cores, HBM3 bandwidth
@@ -43,6 +67,11 @@ REPEAT_TOL_REL = 2.0 ** -7
 # end to end, kernel path vs plain path (bf16): 13 blocks each of whose bf16
 # outputs may round one step differently under another fp32 summation order
 E2E_LOGP_TOL = 0.25
+# beam search on synthetic logits at W = 50 / 100: a row whose decode
+# differs from the plain version's (fp ties under another summation order)
+# must still reach the same final best total to this relative tolerance
+BEAM_TOTAL_REL_TOL = 1e-4
+BEAM_KW = dict(cutoff_top_n=8, alpha=0.5, beta=1.5)
 
 
 def device_profile(fn, reps: int = 20):
@@ -357,6 +386,259 @@ def end_to_end_phase(np, torch, dev, kernels):
           f"{100 * (1 - busy_ms / (dt * 1e3)):.1f} % idle)")
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
+    return signals
+
+
+def train_word_lms(tmpdir):
+    """Word 3- and 5-gram ARPA files over VI_CORPUS + the manifest texts."""
+    from vietasr_tpu_torch.ops.lm import train_ngram_arpa
+
+    with open(MANIFEST, encoding="utf-8") as f:
+        refs = [json.loads(line)["text"].strip() for line in f]
+    paths = {}
+    for order in (3, 5):
+        paths[order] = os.path.join(tmpdir, f"vi_word{order}.arpa")
+        train_ngram_arpa(VI_CORPUS + refs, paths[order], order=order)
+    return paths
+
+
+def forward_batches(np, torch, tr, signals):
+    """The forwards transcribe_batch makes for `signals`, in its order:
+    [(signal indices, log_probs on the card, enc_lens)]."""
+    order = sorted(range(len(signals)), key=lambda i: len(signals[i]))
+    out, i = [], 0
+    while i < len(order):
+        bl = tr._bucket_len(len(signals[order[i]]))
+        group = []
+        while (i < len(order) and len(group) < tr.opts.max_batch
+               and tr._bucket_len(len(signals[order[i]])) == bl):
+            group.append(order[i])
+            i += 1
+        batch = tr._host_batch(len(group), bl)
+        lens = np.array([len(signals[g]) for g in group], np.int32)
+        for row, g in enumerate(group):
+            batch[row, :len(signals[g])] = signals[g]
+        lp, el, _, _ = tr._fwd(batch, lens)
+        torch.cuda.synchronize()      # the page-locked batch is refilled next
+        out.append((group, lp, el))
+    return out
+
+
+def render(labels, ids, lens):
+    ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+    return [" ".join("".join(labels[i] for i in ids[b, :lens[b]]).split())
+            for b in range(ids.shape[0])]
+
+
+def beam_path_phase(np, torch, signals, lm_paths, kernels):
+    """The beam tier end to end: Transcriber(decoder="device_beam") at its
+    default width with the word 3-gram, counters read around the run."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.ops.device_beam import device_beam_search
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    tr = Transcriber(CONFIG, checkpoint=ANCHOR, options=TranscriberOptions(
+        decoder="device_beam", lm_path=lm_paths[3]))
+    check(tr._device_word_lm is not None, "the word LM was not sniffed")
+    labels = tr.cfg.labels
+    width = tr.opts.beam_width
+    tr.transcribe_batch(signals)                       # warm-up
+    batches = forward_batches(np, torch, tr, signals)
+    forwards = len(batches)
+
+    fused_log_mel_features.launches = 0
+    fused_repeat_block.launches = 0
+    fused_beam_search.launches = 0
+    texts = tr.transcribe_batch(signals)               # the beam path
+    launches = {"log_mel_frontend": fused_log_mel_features.launches,
+                "repeat_block": fused_repeat_block.launches,
+                "beam_search": fused_beam_search.launches}
+    print(f"beam path (W={width}, word 3-gram): {len(signals)} signals, "
+          f"{forwards} forwards, launches {launches}")
+    check(launches == {"log_mel_frontend": forwards,
+                       "repeat_block": 13 * forwards,
+                       "beam_search": forwards},
+          f"beam path launches {launches} for {forwards} forwards")
+    for k in kernels:
+        if k["name"] == "beam_search":
+            k["launches"] = launches["beam_search"]
+
+    # the same log-probs through the plain device_beam_search
+    plain = [None] * len(signals)
+    for group, lp, el in batches:
+        ids, n = device_beam_search(
+            lp, el, blank=len(labels), beam_width=width,
+            word_lm=tr._device_word_lm, wlm_probes=tr._device_wlm_probes,
+            space=labels.index(" "), **BEAM_KW)
+        for row, text in zip(group, render(labels, ids, n)):
+            plain[row] = text
+    same = sum(a == b for a, b in zip(texts, plain))
+    print(f"beam path vs plain device_beam_search: transcripts equal "
+          f"{same}/{len(texts)}")
+    check(same == len(texts), "beam transcripts differ from the plain "
+          "device_beam_search on the same log-probs")
+
+    audio_s = sum(len(s) for s in signals) / 16000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        tr.transcribe_batch(signals)
+    dt = (time.perf_counter() - t0) / reps
+    print(f"beam path end to end: {audio_s:.1f} audio-s in {dt * 1e3:.2f} ms "
+          f"= {audio_s / dt:.1f} audio-s/s")
+    rows = device_profile(lambda: tr.transcribe_batch(signals), reps=3)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"profile of the beam path (16 signals): device busy "
+          f"{busy_ms:.4f} ms of {dt * 1e3:.4f} ms wall ("
+          f"{100 * (1 - busy_ms / (dt * 1e3)):.1f} % idle)")
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
+    # the anchor's posteriors of these signals as one (16, T, V+1) batch;
+    # frames past a row's length are never read
+    t_max = max(lp.shape[1] for _, lp, _ in batches)
+    anchor_lp = torch.zeros((len(signals), t_max, len(labels) + 1),
+                            device=batches[0][1].device)
+    anchor_lens = torch.zeros((len(signals),), dtype=torch.int32,
+                              device=anchor_lp.device)
+    for group, lp, el in batches:
+        for row, g in enumerate(group):
+            anchor_lp[g, :lp.shape[1]] = lp[row]
+            anchor_lens[g] = el[row]
+    return labels, anchor_lp, anchor_lens
+
+
+def beam_bound_ms(lens, t_max, v1, k_c, w, n_cols, lm_rows, levels, probes):
+    """Least time for the beam search on these inputs: the larger of its
+    bytes (log-probs and top-K in, start state in, backpointers and final
+    state out, the LM table once) at 3.35 TB/s and its operations at the
+    fp32 rate, counted per valid frame of each row: expand ~6 per
+    candidate (base select, add, two hash multiply-adds), the merge test 6
+    per (stay, parent) pair (two hash multiply-adds, two compares), ~16 per
+    beam for its stay terms, ~(8 + 3 probes) per LM chain, a top-W select
+    of log2(W) compares per candidate, ~20 per new slot."""
+    import math
+
+    bsz = int(lens.shape[0])
+    steps = int(lens.sum())
+    nbytes = (4 * bsz * t_max * v1 + 8 * bsz * t_max * k_c
+              + 8 * t_max * bsz * w + 2 * 4 * bsz * w * n_cols
+              + 16 * lm_rows + 16 * levels + 4 * bsz)
+    per_step = (6 * w * k_c + 6 * w * w + 16 * w
+                + w * levels * (8 + 3 * probes)
+                + w * (k_c + 1) * math.ceil(math.log2(max(w, 2))) + 20 * w)
+    t_ops = steps * per_step / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), steps * per_step, nbytes
+
+
+def beam_phase(np, torch, dev, labels, anchor_lp, anchor_lens, lm_paths):
+    from vietasr_tpu_torch.ops.device_beam import (best_path_from_raw,
+                                                   device_beam_search,
+                                                   expansion_width,
+                                                   frame_topk,
+                                                   init_packed_state,
+                                                   packed_beam_totals,
+                                                   word_lm_to_device)
+    from vietasr_tpu_torch.ops.fused_beam import (beam_search_cuda,
+                                                  fused_beam_search)
+    from vietasr_tpu_torch.ops.lm import NGramLM, word_lm_tables
+
+    tables = {}
+    for order, path in lm_paths.items():
+        t, probes = word_lm_tables(NGramLM(path), labels)
+        tables[order] = (word_lm_to_device(t, dev), probes)
+    v1, space = len(labels) + 1, labels.index(" ")
+    bsz, t_max = 8, 840
+    rng = np.random.RandomState(2024)
+    logits = rng.randn(bsz, t_max, v1).astype(np.float32) * 3.0
+    logits[:, :, v1 - 1] += 2.0                       # blank-heavy, as CTC
+    synth_lp = torch.log_softmax(torch.from_numpy(logits), -1).to(dev)
+    synth_lens = rng.randint(t_max // 2, t_max + 1, size=bsz).astype(np.int32)
+    synth_lens[0] = t_max
+    synth_lens = torch.from_numpy(synth_lens).to(dev)
+    inputs = {"synthetic": (synth_lp, synth_lens),
+              "anchor": (anchor_lp, anchor_lens)}
+
+    worst = 0.0
+    for order, w in [(None, 16)] + [(o, w) for o in (3, 5)
+                                    for w in (16, 50, 100)]:
+        wl, probes = tables[order] if order else (None, 8)
+        kw = dict(beam_width=w, space=space, word_lm=wl, wlm_probes=probes,
+                  **BEAM_KW)
+        fin = dict(word_lm=wl, alpha=BEAM_KW["alpha"], beta=BEAM_KW["beta"],
+                   wlm_probes=probes)
+        for name, (lp, lens) in inputs.items():
+            raw_k = fused_beam_search(lp, lens, blank=v1 - 1,
+                                      return_raw=True, **kw)
+            raw_p = device_beam_search(lp, lens, blank=v1 - 1,
+                                       return_raw=True, **kw)
+            torch.cuda.synchronize()
+            raw_equal = all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+            ids_k, n_k = best_path_from_raw(*raw_k, **fin)
+            ids_p, n_p = best_path_from_raw(*raw_p, **fin)
+            best_k = packed_beam_totals(raw_k[0], **fin).amax(dim=1)
+            best_p = packed_beam_totals(raw_p[0], **fin).amax(dim=1)
+            err = (best_k - best_p).abs()
+            check(bool(torch.isfinite(best_k).all()), "beam: non-finite")
+            differ = [b for b in range(lp.shape[0])
+                      if int(n_k[b]) != int(n_p[b])
+                      or not torch.equal(ids_k[b, :int(n_k[b])],
+                                         ids_p[b, :int(n_p[b])])]
+            texts_equal = render(labels, ids_k, n_k) == render(labels, ids_p,
+                                                               n_p)
+            worst = max(worst, float(err.max()))
+            print(f"beam {name} B={lp.shape[0]} W={w} LM "
+                  f"{order or 'none'}: raw state/backpointers equal "
+                  f"{raw_equal}, rows differing {len(differ)}, max |d best "
+                  f"total| {float(err.max()):.3e}")
+            where = f"beam {name} W={w} LM {order}"
+            check(w != 16 or not differ, f"{where}: ids differ in rows "
+                  f"{differ}")
+            check(name != "anchor" or texts_equal,
+                  f"{where}: transcripts differ")
+            for b in differ:
+                check(float(err[b]) <= BEAM_TOTAL_REL_TOL
+                      * abs(float(best_p[b])),
+                      f"{where}: row {b} best total {float(best_k[b])} vs "
+                      f"{float(best_p[b])}")
+
+    # times at the bound's shape: B = 8, T = 840, W = 100, word 3-gram
+    wl, probes = tables[3]
+    w = 100
+    k_c = expansion_width(v1 - 1, BEAM_KW["cutoff_top_n"])
+    top_lp, top_ci = frame_topk(synth_lp, k_c)
+    state = init_packed_state(bsz, w, wl, dev)
+    kern = dict(blank=v1 - 1, space=space, alpha=BEAM_KW["alpha"],
+                beta=BEAM_KW["beta"], word_lm=wl, wlm_probes=probes)
+    ms = device_ms(lambda: beam_search_cuda(synth_lp, synth_lens, top_lp,
+                                            top_ci, state, **kern), reps=10)
+    plain = dict(beam_width=w, space=space, word_lm=wl, wlm_probes=probes,
+                 return_raw=True, **BEAM_KW)
+    plain_ms = device_ms(lambda: device_beam_search(
+        synth_lp, synth_lens, blank=v1 - 1, **plain), reps=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_beam_search(synth_lp, synth_lens, blank=v1 - 1, **plain)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3
+    bound, bound_by, ops, nbytes = beam_bound_ms(
+        synth_lens, t_max, v1, k_c, w, state.shape[-1], wl.packed.shape[0],
+        int(wl.masks.shape[0]), probes)
+    print(f"beam kernel B={bsz} T={t_max} W={w} K={k_c} word 3-gram "
+          f"({wl.packed.shape[0]} table rows, {probes} probes): {ms:.4f} ms "
+          f"({ms / t_max * 1e3:.2f} us per step), plain {plain_ms:.4f} ms "
+          f"device ({plain_wall:.1f} ms wall), bound {bound:.4f} ms by "
+          f"{bound_by} ({ops / 1e9:.3f} G operations, {nbytes / 1e6:.2f} "
+          f"MB); the {t_max} steps run one after another")
+    return {"name": "beam_search", "route": "cuda",
+            "source": "vietasr_tpu_torch/csrc/beam_search.cu",
+            "replaces": "vietasr_tpu/ops/pallas_beam.py:325",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def main() -> int:
@@ -384,7 +666,14 @@ def main() -> int:
           f"{torch.version.cuda}")
     dev = torch.device("cuda")
     kernels = [frontend_phase(np, torch, dev), repeat_phase(np, torch, dev)]
-    end_to_end_phase(np, torch, dev, kernels)
+    signals = end_to_end_phase(np, torch, dev, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_paths = train_word_lms(tmp)
+        kernels.append({"name": "beam_search", "launches": 0})
+        labels, anchor_lp, anchor_lens = beam_path_phase(
+            np, torch, signals, lm_paths, kernels)
+        kernels[-1].update(beam_phase(np, torch, dev, labels, anchor_lp,
+                                      anchor_lens, lm_paths))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ only, so on a machine with a GPU and no JAX it runs as
 
 (`--noconftest` skips tests/conftest.py, which sets JAX up). Tolerances:
 2e-4 for the frontend (the JAX package's own); one bf16 rounding step of
-the output, 2^-7 * max|want|, for the repeat block.
+the output, 2^-7 * max|want|, for the repeat block; none for the beam
+search, whose raw result (final state and backpointers) equals the plain
+version's at these small widths.
 """
 
 import os
@@ -23,6 +25,11 @@ from vietasr_tpu_torch.frontend.cuda_frontend import (
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix,
                                                  _windowed_dft_matrix)
+from vietasr_tpu_torch.ops import device_beam as tdb
+from vietasr_tpu_torch.ops.fused_beam import (beam_search_cuda,
+                                              fused_beam_search)
+from vietasr_tpu_torch.ops.lm import (NGramLM, train_ngram_arpa,
+                                      word_lm_tables)
 from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
                                                 fused_repeat_block_cuda,
                                                 fused_repeat_block_plain)
@@ -130,3 +137,69 @@ def test_transcriber_goes_through_both_kernels():
     assert (fused_log_mel_features.launches, fused_repeat_block.launches) \
         == (1, 13)
     assert np.isfinite(lp).all() and lens[0] == 150
+
+
+def _beam_inputs(bsz, t, w, seed, order, tmp_path, device):
+    """Seeded log-probs over 5 classes (space = 3, blank = 4), ragged
+    lengths, the start state and a word LM of `order` (or none)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(bsz, t, 5) * 1.8).astype(np.float32))
+    lp = torch.log_softmax(x, dim=-1).to(device)
+    lens = torch.tensor([t] + [max(1, t - 5 * i) for i in range(1, bsz)],
+                        dtype=torch.int32, device=device)
+    word_lm, probes = None, 8
+    if order:
+        arpa = str(tmp_path / f"w{order}.arpa")
+        train_ngram_arpa(["ab cab ba c", "ab ba cab ba", "cab ab ba c ab",
+                          "ba cab ab ba"] * 2, arpa, order=order)
+        tables, probes = word_lm_tables(NGramLM(arpa), ["a", "b", "c", " "])
+        word_lm = tdb.word_lm_to_device(tables, device)
+    return lp, lens, word_lm, probes
+
+
+def test_beam_kernel_refuses_cpu_tensors(tmp_path):
+    lp, lens, wl, probes = _beam_inputs(2, 10, 8, 0, 3, tmp_path, "cpu")
+    top_lp, top_ci = tdb.frame_topk(lp, 3)
+    state = tdb.init_packed_state(2, 8, wl)
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_search_cuda(lp, lens, top_lp, top_ci, state, blank=4, space=3,
+                         word_lm=wl, wlm_probes=probes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,k,order", [(8, 3, 0), (12, 4, 3), (16, 3, 5),
+                                       (100, 4, 2)])
+def test_beam_kernel_matches_plain(w, k, order, tmp_path):
+    _need_gpu()
+    lp, lens, wl, probes = _beam_inputs(3, 24, w, w + order, order, tmp_path,
+                                        "cuda")
+    kw = dict(beam_width=w, cutoff_top_n=k, space=3, alpha=0.5, beta=1.5,
+              word_lm=wl, wlm_probes=probes)
+    launches = fused_beam_search.launches
+    got = fused_beam_search(lp, lens, blank=4, return_raw=True, **kw)
+    want = tdb.device_beam_search(lp, lens, blank=4, return_raw=True, **kw)
+    torch.cuda.synchronize()
+    assert fused_beam_search.launches == launches + 1
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    ids, n = fused_beam_search(lp, lens, blank=4, **kw)
+    want_ids, want_n = tdb.device_beam_search(lp, lens, blank=4, **kw)
+    assert torch.equal(n, want_n) and torch.equal(ids, want_ids)
+
+
+@pytest.mark.cuda
+def test_beam_kernel_refuses_bad_inputs(tmp_path):
+    _need_gpu()
+    lp, lens, wl, probes = _beam_inputs(2, 10, 8, 0, 3, tmp_path, "cuda")
+    top_lp, top_ci = tdb.frame_topk(lp, 3)
+    state = tdb.init_packed_state(2, 8, wl, "cuda")
+    kw = dict(blank=4, space=3, word_lm=wl, wlm_probes=probes)
+    with pytest.raises(ValueError, match="float32"):
+        beam_search_cuda(lp.double(), lens, top_lp, top_ci, state, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        beam_search_cuda(lp, lens.long(), top_lp, top_ci, state, **kw)
+    wide = tdb.init_packed_state(2, 129, wl, "cuda")
+    with pytest.raises(ValueError, match="beam width"):
+        beam_search_cuda(lp, lens, top_lp, top_ci, wide, **kw)
+    with pytest.raises(ValueError, match="beam_width"):
+        fused_beam_search(lp, lens, beam_width=129, cutoff_top_n=3, **kw)

@@ -3,10 +3,12 @@ of QuartzNet12x1_vi on the trained anchor weights, on the CPU.
 
 Three seeded clips in two duration buckets go through both in fp32: log
 probabilities within 1e-4 (fp32 sums in another order over 15 blocks;
-measured ~3e-5), encoded lengths and transcripts equal.
+measured ~3e-5), encoded lengths and transcripts equal, for the greedy
+decoder and for the device beam with a word 3-gram and a char 3-gram.
 """
 
 import gzip
+import json
 import os
 
 import numpy as np
@@ -24,6 +26,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "vietasr_tpu_torch", "configs",
                       "quartznet12x1_vi.yaml")
 ANCHOR = os.path.join(ROOT, "artifacts", "real_speech_qn12x1_vi.msgpack.gz")
+MANIFEST = os.path.join(ROOT, "artifacts", "real_speech_manifest.json")
+# a small Vietnamese corpus for the test LMs (every char in the labels)
+VI_CORPUS = [
+    "xin chào các bạn", "bản tin thời sự hôm nay", "chào mừng quý vị",
+    "tin tức trong ngày", "cảm ơn các bạn đã lắng nghe",
+    "thời tiết hà nội hôm nay", "chúc các bạn một ngày tốt lành",
+    "đây là đài tiếng nói việt nam", "tin thể thao quốc tế",
+    "giá xăng dầu trong nước", "tình hình giao thông buổi sáng",
+    "xin kính chào quý vị và các bạn", "bản tin cuối ngày",
+    "chương trình ca nhạc theo yêu cầu", "dự báo thời tiết ngày mai",
+] * 2
 
 
 @pytest.fixture(scope="module")
@@ -116,10 +129,50 @@ def test_bf16_kernel_route_runs(anchor, pair, clips):
         assert np.abs(lp - ref).max() <= 0.5
 
 
-def test_options_not_ported_raise(anchor):
+@pytest.fixture(scope="module")
+def lm_files(tmp_path_factory):
+    """A word 3-gram over the corpus and the manifest's transcripts, and a
+    char 3-gram over the corpus (ARPA, written by the port)."""
+    from vietasr_tpu_torch.ops.lm import train_ngram_arpa
+
+    with open(MANIFEST, encoding="utf-8") as f:
+        refs = [json.loads(line)["text"].strip() for line in f]
+    d = tmp_path_factory.mktemp("lms")
+    word, char = str(d / "vi_word3.arpa"), str(d / "vi_char3.arpa")
+    train_ngram_arpa(VI_CORPUS + refs, word, order=3)
+    train_ngram_arpa(VI_CORPUS, char, order=3, char_level=True)
+    return {"word": word, "char": char}
+
+
+@pytest.mark.parametrize("kind,width", [("word", 16), ("char", 8)])
+def test_device_beam_transcripts_equal_jax(anchor, clips, lm_files, kind,
+                                           width):
+    """decoder="device_beam": the word LM takes the kernel route (its
+    plain version on the CPU), the char LM the plain search."""
+    kw = dict(decoder="device_beam", lm_path=lm_files[kind],
+              beam_width=width, compute_dtype=None)
+    jax_tr = JaxTranscriber(CONFIG, variables=anchor, options=JaxOptions(**kw))
+    port = Transcriber(CONFIG, variables=anchor, device="cpu",
+                       options=TranscriberOptions(**kw))
+    assert (port._device_word_lm is not None) == (kind == "word")
+    assert (port._device_lm_table is not None) == (kind == "char")
+    want = jax_tr.transcribe_batch(clips)
+    got = port.transcribe_batch(clips)
+    assert got == want
+    assert all(isinstance(t, str) and "  " not in t for t in got)
+
+
+def test_options_not_ported_raise(anchor, tmp_path):
+    from vietasr_tpu.ops.kenlm_binary import write_kenlm_binary
+    from vietasr_tpu_torch.ops.lm import train_ngram_arpa
+
+    arpa, binary = str(tmp_path / "lm.arpa"), str(tmp_path / "lm.binary")
+    train_ngram_arpa(VI_CORPUS, arpa, order=3)
+    write_kenlm_binary(arpa, binary)
     for opts, err in ((TranscriberOptions(decoder="beam"),
                        NotImplementedError),
-                      (TranscriberOptions(decoder="device_beam"),
+                      (TranscriberOptions(decoder="device_beam",
+                                          lm_path=binary),
                        NotImplementedError),
                       (TranscriberOptions(lm_path="lm.arpa"),
                        NotImplementedError),

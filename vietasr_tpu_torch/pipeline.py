@@ -1,11 +1,14 @@
-"""End-to-end inference facade (counterpart of vietasr_tpu/pipeline.py,
-greedy tier).
+"""End-to-end inference facade (counterpart of vietasr_tpu/pipeline.py:
+the greedy and the device beam tiers).
 
 waveform -> log-mel (the fused frontend kernel on the GPU) -> folded-BN
 QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16) -> CTC
-head log-softmax -> greedy collapse. Audio is zero-padded up to the next
-duration bucket and utterances of one bucket are batched together, as in
-the JAX package; the frontend reflects at the bucket end, as JAX does.
+head log-softmax -> greedy collapse, or (`decoder="device_beam"`) the
+batched beam search on the device with optional char- or word-LM fusion
+(the fused beam kernel on the GPU, ops/fused_beam.py). Audio is
+zero-padded up to the next duration bucket and utterances of one bucket
+are batched together, as in the JAX package; the frontend reflects at the
+bucket end, as JAX does.
 """
 
 from __future__ import annotations
@@ -25,8 +28,12 @@ from vietasr_tpu_torch.models.quartznet import (BLOCK_IMPLS,
                                                 cast_matmul_weights,
                                                 fold_batchnorm,
                                                 quartznet_apply)
+from vietasr_tpu_torch.ops.device_beam import (device_beam_transcripts,
+                                               word_lm_to_device)
 from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
                                           ids_to_text)
+from vietasr_tpu_torch.ops.lm import (SPACE_TOKEN, char_lm_table, load_lm,
+                                      word_lm_tables)
 from vietasr_tpu_torch.utils.device import resolve_device
 from vietasr_tpu_torch.utils.typing import assert_waveform
 
@@ -35,9 +42,9 @@ _DTYPES = {None: None, "bfloat16": torch.bfloat16, "float32": None}
 
 @dataclasses.dataclass
 class TranscriberOptions:
-    """The JAX package's option names. Beam decoding (`decoder="beam"`,
-    `"device_beam"`, `lm_path`) is the next slice of the port (ROADMAP A.6)
-    and raises NotImplementedError until then."""
+    """The JAX package's option names. `decoder="beam"` (the host decoder)
+    and `lm_path` with the greedy decoder are not ported yet (ROADMAP A.6)
+    and raise NotImplementedError."""
 
     beam_width: int = 100
     lm_path: Optional[str] = None
@@ -46,8 +53,12 @@ class TranscriberOptions:
     fold_bn: bool = True
     buckets_seconds: Sequence[float] = (2.0, 4.0, 6.0, 8.0, 11.0, 16.7)
     max_batch: int = 8
+    # "greedy" | "device_beam" (batched beam on the device; char-LM table
+    # or hashed word-LM fusion, no host round trip of the log-probs)
     decoder: str = "greedy"
     device_beam_cutoff_top_n: int = 8
+    # "auto": sniff the ARPA (multi-char unigrams => word LM);
+    # "char" / "word" force the on-device fusion kind
     device_beam_lm: str = "auto"
     # bf16 operands with fp32 accumulation; None (or "float32") for fp32
     compute_dtype: Optional[str] = "bfloat16"
@@ -79,12 +90,17 @@ class Transcriber:
         if self.cfg.architecture != "quartznet":
             raise NotImplementedError(
                 "only QuartzNet configs are ported (Conformer: ROADMAP A.10)")
-        if opts.decoder in ("beam", "device_beam") or opts.lm_path:
+        if opts.decoder == "beam" or (opts.lm_path
+                                      and opts.decoder != "device_beam"):
             raise NotImplementedError(
-                f"decoder={opts.decoder!r} / lm_path: the beam tier is "
-                "ROADMAP A.6, not ported yet")
-        if opts.decoder != "greedy":
+                f"decoder={opts.decoder!r} with lm_path={opts.lm_path!r}: "
+                "the host beam decoder is ROADMAP A.6, not ported yet; use "
+                "decoder='device_beam'")
+        if opts.decoder not in ("greedy", "device_beam"):
             raise ValueError(f"unknown decoder {opts.decoder!r}")
+        if opts.device_beam_lm not in ("auto", "char", "word"):
+            raise ValueError("device_beam_lm must be 'auto', 'char' or "
+                             f"'word', got {opts.device_beam_lm!r}")
         if opts.fused_frontend not in ("auto", "on", "off"):
             raise ValueError("fused_frontend must be 'auto', 'on' or 'off' "
                              f"('fast' is not ported), got "
@@ -115,6 +131,28 @@ class Transcriber:
         sr = fcfg.sample_rate
         self.buckets = [int(s * sr) for s in opts.buckets_seconds]
         self._pinned: dict = {}     # bucket samples -> page-locked buffer
+        self._device_lm_table = None
+        self._device_word_lm = None
+        self._device_wlm_probes = 8
+        self._device_n_ctx = 2
+        if opts.decoder == "device_beam" and opts.lm_path:
+            self._load_device_lm(opts.lm_path, opts.device_beam_lm)
+
+    def _load_device_lm(self, path: str, kind: str) -> None:
+        """The LM's device tables, moved to the device once."""
+        lm = load_lm(path)
+        if kind == "auto":
+            specials = {"<s>", "</s>", "<unk>", SPACE_TOKEN}
+            kind = "word" if any(len(w) > 1 and w not in specials
+                                 for w in lm.vocab) else "char"
+        if kind == "word":
+            tables, self._device_wlm_probes = word_lm_tables(
+                lm, self.cfg.labels)
+            self._device_word_lm = word_lm_to_device(tables, self.device)
+        else:
+            self._device_lm_table = torch.from_numpy(
+                char_lm_table(lm, self.cfg.labels)).to(self.device)
+            self._device_n_ctx = lm.order - 1
 
     # -- core ----------------------------------------------------------------
 
@@ -160,6 +198,28 @@ class Transcriber:
                 return b
         return ((n + 15999) // 16000) * 16000   # round long audio up to 1 s
 
+    @torch.inference_mode()
+    def _device_beam(self, lp: torch.Tensor, enc_lens: torch.Tensor):
+        """Beam-decode device log-probs (they stay on the device)."""
+        labels = self.cfg.labels
+        space = labels.index(" ") if " " in labels else -1
+        opts = self.opts
+        if self._device_word_lm is not None:
+            return device_beam_transcripts(
+                lp, enc_lens, labels, beam_width=opts.beam_width,
+                word_lm=self._device_word_lm,
+                wlm_probes=self._device_wlm_probes, space=space,
+                alpha=opts.lm_alpha, beta=opts.lm_beta,
+                cutoff_top_n=opts.device_beam_cutoff_top_n)
+        # char-LM fusion scores raw sequences (space=-1 keeps raw-prefix
+        # identity); without any LM, canonical identity
+        return device_beam_transcripts(
+            lp, enc_lens, labels, beam_width=opts.beam_width,
+            lm_table=self._device_lm_table, n_ctx=self._device_n_ctx,
+            space=-1 if self._device_lm_table is not None else space,
+            alpha=opts.lm_alpha, beta=0.0,
+            cutoff_top_n=opts.device_beam_cutoff_top_n)
+
     # -- public API ----------------------------------------------------------
 
     def log_probs(self, signal: np.ndarray, lengths=None):
@@ -204,9 +264,12 @@ class Transcriber:
                 s = np.asarray(signals[gi], np.float32)
                 batch[row, : len(s)] = s[:bl]
                 lens[row] = min(len(s), bl)
-            _, _, preds, keep = self._fwd(batch, lens)
-            texts = [ids_to_text(ids, self.cfg.labels)
-                     for ids in collapse_batch(preds, keep)]
+            lp, enc_lens, preds, keep = self._fwd(batch, lens)
+            if self.opts.decoder == "device_beam":
+                texts = self._device_beam(lp, enc_lens)
+            else:
+                texts = [ids_to_text(ids, self.cfg.labels)
+                         for ids in collapse_batch(preds, keep)]
             for row, gi in enumerate(group):
                 out[gi] = texts[row]
         return out  # type: ignore
