@@ -24,6 +24,19 @@ Phases, each of which raises on failure:
      ids identical at W = 16, transcripts identical on the anchor
      posteriors, and any other row that differs within 1e-4 |total| of the
      plain final best total
+  7. CTC alpha and beta kernels vs their plain versions: the training
+     shape (B = 32, T = 840 encoder frames, ragged lengths, ~13 characters
+     per second of audio: S = 435) and edge cases (target length 0, an
+     infeasible row, repeated labels, B = 1, S = 1025 just above the
+     1024-thread block); losses, alphas and gradients within CTC_TOL; the
+     loss also against F.ctc_loss, which times the library's CTC
+  8. the training path end to end: Trainer on QuartzNet12x1_vi at full
+     width (init_quartznet, seed 0), bf16, Novograd lr 0.02, wd 0.001,
+     CosineAnnealing with a 5-step warmup over 30 steps, B = 32 seeded
+     signals of 1.5-16.7 s padded to the 16.7 s bucket with VI_CORPUS
+     transcripts; one CTC kernel launch each way per step, 0 skipped
+     steps, the loss below 0.7x its first value after 30 steps on one
+     batch, and 3 steps through the kernels == 3 through the plain CTC
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -72,6 +85,37 @@ E2E_LOGP_TOL = 0.25
 # must still reach the same final best total to this relative tolerance
 BEAM_TOTAL_REL_TOL = 1e-4
 BEAM_KW = dict(cutoff_top_n=8, alpha=0.5, beta=1.5)
+# CTC pair vs its plain version: the same fp32 formulas in the same order
+# with the same expf/logf, so alphas, losses and gradients should agree bit
+# for bit; allow 1e-6 (relative for alphas and losses, absolute for the
+# gradient, whose entries lie in [0, ybar]) for an elementwise PyTorch
+# kernel that rounds one step differently
+CTC_TOL = 1e-6
+# the port's loss vs F.ctc_loss: another algorithm (its own lattice and
+# summation order) over up to 840 dependent fp32 steps
+CTC_LIBRARY_RTOL = 1e-4
+# the kernels' gradient vs autodiff through an fp64 scan, relative to the
+# largest |gradient|: the analytic gradient exp(alpha + beta - ll) (the
+# Pallas kernels' formula) takes the difference of lattice values ~1.6e3
+# that each carry the rounding of up to 840 fp32 additions (~1e-3), so its
+# entries are only ~1e-3 relatively right; autodiff through the scan is
+# closer, since each step's softmax weights come from nearby values
+CTC_GRAD_FP64_RTOL = 1e-2
+# operations per lattice cell: lse3 (2 max, 3 sub, 3 exp, 2 add, log, add,
+# compare) + the emission add + a select; the backward also forms the
+# gradient (add, sub, min, exp, mul, select)
+CTC_ALPHA_OPS, CTC_BETA_OPS = 15, 21
+TRAIN_STEPS, TRAIN_WARMUP = 30, 5
+# 3 train steps, kernel CTC vs plain CTC (the scan under autograd), from
+# one state and seed: {compute dtype: (step-1 grad norm, losses, params)},
+# relative; params as |p_kernel - p_plain| / |p_kernel - p_0| (global
+# norms). Step 1 runs the same forward, so its loss agrees to CTC_TOL; its
+# gradient is the analytic one vs autodiff, each ~1e-3 relative from exact
+# at these losses (phase 7's fp64 check). From step 2 on the parameters
+# differ, and a randomly initialized model spreads that over 3 Novograd
+# steps; in bf16 it also flips the rounding of weights and activations.
+TRAIN_ROUTE_TOLS = {None: (1e-3, 1e-3, 0.1),
+                    "bfloat16": (1e-3, 2.0 ** -8, 0.5)}
 
 
 def device_profile(fn, reps: int = 20):
@@ -79,7 +123,8 @@ def device_profile(fn, reps: int = 20):
     [(ms per call, launches per call, name)] of the kernels and copies it
     ran on the card, largest first. The host ops that launched them carry
     the same time again and are left out, as are CUPTI's own buffer
-    requests."""
+    requests. On the H100 machine a trace sometimes holds only part of a
+    kernel's launches (kernel_ms divides by the count it saw)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -101,6 +146,30 @@ def device_ms(fn, reps: int = 20) -> float:
     """Device time of one fn() call: the summed durations of what it runs
     on the card, so the host's launch gaps between kernels do not count."""
     return sum(r[0] for r in device_profile(fn, reps))
+
+
+def kernel_ms(fn, name: str, reps: int = 20, launches: int = 1):
+    """One kernel's device time per fn() call, fn() launching it `launches`
+    times. CUDA events around `reps` calls give an upper bound (they also
+    count host gaps between launches); the CUPTI trace gives the kernel
+    alone, but on the H100 machine a trace sometimes holds only part of
+    the launches, and then its durations are not to be trusted either. So:
+    CUPTI's time where the trace saw every launch, else the events' time.
+    Returns (ms, launches per call traced, event ms)."""
+    import torch
+
+    rows = [r for r in device_profile(fn, reps) if name in r[2]]
+    traced = sum(r[1] for r in rows)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ev_ms = start.elapsed_time(end) / reps
+    if abs(traced - launches) > 1e-6:
+        return ev_ms, traced, ev_ms
+    return sum(r[0] for r in rows), traced, ev_ms
 
 
 def check(cond: bool, what: str) -> None:
@@ -171,8 +240,8 @@ def frontend_phase(np, torch, dev):
     torch.cuda.synchronize()
     tile_err = float((lm_k - lm_p).abs().max())
     check(tile_err < FRONTEND_TOL, f"frontend tiles: max|d| {tile_err}")
-    ms = device_ms(lambda: log_mel_tiles_cuda(xp, seq_len, packed, mel,
-                                              cfg=cfg))
+    ms, seen, ev_ms = kernel_ms(lambda: log_mel_tiles_cuda(
+        xp, seq_len, packed, mel, cfg=cfg), "logmel_kernel")
     plain_ms = device_ms(lambda: log_mel_tiles_plain(xp, seq_len, dft, mel,
                                                      cfg=cfg))
     # the work the function needs: the DFT over the window's nonzero rows
@@ -185,7 +254,9 @@ def frontend_phase(np, torch, dev):
     nbytes = 4 * (xp.numel() + dft.numel() + mel.numel() + seq_len.numel()
                   + lm_k.numel() + parts_k.numel())
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"frontend kernel B=8 x 16.7 s ({frames} frames): {ms:.4f} ms, "
+    print(f"frontend kernel B=8 x 16.7 s ({frames} frames): {ms:.4f} ms "
+          f"({seen:g} launches per call traced; CUDA events "
+          f"{ev_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
           f"({flops / 1e9:.3f} GFLOP fp32 over {rows} nonzero DFT rows and "
           f"{mel_taps} mel taps, {nbytes / 1e6:.2f} MB)")
@@ -260,13 +331,16 @@ def repeat_phase(np, torch, dev):
               f"repeat ({c_in},{c_out},{k},R={r}): max|d| {err} > "
               f"{REPEAT_TOL_REL} * {scale}")
         worst = max(worst, err)
-        ms = device_ms(lambda: fused_repeat_block(*args, kernel=k))
+        ms, seen, ev_ms = kernel_ms(
+            lambda: fused_repeat_block(*args, kernel=k), "repeat_kernel",
+            launches=r)
         plain_ms = device_ms(lambda: fused_repeat_block_plain(*args,
                                                               kernel=k))
         bound, bound_by = repeat_bound_ms(bsz, t, c_in, c_out, k, r, True)
         print(f"repeat (C_in {c_in}, C_out {c_out}, K {k}, R {r}) B={bsz} "
               f"T={t}: max|d| {err:.3e} (max|want| {scale:.3f}), "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"{ms:.4f} ms ({seen:g} traced per call; events "
+              f"{ev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"by {bound_by}, x{per_fwd} per forward")
         tot["ms"] += per_fwd * ms
         tot["plain_ms"] += per_fwd * plain_ms
@@ -614,8 +688,9 @@ def beam_phase(np, torch, dev, labels, anchor_lp, anchor_lens, lm_paths):
     state = init_packed_state(bsz, w, wl, dev)
     kern = dict(blank=v1 - 1, space=space, alpha=BEAM_KW["alpha"],
                 beta=BEAM_KW["beta"], word_lm=wl, wlm_probes=probes)
-    ms = device_ms(lambda: beam_search_cuda(synth_lp, synth_lens, top_lp,
-                                            top_ci, state, **kern), reps=10)
+    ms, seen, ev_ms = kernel_ms(lambda: beam_search_cuda(
+        synth_lp, synth_lens, top_lp, top_ci, state, **kern), "beam_kernel",
+        reps=10)
     plain = dict(beam_width=w, space=space, word_lm=wl, wlm_probes=probes,
                  return_raw=True, **BEAM_KW)
     plain_ms = device_ms(lambda: device_beam_search(
@@ -630,7 +705,8 @@ def beam_phase(np, torch, dev, labels, anchor_lp, anchor_lens, lm_paths):
         int(wl.masks.shape[0]), probes)
     print(f"beam kernel B={bsz} T={t_max} W={w} K={k_c} word 3-gram "
           f"({wl.packed.shape[0]} table rows, {probes} probes): {ms:.4f} ms "
-          f"({ms / t_max * 1e3:.2f} us per step), plain {plain_ms:.4f} ms "
+          f"({ms / t_max * 1e3:.2f} us per step; {seen:g} traced per call, "
+          f"events {ev_ms:.4f} ms), plain {plain_ms:.4f} ms "
           f"device ({plain_wall:.1f} ms wall), bound {bound:.4f} ms by "
           f"{bound_by} ({ops / 1e9:.3f} G operations, {nbytes / 1e6:.2f} "
           f"MB); the {t_max} steps run one after another")
@@ -639,6 +715,429 @@ def beam_phase(np, torch, dev, labels, anchor_lp, anchor_lens, lm_paths):
             "replaces": "vietasr_tpu/ops/pallas_beam.py:325",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def ctc_case(np, torch, dev, seed, ilen, tlen, t_max, num_classes=90,
+             targets=None):
+    """Seeded (B, T, V) log-probs (blank = num_classes) and random labels
+    (or `targets`) -> the tensors both kernels take, on the card."""
+    from vietasr_tpu_torch.ops.ctc_loss import emission_lookup, lattice_masks
+
+    rng = np.random.RandomState(seed)
+    bsz, v = len(ilen), num_classes + 1
+    lp = torch.log_softmax(torch.from_numpy(
+        (rng.randn(bsz, t_max, v) * 2).astype(np.float32)).to(dev), dim=-1)
+    if targets is None:
+        targets = rng.randint(0, num_classes,
+                              size=(bsz, max(int(max(tlen)), 1)))
+    targets = torch.from_numpy(np.asarray(targets, np.int64)).to(dev)
+    ilen = torch.from_numpy(np.asarray(ilen, np.int32)).to(dev)
+    tlen = torch.from_numpy(np.asarray(tlen, np.int32)).to(dev)
+    ext, can, valid = lattice_masks(targets, tlen, num_classes)
+    lp_ext = emission_lookup(lp, ext).contiguous()
+    return dict(lp=lp, targets=targets, ilen=ilen, tlen=tlen, lp_ext=lp_ext,
+                can=can.contiguous(), valid=valid.contiguous())
+
+
+def ctc_compare(torch, c):
+    """Both kernels against their plain versions on one case: (max |d ll|
+    over feasible rows, max relative |d alpha|, max |d grad|)."""
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+
+    lat = (c["lp_ext"], c["can"], c["valid"], c["ilen"])
+    bsz = c["lp_ext"].shape[0]
+    a_k, a_p = fc.ctc_alpha_cuda(*lat), fc.ctc_alpha_plain(*lat)
+    ll_k = fc.final_ll(a_k[:, -1], c["tlen"])
+    ll_p = fc.final_ll(a_p[:, -1], c["tlen"])
+    ybar = torch.linspace(0.5, 1.5, bsz, device=a_k.device)
+    tail = (c["ilen"], c["tlen"])
+    g_k = fc.ctc_beta_cuda(c["lp_ext"], a_k, c["can"], c["valid"], *tail,
+                           ll_k, ybar)
+    g_p = fc.ctc_beta_plain(c["lp_ext"], a_p, c["can"], c["valid"], *tail,
+                            ll_p, ybar)
+    torch.cuda.synchronize()
+    feasible = ll_p > fc.NEG / 2
+    check(bool(torch.equal(feasible, ll_k > fc.NEG / 2)),
+          "ctc: kernel and plain disagree on which rows are feasible")
+    d_ll = float((ll_k - ll_p)[feasible].abs().max())
+    check(d_ll <= CTC_TOL * max(float(ll_p[feasible].abs().max()), 1.0),
+          f"ctc: |d ll| {d_ll}")
+    d_a = float(((a_k - a_p).abs() / a_p.abs().clamp_min(1.0)).max())
+    d_g = float((g_k - g_p).abs().max())
+    check(d_a <= CTC_TOL, f"ctc: relative |d alpha| {d_a}")
+    check(d_g <= CTC_TOL, f"ctc: |d grad| {d_g}")
+    check(bool(torch.isfinite(g_k).all()), "ctc: non-finite gradient")
+    for b in range(bsz):
+        check(not bool(g_k[b, int(c["ilen"][b]):].any()),
+              f"ctc: gradient past the input length in row {b}")
+        if not bool(feasible[b]):
+            check(not bool(g_k[b].any()),
+                  f"ctc: infeasible row {b} has a gradient")
+    return d_ll, d_a, d_g, ll_k
+
+
+def ctc_bound_ms(ilen, tlen, t_max, s):
+    """Least time for each kernel on these inputs: its operations over the
+    cells the data needs (forward: frames 1..ilen-1 of each row's 2*tlen+1
+    positions; backward: frames 0..ilen-1) at the fp32 rate, or its bytes
+    (the needed lp_ext / alpha cells in, the whole (B, T, S) lattice or
+    gradient out, the (B, S) gates and (B,) scalars)."""
+    bsz = len(ilen)
+    s_b = [2 * int(t) + 1 for t in tlen]
+    n = [min(max(int(i), 1), t_max) for i in ilen]
+    fwd_cells = sum((a - 1) * w for a, w in zip(n, s_b))
+    bwd_cells = sum(a * w for a, w in zip(n, s_b))
+    lattice = 4 * bsz * t_max * s
+    gates = 2 * bsz * s
+    out = []
+    for ops, nbytes in ((CTC_ALPHA_OPS * fwd_cells,
+                         4 * bwd_cells + lattice + gates + 4 * bsz),
+                        (CTC_BETA_OPS * bwd_cells,
+                         8 * bwd_cells + lattice + gates + 16 * bsz)):
+        t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        out.append((max(t_ops, t_bytes),
+                    "operations" if t_ops >= t_bytes else "bytes", ops,
+                    nbytes))
+    return out
+
+
+def ctc_phase(np, torch, dev):
+    """Phase 7: the CTC pair against its plain version, timed at the
+    training shape, with F.ctc_loss as the library's yardstick."""
+    import torch.nn.functional as F
+
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+    from vietasr_tpu_torch.ops.ctc_loss import (ctc_loss, emission_lookup,
+                                                lattice_masks)
+
+    # the training shape: 32 utterances of 1.5-16.7 s at 50 encoder frames
+    # and ~13 characters per second
+    rng = np.random.RandomState(7)
+    secs = rng.uniform(1.5, 16.7, size=32)
+    secs[0] = 16.7
+    t_max = 840
+    main_ilen = np.minimum((secs * 50).astype(np.int32), t_max)
+    main_tlen = np.round(secs * 13).astype(np.int32)
+    cases = {"training B=32 T=840 S=435": dict(
+        seed=8, ilen=main_ilen, tlen=main_tlen, t_max=t_max)}
+    edge_targets = np.zeros((6, 30), np.int64)
+    edge_targets[0, :30] = [5] * 10 + [6, 6, 7, 7] * 5    # repeats
+    edge_targets[1, :20] = np.arange(20)                   # infeasible
+    edge_targets[3, :12] = [3, 3, 3, 3, 9, 9, 9, 9, 1, 1, 2, 2]
+    edge_targets[4, :25] = np.arange(25) % 89
+    edge_targets[5, :8] = [8, 8, 8, 8, 8, 8, 8, 8]
+    cases["edges B=6 T=120"] = dict(
+        seed=9, ilen=[120, 12, 60, 31, 77, 17], tlen=[30, 20, 0, 12, 25, 8],
+        t_max=120, targets=edge_targets)
+    cases["B=1 T=300"] = dict(seed=10, ilen=[300], tlen=[80], t_max=300)
+    cases["S=1025 B=3 T=1100"] = dict(seed=11, ilen=[1100, 1090, 900],
+                                      tlen=[512, 500, 300], t_max=1100)
+    worst_ll = worst_g = 0.0
+    for name, kw in cases.items():
+        c = ctc_case(np, torch, dev, **kw)
+        d_ll, d_a, d_g, ll = ctc_compare(torch, c)
+        infeasible = int((ll <= fc.NEG / 2).sum())
+        worst_ll, worst_g = max(worst_ll, d_ll), max(worst_g, d_g)
+        print(f"ctc {name}: max|d loss| {d_ll:.3e}, max rel|d alpha| "
+              f"{d_a:.3e}, max|d grad| {d_g:.3e} (tol {CTC_TOL}); "
+              f"{infeasible} infeasible rows with zero gradient")
+        if name.startswith("edges"):
+            check(infeasible == 1, "ctc edges: want exactly 1 infeasible row")
+        if name.startswith("training"):
+            main = c
+
+    # the loss through the autograd Function, kernels vs plain versions,
+    # d loss / d log_probs through the emission lookup's transpose
+    ext, can, valid = lattice_masks(main["targets"], main["tlen"], 90)
+    grads = {}
+    for plain in (False, True):
+        x = main["lp"].detach().clone().requires_grad_(True)
+        loss = fc.ctc_neg_ll(emission_lookup(x, ext), can, valid,
+                             main["ilen"], main["tlen"], plain=plain)
+        loss.mean().backward()
+        grads[plain] = (loss.detach(), x.grad)
+    d_fn = float((grads[False][1] - grads[True][1]).abs().max())
+    check(torch.equal(grads[False][0], grads[True][0]) or float(
+        (grads[False][0] - grads[True][0]).abs().max())
+          <= CTC_TOL * float(grads[True][0].abs().max()),
+          "ctc: Function losses differ")
+    check(d_fn <= CTC_TOL, f"ctc: Function d/d log_probs differ by {d_fn}")
+    # how right the gradient is: the kernels' analytic gradient and
+    # autodiff through the fp32 scan, each against autodiff through an fp64
+    # scan (see CTC_GRAD_FP64_RTOL)
+    def scan_grad(dtype):
+        x = main["lp"].detach().to(dtype).requires_grad_(True)
+        ctc_loss(x, main["targets"], main["ilen"], main["tlen"], blank=90,
+                 reduction="none", impl="plain").mean().backward()
+        return x.grad
+
+    g64 = scan_grad(torch.float64)
+    err_kernel = float((grads[False][1] - g64).abs().max())
+    err_scan = float((scan_grad(torch.float32) - g64).abs().max())
+    print(f"ctc d loss / d log_probs vs an fp64 scan: kernels {err_kernel:.3e}"
+          f", fp32 scan under autograd {err_scan:.3e} (max |grad| "
+          f"{float(g64.abs().max()):.3e})")
+    check(err_kernel <= CTC_GRAD_FP64_RTOL * float(g64.abs().max()),
+          f"ctc: kernel gradient {err_kernel} from the fp64 scan's")
+    # the library's CTC on the same (T, B, V) log-probs
+    lp_tbv = main["lp"].transpose(0, 1).contiguous()
+    lib_args = (main["targets"], main["ilen"].long(), main["tlen"].long())
+    lib_kw = dict(blank=90, reduction="none", zero_infinity=True)
+    want = F.ctc_loss(lp_tbv, *lib_args, **lib_kw)
+    ours = grads[False][0]
+    d_lib = float(((ours - want).abs() / want.abs().clamp_min(1.0)).max())
+    check(d_lib <= CTC_LIBRARY_RTOL, f"ctc vs F.ctc_loss: rel {d_lib}")
+    print(f"ctc Function kernels vs plain: max|d d/dlog_probs| {d_fn:.3e}; "
+          f"loss vs F.ctc_loss: max rel {d_lib:.3e} (tol "
+          f"{CTC_LIBRARY_RTOL})")
+
+    # times at the training shape
+    lat = (main["lp_ext"], main["can"], main["valid"], main["ilen"])
+    alphas = fc.ctc_alpha_cuda(*lat)
+    ll = fc.final_ll(alphas[:, -1], main["tlen"])
+    ybar = torch.full_like(ll, 1.0 / 32)
+    beta_args = (main["lp_ext"], alphas, main["can"], main["valid"],
+                 main["ilen"], main["tlen"], ll, ybar)
+    ms_a, seen_a, ev_a = kernel_ms(lambda: fc.ctc_alpha_cuda(*lat),
+                                   "alpha_kernel")
+    ms_b, seen_b, ev_b = kernel_ms(lambda: fc.ctc_beta_cuda(*beta_args),
+                                   "beta_kernel")
+    plain_a = device_ms(lambda: fc.ctc_alpha_plain(*lat), reps=3)
+    plain_b = device_ms(lambda: fc.ctc_beta_plain(*beta_args), reps=3)
+    lib_fwd = device_ms(lambda: F.ctc_loss(lp_tbv, *lib_args, **lib_kw))
+    x = lp_tbv.detach().clone().requires_grad_(True)
+
+    def lib_step():
+        x.grad = None
+        F.ctc_loss(x, *lib_args, **lib_kw).sum().backward()
+
+    lib_both = device_ms(lib_step)
+    # the floor of T dependent steps: one warp's worth of lattice (B = 1,
+    # S = 3) over the same T, nothing to overlap with
+    tiny = ctc_case(np, torch, dev, 12, [t_max], [1], t_max)
+    tiny_lat = (tiny["lp_ext"], tiny["can"], tiny["valid"], tiny["ilen"])
+    tiny_a = fc.ctc_alpha_cuda(*tiny_lat)
+    tiny_ll = fc.final_ll(tiny_a[:, -1], tiny["tlen"])
+    floor_a = kernel_ms(lambda: fc.ctc_alpha_cuda(*tiny_lat),
+                        "alpha_kernel")[0]
+    floor_b = kernel_ms(lambda: fc.ctc_beta_cuda(
+        tiny["lp_ext"], tiny_a, tiny["can"], tiny["valid"], tiny["ilen"],
+        tiny["tlen"], tiny_ll, torch.ones_like(tiny_ll)), "beta_kernel")[0]
+    s = main["lp_ext"].shape[2]
+    (bound_a, by_a, ops_a, bytes_a), (bound_b, by_b, ops_b, bytes_b) = \
+        ctc_bound_ms(main_ilen, main_tlen, t_max, s)
+    for name, ms, seen, ev, plain_ms, bound, by, ops, nbytes, floor in (
+            ("alpha", ms_a, seen_a, ev_a, plain_a, bound_a, by_a, ops_a,
+             bytes_a, floor_a),
+            ("beta", ms_b, seen_b, ev_b, plain_b, bound_b, by_b, ops_b,
+             bytes_b, floor_b)):
+        print(f"ctc {name} kernel B=32 T={t_max} S={s}: {ms:.4f} ms ({seen:g}"
+              f" traced per call; events {ev:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+              f"({ops / 1e6:.1f} M operations, {nbytes / 1e6:.2f} MB); "
+              f"sequential floor (B=1, S=3, same T) {floor:.4f} ms")
+    print(f"F.ctc_loss B=32 T={t_max}: forward {lib_fwd:.4f} ms, forward + "
+          f"backward {lib_both:.4f} ms")
+    common = {"route": "cuda", "source": "vietasr_tpu_torch/csrc/ctc.cu",
+              "launches": 0}
+    return [dict(common, name="ctc_alpha",
+                 replaces="vietasr_tpu/ops/pallas_ctc.py:51",
+                 max_abs_err=worst_ll, ms=ms_a, plain_ms=plain_a,
+                 bound_ms=bound_a, bound_by=by_a, library_ms=lib_fwd,
+                 sequential_floor_ms=floor_a),
+            dict(common, name="ctc_beta",
+                 replaces="vietasr_tpu/ops/pallas_ctc.py:76",
+                 max_abs_err=worst_g, ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bound_b, bound_by=by_b,
+                 library_ms=lib_both - lib_fwd, sequential_floor_ms=floor_b)]
+
+
+KERNEL_GROUPS = {
+    "ctc alpha kernel": ("alpha_kernel",),
+    "ctc beta kernel": ("beta_kernel",),
+    "frontend kernel": ("logmel_kernel",),
+    "cuBLAS GEMMs": ("gemm", "xmma", "cutlass"),
+    "cuDNN": ("cudnn",),
+    "depthwise conv (aten)": ("conv_depthwise",),
+    "host-to-device copies": ("memcpy htod",),
+}
+
+
+def device_time_by_group(rows) -> dict:
+    """{group: device ms} of device_profile rows, by kernel name; the rest
+    (elementwise, reductions, copies on the card) as "other"."""
+    out = {g: 0.0 for g in KERNEL_GROUPS}
+    out["other"] = 0.0
+    for ms, _, key in rows:
+        low = key.lower()
+        group = next((g for g, words in KERNEL_GROUPS.items()
+                      if any(w in low for w in words)), "other")
+        out[group] += ms
+    return out
+
+
+def train_batch(np, cfg):
+    """B = 32 seeded signals of 1.5-16.7 s (x 0.1) padded to the 16.7 s
+    bucket, each with a VI_CORPUS transcript of ~13 characters per second."""
+    from vietasr_tpu_torch.audio import Batch, CharTokenizer
+
+    sr = cfg.featurizer.sample_rate
+    bsz, n = 32, int(16.7 * sr)
+    rng = np.random.RandomState(77)
+    secs = rng.uniform(1.5, 16.7, size=bsz)
+    secs[0] = 16.7
+    tok = CharTokenizer(cfg.labels)
+    text = " ".join(VI_CORPUS)
+    signal = np.zeros((bsz, n), np.float32)
+    lens = np.minimum((secs * sr).astype(np.int32), n)
+    ids = []
+    for i in range(bsz):
+        signal[i, :lens[i]] = rng.randn(lens[i]) * 0.1
+        k = int(round(13 * secs[i]))
+        off = rng.randint(0, len(text) - k)
+        ids.append(tok.encode(text[off:off + k]))
+    tokens = np.zeros((bsz, max(map(len, ids))), np.int32)
+    for i, t in enumerate(ids):
+        tokens[i, :len(t)] = t
+    return Batch(signal, lens, tokens,
+                 np.array([len(t) for t in ids], np.int32))
+
+
+def train_phase(np, torch, dev, kernels):
+    """Phase 8: Trainer.fit on QuartzNet12x1_vi at full width in bf16."""
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.models.quartznet import init_quartznet, tree_leaves
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.train import (Trainer, TrainState, make_optimizer,
+                                         make_schedule)
+    from vietasr_tpu_torch.train.loop import batch_to_tensors, make_loss_fn
+    from vietasr_tpu_torch.train.optim import global_norm
+
+    cfg = load_config(CONFIG)
+    batch = train_batch(np, cfg)
+    audio_s = float(batch.signal_lens.sum()) / cfg.featurizer.sample_rate
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    variables = init_quartznet(gen, cfg.encoder, cfg.num_classes, device=dev)
+    n_params = sum(int(p.numel()) for p in tree_leaves(variables["params"]))
+    schedule = make_schedule("CosineAnnealing", 0.02, TRAIN_STEPS,
+                             warmup_steps=TRAIN_WARMUP)
+    opt = make_optimizer("novograd", schedule, weight_decay=0.001)
+
+    def trainer(compute_dtype="bfloat16", **kw):
+        return Trainer(cfg, compute_dtype=compute_dtype,
+                       lr_schedule=schedule, seed=0, **kw)
+
+    print(f"train: QuartzNet12x1_vi {n_params} params, B={len(batch.signal_lens)}"
+          f" x 16.7 s bucket ({audio_s:.1f} audio-s), labels up to "
+          f"{batch.tokens.shape[1]}")
+
+    # 3 steps through the kernels, again, and through the plain CTC (the
+    # scan that autograd differentiates), from the same state and seed,
+    # cuDNN held to deterministic algorithms so that the CTC route is the
+    # only difference
+    torch.backends.cudnn.deterministic = True
+    for dtype, (tol_gn, tol_loss, tol_param) in TRAIN_ROUTE_TOLS.items():
+        runs = {}
+        for key, impl in (("kernel", "auto"), ("again", "auto"),
+                          ("plain", "plain")):
+            st = TrainState.create(variables, opt)
+            tr = trainer(dtype, log_every=1, ctc_impl=impl)
+            tr.fit(st, [batch] * 3)
+            runs[key] = ([(h["loss"], h["grad_norm"]) for h in tr.history
+                          if "loss" in h], st.param_list())
+        (k_hist, k_params), (p_hist, p_params) = runs["kernel"], runs["plain"]
+        check(bool(np.isfinite(k_hist).all()), f"train: non-finite {k_hist}")
+        same = k_hist == runs["again"][0] and all(
+            torch.equal(a, b) for a, b in zip(k_params, runs["again"][1]))
+        rel = [[abs(a - b) / abs(b) for a, b in zip(k, p)]
+               for k, p in zip(k_hist, p_hist)]
+        with torch.no_grad():
+            moved = global_norm([a - b for a, b in zip(
+                k_params, tree_leaves(variables["params"]))])
+            d_param = float(global_norm([a - b for a, b in zip(
+                k_params, p_params)]) / moved)
+        print(f"train 3 steps {dtype or 'float32'}, kernel CTC vs plain CTC: "
+              f"(loss, grad norm) {k_hist} vs {p_hist}; relative differences "
+              f"{rel}; |params_k - params_plain| / |params_k - params_0| "
+              f"{d_param:.3e}; kernel run repeated bit for bit: {same}")
+        check(same, "train: the kernel route does not repeat bit for bit")
+        check(rel[0][0] <= CTC_TOL and rel[0][1] <= tol_gn,
+              f"train: step 1 (loss, grad norm) differ by {rel[0]}")
+        check(max(r[0] for r in rel) <= tol_loss,
+              f"train: kernel vs plain losses differ by {rel}")
+        check(d_param <= tol_param,
+              f"train: kernel vs plain params differ by {d_param} of the move")
+    torch.backends.cudnn.deterministic = False
+
+    # the main path: one warm-up step, then 10 timed steps
+    state = TrainState.create(variables, opt)
+    tr = trainer(log_every=1)
+    tr.fit(state, [batch])
+    first = tr.history[0]["loss"]
+    tr.log_every = 10
+    torch.cuda.synchronize()
+    for f in (fc.fused_ctc_alpha, fc.fused_ctc_beta, fused_log_mel_features,
+              fused_repeat_block):
+        f.launches = 0
+    t0 = time.perf_counter()
+    tr.fit(state, [batch] * 10)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 10
+    launches = {"ctc_alpha": fc.fused_ctc_alpha.launches,
+                "ctc_beta": fc.fused_ctc_beta.launches,
+                "log_mel_frontend": fused_log_mel_features.launches,
+                "repeat_block": fused_repeat_block.launches}
+    print(f"train main path: 10 steps, launches {launches}")
+    check(launches == {"ctc_alpha": 10, "ctc_beta": 10,
+                       "log_mel_frontend": 10, "repeat_block": 0},
+          f"train: launches {launches} for 10 steps")
+    for k in kernels:
+        if k["name"] in ("ctc_alpha", "ctc_beta"):
+            k["launches"] = launches[k["name"]]
+    print(f"train step B={len(batch.signal_lens)} x 16.7 s bucket: "
+          f"{dt * 1e3:.2f} ms = "
+          f"{audio_s / dt:.1f} trained audio-s/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    rows = device_profile(lambda: tr.fit(state, [batch]), reps=3)
+    busy = sum(r[0] for r in rows)
+    print(f"profile of one train step: device busy {busy:.4f} ms of "
+          f"{dt * 1e3:.4f} ms wall ({100 * (1 - busy / (dt * 1e3)):.1f} % "
+          f"idle)")
+    # the forward alone (training mode, no autograd) on the same batch: the
+    # step less the forward is the backward and the update
+    loss_fn = make_loss_fn(cfg, compute_dtype=torch.bfloat16, device=dev)
+    tensors = batch_to_tensors(batch, dev)
+
+    @torch.no_grad()
+    def forward():
+        loss_fn(state.params, state.batch_stats, tensors, gen, True)
+
+    fwd = device_time_by_group(device_profile(forward, reps=3))
+    step = device_time_by_group(rows)
+    print("  device ms per step (forward / backward + update):")
+    for g in step:
+        print(f"    {g:<28} {step[g]:8.4f} ({fwd[g]:.4f} / "
+              f"{step[g] - fwd[g]:.4f})")
+    for ms, count, key in rows[:15]:
+        print(f"  {ms:8.4f} ms  x{count:<5g} {key[:100]}")
+
+    # on to step 30 on the same batch
+    tr.fit(state, [batch] * (TRAIN_STEPS - int(state.step)))
+    logged = [(h["step"], h["loss"]) for h in tr.history if "loss" in h]
+    last = logged[-1][1]
+    skipped = int(state.skipped_steps)
+    print(f"train {int(state.step)} steps on one batch: loss {first:.3f} -> "
+          f"{last:.3f} ({last / first:.3f}x; logged {logged}), skipped "
+          f"{skipped}")
+    check(int(state.step) == TRAIN_STEPS and logged[-1][0] == TRAIN_STEPS,
+          "train: step count")
+    check(skipped == 0, f"train: {skipped} steps skipped (non-finite)")
+    check(all(np.isfinite([l for _, l in logged])), "train: non-finite loss")
+    check(last < 0.7 * first, f"train: loss {first} -> {last}, not < 0.7x")
 
 
 def main() -> int:
@@ -674,6 +1173,11 @@ def main() -> int:
             np, torch, signals, lm_paths, kernels)
         kernels[-1].update(beam_phase(np, torch, dev, labels, anchor_lp,
                                       anchor_lens, lm_paths))
+    print(f"phases 1-6 done at {time.perf_counter() - t0:.1f} s")
+    kernels += ctc_phase(np, torch, dev)
+    print(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
+    train_phase(np, torch, dev, kernels)
+    print(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "vietasr_tpu_torch")
 
@@ -53,6 +55,10 @@ def test_importing_every_module_pulls_in_no_jax():
     assert len(names) >= 21
     for beam_tier in ("lm", "device_beam", "fused_beam"):
         assert f"vietasr_tpu_torch.ops.{beam_tier}" in names
+    for training in ("ops.ctc_loss", "ops.fused_ctc", "ops.specaug",
+                     "train.loop", "train.optim", "train.schedules",
+                     "train.state", "train.checkpoint", "audio.tokenizer"):
+        assert f"vietasr_tpu_torch.{training}" in names
 
 
 def test_no_forbidden_import_in_sources():
@@ -81,3 +87,38 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """Trainer, CheckpointManager, the featurizers, the loss and the
+    JAX-state converter: device=None means CUDA, and raises without it."""
+    import numpy as np
+    import torch
+
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.frontend.cuda_frontend import make_fused_featurizer
+    from vietasr_tpu_torch.frontend.features import make_featurizer
+    from vietasr_tpu_torch.models.convert import train_state_from_jax
+    from vietasr_tpu_torch.train import (CheckpointManager, Trainer,
+                                         make_optimizer)
+    from vietasr_tpu_torch.train.loop import make_loss_fn
+
+    cfg = load_config(os.path.join(PORT, "configs", "quartznet12x1_vi.yaml"))
+    variables = {"params": {"w": np.ones(2, np.float32)}, "batch_stats": {}}
+    entry_points = {
+        "Trainer": lambda: Trainer(cfg).device,
+        "CheckpointManager": lambda: CheckpointManager(str(tmp_path)).device,
+        "make_featurizer": lambda: make_featurizer(cfg.featurizer)
+        .keywords["dft_matrix"].device,
+        "make_fused_featurizer": lambda: make_fused_featurizer(
+            cfg.featurizer).keywords["mel_matrix"].device,
+        "make_loss_fn": lambda: make_loss_fn(cfg) and torch.device("cuda"),
+        "train_state_from_jax": lambda: train_state_from_jax(
+            variables, optimizer=make_optimizer("sgd", 0.1)).step.device,
+    }
+    for name, call in entry_points.items():
+        if torch.cuda.is_available():
+            assert call().type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()

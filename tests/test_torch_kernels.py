@@ -10,7 +10,10 @@ only, so on a machine with a GPU and no JAX it runs as
 2e-4 for the frontend (the JAX package's own); one bf16 rounding step of
 the output, 2^-7 * max|want|, for the repeat block; none for the beam
 search, whose raw result (final state and backpointers) equals the plain
-version's at these small widths.
+version's at these small widths. The CTC pair: the alpha lattice and
+the gradient within 1e-6 of the plain versions (the same fp32 formulas in
+the same order with the same expf/logf; nonzero only if an elementwise
+PyTorch kernel rounds differently).
 """
 
 import os
@@ -26,6 +29,8 @@ from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix,
                                                  _windowed_dft_matrix)
 from vietasr_tpu_torch.ops import device_beam as tdb
+from vietasr_tpu_torch.ops import fused_ctc
+from vietasr_tpu_torch.ops.ctc_loss import emission_lookup, lattice_masks
 from vietasr_tpu_torch.ops.fused_beam import (beam_search_cuda,
                                               fused_beam_search)
 from vietasr_tpu_torch.ops.lm import (NGramLM, train_ngram_arpa,
@@ -39,6 +44,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRONTEND_TOL = 2e-4
 REPEAT_REL_TOL = 2.0 ** -7
+CTC_TOL = 1e-6
 
 
 def _need_gpu():
@@ -203,3 +209,96 @@ def test_beam_kernel_refuses_bad_inputs(tmp_path):
         beam_search_cuda(lp, lens, top_lp, top_ci, wide, **kw)
     with pytest.raises(ValueError, match="beam_width"):
         fused_beam_search(lp, lens, beam_width=129, cutoff_top_n=3, **kw)
+
+
+def _ctc_lattice(bsz, t, l, seed, device):
+    """Seeded (B, T, S) lattice inputs over 7 classes (blank 6): ragged
+    input lengths, row 0 with repeated labels, row 1 (if any) with target
+    length 0, row 2 (if any) infeasible."""
+    rng = np.random.RandomState(seed)
+    lp = torch.log_softmax(torch.from_numpy(
+        (rng.randn(bsz, t, 7) * 2).astype(np.float32)), dim=-1)
+    targets = torch.from_numpy(rng.randint(0, 6, size=(bsz, l)))
+    ilen = torch.from_numpy(rng.randint(max(t // 2, 1), t + 1, size=bsz)
+                            .astype(np.int32))
+    tlen = torch.from_numpy(rng.randint(1, l + 1, size=bsz).astype(np.int32))
+    ilen[0], tlen[0] = t, l
+    targets[0, : l // 2] = 3
+    if bsz > 1:
+        tlen[1] = 0
+    if bsz > 2:
+        ilen[2], tlen[2] = max(l // 4, 1), l
+    ext, can, valid = lattice_masks(targets, tlen, 6)
+    lp_ext = emission_lookup(lp, ext).contiguous()
+    return [a.to(device) for a in (lp_ext, can, valid, ilen, tlen)]
+
+
+def test_ctc_kernels_refuse_cpu_tensors():
+    lp_ext, can, valid, ilen, tlen = _ctc_lattice(2, 12, 3, 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ctc.ctc_alpha_cuda(lp_ext, can, valid, ilen)
+    ll = torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ctc.ctc_beta_cuda(lp_ext, lp_ext, can, valid, ilen, tlen, ll,
+                                torch.ones(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,t,l", [(5, 60, 9), (1, 40, 12), (3, 1100, 512),
+                                     (4, 200, 100)])
+def test_ctc_kernels_match_plain(bsz, t, l):
+    """S = 2L + 1 of 19, 25, 1025 (just above the 1024-thread block: two
+    positions per thread) and 201; B = 1 and ragged lengths; a repeated
+    label run, a target length 0 and an infeasible row."""
+    _need_gpu()
+    lp_ext, can, valid, ilen, tlen = _ctc_lattice(bsz, t, l, bsz + t, "cuda")
+    n_alpha, n_beta = fused_ctc.fused_ctc_alpha.launches, \
+        fused_ctc.fused_ctc_beta.launches
+    alphas = fused_ctc.fused_ctc_alpha(lp_ext, can, valid, ilen)
+    want_alphas = fused_ctc.ctc_alpha_plain(lp_ext, can, valid, ilen)
+    ll = fused_ctc.final_ll(alphas[:, -1], tlen)
+    ybar = torch.linspace(0.5, 1.5, bsz, device="cuda")
+    grad = fused_ctc.fused_ctc_beta(lp_ext, alphas, can, valid, ilen, tlen,
+                                    ll, ybar)
+    want_grad = fused_ctc.ctc_beta_plain(lp_ext, want_alphas, can, valid,
+                                         ilen, tlen, ll, ybar)
+    torch.cuda.synchronize()
+    assert (fused_ctc.fused_ctc_alpha.launches,
+            fused_ctc.fused_ctc_beta.launches) == (n_alpha + 1, n_beta + 1)
+    scale = torch.clamp_min(want_alphas.abs(), 1.0)
+    assert float(((alphas - want_alphas).abs() / scale).max()) <= CTC_TOL
+    assert float((grad - want_grad).abs().max()) <= CTC_TOL
+    if bsz > 2:
+        assert float(ll[2]) < -1e29 and not grad[2].any()
+    for row in range(bsz):
+        assert not grad[row, int(ilen[row]):].any()
+
+
+@pytest.mark.cuda
+def test_ctc_loss_kernel_route_matches_plain_route():
+    """ctc_loss(impl="kernel") through the autograd Function against the
+    plain Function on the card: losses and d loss / d log_probs."""
+    _need_gpu()
+    from vietasr_tpu_torch.ops.ctc_loss import ctc_loss
+
+    rng = np.random.RandomState(11)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.randn(6, 80, 9).astype(np.float32)), dim=-1).cuda()
+    targets = torch.from_numpy(rng.randint(0, 8, size=(6, 20))).cuda()
+    ilen = torch.tensor([80, 77, 60, 41, 80, 9], dtype=torch.int32).cuda()
+    tlen = torch.tensor([20, 18, 0, 15, 7, 20], dtype=torch.int32).cuda()
+    out = {}
+    for plain in (False, True):
+        x = lp.clone().requires_grad_(True)
+        ext, can, valid = lattice_masks(targets, tlen, 8)
+        loss = fused_ctc.ctc_neg_ll(emission_lookup(x, ext), can, valid, ilen,
+                                    tlen, plain=plain)
+        loss.sum().backward()
+        out[plain] = (loss.detach(), x.grad)
+    via_loss = ctc_loss(lp, targets, ilen, tlen, blank=8, reduction="none",
+                        impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(via_loss, out[False][0])
+    assert float((out[False][0] - out[True][0]).abs().max()) \
+        <= CTC_TOL * float(out[True][0][:5].abs().max())
+    assert float((out[False][1] - out[True][1]).abs().max()) <= 1e-5

@@ -158,8 +158,8 @@ def test_bf16_routes_agree():
     fused, fused_lens = _apply_block(x, lens, params[1], stats[1],
                                      cfg.blocks[1], cfg, torch.bfloat16,
                                      "plain")
-    ops, ops_lens = _apply_block_ops(x, lens, params[1], stats[1],
-                                     cfg.blocks[1], cfg, torch.bfloat16)
+    ops, ops_lens, _ = _apply_block_ops(x, lens, params[1], stats[1],
+                                        cfg.blocks[1], cfg, torch.bfloat16)
     assert fused.dtype == torch.bfloat16 and torch.equal(fused_lens, ops_lens)
     assert float((fused.float() - ops).abs().max()) \
         <= 2.0 ** -7 * float(ops.abs().max())

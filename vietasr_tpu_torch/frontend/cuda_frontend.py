@@ -26,7 +26,8 @@ from vietasr_tpu_torch import _build
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix,
                                                  _windowed_dft_matrix,
-                                                 feature_seq_len, log_guard,
+                                                 add_dither, feature_seq_len,
+                                                 log_guard,
                                                  mask_and_pad_time,
                                                  preemphasize_and_pad)
 from vietasr_tpu_torch.utils.device import resolve_device
@@ -208,17 +209,22 @@ def fused_log_mel_features(signal: torch.Tensor, lengths: torch.Tensor, *,
                            cfg: FeaturizerConfig,
                            dft_matrix: Union[torch.Tensor, PackedDFT,
                                              None] = None,
-                           mel_matrix: Optional[torch.Tensor] = None):
+                           mel_matrix: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           training: bool = False):
     """(B, S) float waveform + (B,) int lengths ->
     (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32).
 
     CUDA tensors go through the kernel (counted in `.launches`); CPU
     tensors through its plain version. The constant DFT / mel matrices are
     built on the signal's device, and the DFT packed for the kernel, unless
-    given (make_fused_featurizer builds and packs them once)."""
+    given (make_fused_featurizer builds and packs them once). training=True
+    adds the dither from `generator` before the kernel, as log_mel_features
+    does before its DFT."""
     tiles = log_mel_tiles_plain if signal.device.type == "cpu" \
         else log_mel_tiles_cuda
-    return _featurize(signal, lengths, cfg, tiles, dft_matrix, mel_matrix)
+    return _featurize(add_dither(signal, cfg, generator, training), lengths,
+                      cfg, tiles, dft_matrix, mel_matrix)
 
 
 fused_log_mel_features.launches = 0

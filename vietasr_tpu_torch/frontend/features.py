@@ -169,6 +169,18 @@ def mask_and_pad_time(feats: torch.Tensor, seq_len: torch.Tensor, t_out: int,
     return F.pad(feats, (0, 0, 0, t_final - t), value=cfg.pad_value)
 
 
+def add_dither(signal: torch.Tensor, cfg: FeaturizerConfig,
+               generator: Optional[torch.Generator], training: bool
+               ) -> torch.Tensor:
+    """fp32 signal + cfg.dither * N(0, 1) noise from `generator`, in
+    training only (inference never dithers)."""
+    x = signal.to(torch.float32)
+    if cfg.dither > 0 and training:
+        x = x + cfg.dither * torch.randn(x.shape, generator=generator,
+                                         device=x.device, dtype=x.dtype)
+    return x
+
+
 def log_mel_features(
     signal: torch.Tensor,
     lengths: torch.Tensor,
@@ -180,7 +192,8 @@ def log_mel_features(
     training: bool = False,
 ):
     """(B, S) float waveform + (B,) int lengths ->
-    (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32)."""
+    (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32). training=True
+    dithers from `generator`."""
     assert_audio_batch(signal, lengths, port="featurizer.input_signal")
     if cfg.frame_splicing != 1:
         raise NotImplementedError("frame_splicing > 1 is not ported yet")
@@ -188,11 +201,8 @@ def log_mel_features(
     n_fft = cfg.fft_length
     seq_len = feature_seq_len(lengths, hop)
 
-    x = signal.to(torch.float32)
-    if cfg.dither > 0 and training:
-        x = x + cfg.dither * torch.randn(x.shape, generator=generator,
-                                         device=x.device, dtype=x.dtype)
-    xp = preemphasize_and_pad(x, cfg)
+    xp = preemphasize_and_pad(add_dither(signal, cfg, generator, training),
+                              cfg)
     frames = xp.unfold(1, n_fft, hop)                           # (B, T, n_fft)
     spec = torch.matmul(frames, dft_matrix)                     # (B, T, 2*nb)
     n_bins = n_fft // 2 + 1
@@ -210,8 +220,8 @@ def log_mel_features(
 
 
 def make_featurizer(cfg: FeaturizerConfig, *, device=None):
-    """Bind the constant DFT/mel matrices on `device` and return
-    featurize(signal, lengths, ...)."""
+    """Bind the constant DFT/mel matrices on `device` (None: CUDA) and
+    return featurize(signal, lengths, *, generator=None, training=False)."""
     dev = resolve_device(device)
     dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
     mel = torch.as_tensor(_mel_matrix(cfg), device=dev)

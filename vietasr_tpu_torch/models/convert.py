@@ -1,4 +1,4 @@
-"""Weights in: the JAX package's variables tree -> the port's tree.
+"""Weights in and out: the JAX package's variables tree <-> the port's.
 
 `load_anchor(path)` reads a `*.msgpack.gz` variables file as flax's
 `msgpack_serialize` writes it, with a small msgpack decoder of its own
@@ -6,6 +6,9 @@
 turns such a tree of numpy arrays (unfolded or folded) into torch tensors
 on a device; the structure and key names stay those of the JAX package,
 so `quartznet_apply` computes what JAX's does on the same tree.
+`train_state_from_jax` builds the port's TrainState from JAX's unfolded
+tree (and a Novograd state), so a train step from the same state computes
+the same thing in both; `to_numpy` is the way back.
 """
 
 from __future__ import annotations
@@ -121,3 +124,53 @@ def params_from_jax(variables: dict, *, device=None) -> dict:
         return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     return map_tree(leaf, variables)
+
+
+def to_numpy(tree):
+    """A tree of tensors -> the same tree of numpy arrays (on the host)."""
+    return map_tree(lambda t: t.detach().cpu().numpy() if torch.is_tensor(t)
+                    else np.asarray(t), tree)
+
+
+def _paired_leaves(a, b) -> list:
+    """[(leaf of a, leaf of b)] matched by key and position (two trees of
+    the same structure whose dicts may list their keys in other orders)."""
+    if isinstance(a, dict):
+        return [pair for k in a for pair in _paired_leaves(a[k], b[k])]
+    if isinstance(a, (list, tuple)):
+        return [pair for x, y in zip(a, b) for pair in _paired_leaves(x, y)]
+    return [(a, b)]
+
+
+def train_state_from_jax(variables: dict, novograd_state=None, step: int = 0,
+                         *, optimizer, device=None):
+    """JAX's unfolded {params, batch_stats} tree (numpy leaves) -> the
+    port's TrainState on `device` (None: CUDA), its optimizer built by
+    `optimizer` (a make_optimizer constructor). `novograd_state` (JAX's
+    NovogradState, or a dict of its fields: exp_avg shaped like params,
+    scalar exp_avg_sq per tensor, step) sets the moments and the step count
+    of a Novograd."""
+    # imported here: the train package imports this module
+    from vietasr_tpu_torch.train.optim import Novograd
+    from vietasr_tpu_torch.train.state import TrainState
+
+    dev = resolve_device(device)
+    state = TrainState.create(params_from_jax(variables, device=dev),
+                              optimizer, step=step)
+    if novograd_state is None:
+        return state
+    field = (novograd_state.get if isinstance(novograd_state, dict)
+             else lambda k: getattr(novograd_state, k))
+    opt = state.optimizer
+    if not isinstance(opt, Novograd):
+        raise TypeError(f"novograd_state given for a {type(opt).__name__}")
+    moments = params_from_jax({"m": field("exp_avg"),
+                               "v": field("exp_avg_sq")}, device=dev)
+    for p, m in _paired_leaves(state.params, moments["m"]):
+        opt.state[p]["exp_avg"] = m.reshape(p.shape)
+    for p, v in _paired_leaves(state.params, moments["v"]):
+        opt.state[p]["exp_avg_sq"] = v.reshape(())
+    for group in opt.param_groups:
+        group["step"] = torch.tensor(int(np.asarray(field("step"))),
+                                     dtype=torch.int32, device=dev)
+    return state

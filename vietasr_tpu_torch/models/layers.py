@@ -1,5 +1,6 @@
 """NWC conv / norm primitives for the QuartzNet encoder (counterpart of
-vietasr_tpu/models/layers.py, inference subset).
+vietasr_tpu/models/layers.py: convolutions, batch norm in both modes,
+dropout and the torch-compatible initializers).
 
 Activations are (B, T, C), channels last, as in the JAX package; the
 convolutions transpose to PyTorch's (B, C, T) around `F.conv1d` and back.
@@ -16,10 +17,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.1
 
 
 def length_mask(t: int, lens: torch.Tensor,
@@ -72,11 +76,38 @@ def dense_conv1d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return y.transpose(1, 2)
 
 
+def init_batchnorm(c: int, *, device=None):
+    """(params {scale 1, bias 0}, stats {mean 0, var 1}) for C channels."""
+    params = {"scale": torch.ones(c, device=device),
+              "bias": torch.zeros(c, device=device)}
+    stats = {"mean": torch.zeros(c, device=device),
+             "var": torch.ones(c, device=device)}
+    return params, stats
+
+
 def batchnorm_apply(x: torch.Tensor, params: dict, stats: dict, *,
-                    eps: float = BN_EPS) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last axis of x (B, T, C)."""
-    inv = torch.rsqrt(stats["var"] + eps)
-    return (x - stats["mean"]) * (inv * params["scale"]) + params["bias"]
+                    training: bool = False, eps: float = BN_EPS,
+                    momentum: float = BN_MOMENTUM):
+    """BatchNorm over the last axis of x (B, T, C). Returns (y, new_stats).
+
+    Training (torch BatchNorm1d semantics, as the JAX package): statistics
+    over (B, T) including padding, the biased variance to normalize, the
+    unbiased one in the running update; the new stats carry no gradient.
+    Eval: the running stats normalize and pass through."""
+    if training:
+        n = x.shape[0] * x.shape[1]
+        mean = torch.mean(x, dim=(0, 1))
+        var = torch.mean((x - mean) ** 2, dim=(0, 1))
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        new_stats = {
+            "mean": (1 - momentum) * stats["mean"] + momentum * mean.detach(),
+            "var": (1 - momentum) * stats["var"] + momentum * unbiased,
+        }
+    else:
+        mean, var = stats["mean"], stats["var"]
+        new_stats = stats
+    inv = torch.rsqrt(var + eps)
+    return (x - mean) * (inv * params["scale"]) + params["bias"], new_stats
 
 
 def fold_bn_into_conv(conv_w: torch.Tensor, bn_params: dict, bn_stats: dict,
@@ -85,3 +116,43 @@ def fold_bn_into_conv(conv_w: torch.Tensor, bn_params: dict, bn_stats: dict,
     channels on its LAST axis. Returns (w_folded, bias)."""
     inv = bn_params["scale"] / torch.sqrt(bn_stats["var"] + eps)
     return conv_w * inv, bn_params["bias"] - bn_stats["mean"] * inv
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], training: bool
+            ) -> torch.Tensor:
+    """Inverted dropout with its keep mask drawn from `generator` (the JAX
+    package draws raw bits from a key: the masks differ, the distribution
+    is the same)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# initializers (torch-compatible), drawn from a torch.Generator
+
+
+def symmetric_uniform(generator, shape, bound: float, *, device=None
+                      ) -> torch.Tensor:
+    """U(-bound, bound) from `generator`."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -bound + (2.0 * bound) * u
+
+
+def xavier_uniform(generator, shape, fan_in: int, fan_out: int, *,
+                   device=None) -> torch.Tensor:
+    """torch.nn.init.xavier_uniform_ with gain 1 (reference init_weights)."""
+    return symmetric_uniform(generator, shape,
+                             math.sqrt(6.0 / (fan_in + fan_out)),
+                             device=device)
+
+
+def kaiming_uniform(generator, shape, fan_in: int, *, device=None
+                    ) -> torch.Tensor:
+    """torch kaiming_uniform_ with nonlinearity='relu' (gain sqrt(2))."""
+    return symmetric_uniform(generator, shape,
+                             math.sqrt(2.0) * math.sqrt(3.0 / fan_in),
+                             device=device)

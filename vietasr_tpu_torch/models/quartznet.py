@@ -1,12 +1,13 @@
-"""QuartzNet/Jasper encoder + CTC head for inference (counterpart of
-vietasr_tpu/models/quartznet.py).
+"""QuartzNet/Jasper encoder + CTC head (counterpart of
+vietasr_tpu/models/quartznet.py): init, inference and training forward.
 
 Variables are the JAX package's tree with torch tensors for leaves:
 `{"params": {"encoder": [block, ...], "decoder": {"w", "b"}},
 "batch_stats": {"encoder": [...]}}`, each block `{"sub": [...], "res":
 [...], "se": []}`. `quartznet_apply` is a plain function over that tree,
 as in JAX, so each weight is found under the same path in both packages
-(models/convert.py loads it).
+(models/convert.py loads it). `init_quartznet` builds the unfolded tree
+from a `torch.Generator`.
 
 Block routing. A block that `block_eligible` accepts (separable, stride 1,
 folded BN: blocks 1-13 of QuartzNet12x1) goes through the fused repeat
@@ -16,11 +17,14 @@ on the GPU (in the JAX package the Pallas block was opt-in, through
 `block_impl="pallas"`). `block_impl="plain"` runs the same blocks through
 the kernel's plain PyTorch version. Other blocks, and every block outside
 bf16, take the per-op path (`_apply_block_ops`), as JAX's default XLA path
-does: blocks 0 (stride 2) and 14 (dense 1x1) and the head always do.
+does: blocks 0 (stride 2) and 14 (dense 1x1) and the head always do. In
+training every block takes the per-op path: BN is unfolded and uses batch
+statistics, which the fused block cannot (JAX's `block_eligible` refuses
+training too).
 
 bf16 semantics follow the JAX package: convolutions take bf16 operands,
-1x1 products accumulate in fp32 and return fp32, biases are added in
-fp32, and the head's log-softmax is fp32.
+1x1 products accumulate in fp32 and return fp32, biases and BN are fp32,
+and the head's log-softmax is fp32.
 """
 
 from __future__ import annotations
@@ -32,9 +36,12 @@ import torch
 from vietasr_tpu_torch.config import BlockConfig, EncoderConfig
 from vietasr_tpu_torch.models.layers import (batchnorm_apply,
                                              conv_out_length, dense_conv1d,
-                                             depthwise_conv1d,
-                                             fold_bn_into_conv, mask_padding,
-                                             pointwise_conv)
+                                             depthwise_conv1d, dropout,
+                                             fold_bn_into_conv,
+                                             init_batchnorm, kaiming_uniform,
+                                             mask_padding, pointwise_conv,
+                                             symmetric_uniform,
+                                             xavier_uniform)
 from vietasr_tpu_torch.ops.repeat_block import (block_eligible,
                                                 fused_repeat_block,
                                                 fused_repeat_block_plain)
@@ -51,6 +58,28 @@ def map_tree(fn: Callable, tree):
     return fn(tree)
 
 
+def assign_tree(dst, src, where: Optional[torch.Tensor] = None) -> None:
+    """dst <- src leaf by leaf, matched by key, in place; with `where` (a
+    0-d bool tensor) only where it holds."""
+    if isinstance(dst, dict):
+        for k in dst:
+            assign_tree(dst[k], src[k], where)
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            assign_tree(a, b, where)
+    else:
+        dst.copy_(src if where is None else torch.where(where, src, dst))
+
+
+def tree_leaves(tree) -> list:
+    """The tensor/array leaves of a dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
 def _check_supported(cfg: EncoderConfig) -> None:
     if cfg.activation != "relu" or cfg.residual_mode != "add":
         raise NotImplementedError(
@@ -62,9 +91,81 @@ def _check_supported(cfg: EncoderConfig) -> None:
                 "ported yet")
 
 
+def _conv_init(generator, shape, mode: str, fan_in: int, fan_out: int,
+               device):
+    if mode == "xavier_uniform":
+        return xavier_uniform(generator, shape, fan_in, fan_out,
+                              device=device)
+    if mode == "kaiming_uniform":
+        return kaiming_uniform(generator, shape, fan_in, device=device)
+    if mode in ("xavier_normal", "kaiming_normal"):
+        std = (2.0 / (fan_in + fan_out)) ** 0.5 if mode == "xavier_normal" \
+            else (2.0 / fan_in) ** 0.5
+        return std * torch.randn(shape, generator=generator, device=device)
+    raise ValueError(f"unknown init mode {mode!r}")
+
+
+def _init_sub(generator, bcfg: BlockConfig, c_in: int, c_out: int,
+              mode: str, device):
+    """One conv + BN sub-layer. Weight layouts: depthwise (K, C), pointwise
+    (Cin, Cout), dense (K, Cin, Cout); fans as torch computes them."""
+    k = bcfg.effective_kernel
+    params: dict = {}
+    if bcfg.separable:
+        params["dw_w"] = _conv_init(generator, (k, c_in), mode, k, c_in * k,
+                                    device)
+        params["pw_w"] = _conv_init(generator, (c_in, c_out), mode, c_in,
+                                    c_out, device)
+    else:
+        params["conv_w"] = _conv_init(generator, (k, c_in, c_out), mode,
+                                      c_in * k, c_out * k, device)
+    params["bn"], stats = init_batchnorm(c_out, device=device)
+    return params, {"bn": stats}
+
+
+def init_quartznet(generator: Optional[torch.Generator], cfg: EncoderConfig,
+                   num_classes: int, *, device=None) -> dict:
+    """The unfolded variables tree, drawn from `generator` (on `device`;
+    None: the device's default generator) in block order: each sub-layer's
+    weights, then the residual pane's, then the head. num_classes excludes
+    the blank; the head outputs num_classes + 1. The JAX package splits a
+    key instead, so the values differ and the shapes, fans and
+    distributions are the same."""
+    _check_supported(cfg)
+    mode = cfg.init_mode
+    enc_params, enc_stats = [], []
+    feat_in = cfg.feat_in
+    for bcfg in cfg.blocks:
+        params = {"sub": [], "res": [], "se": []}
+        stats = {"sub": [], "res": []}
+        c = feat_in
+        for _ in range(bcfg.repeat):
+            p, st = _init_sub(generator, bcfg, c, bcfg.filters, mode, device)
+            params["sub"].append(p)
+            stats["sub"].append(st)
+            c = bcfg.filters
+        if bcfg.residual:
+            bn, bn_stats = init_batchnorm(bcfg.filters, device=device)
+            params["res"].append({"conv_w": _conv_init(
+                generator, (feat_in, bcfg.filters), mode, feat_in,
+                bcfg.filters, device), "bn": bn})
+            stats["res"].append({"bn": bn_stats})
+        enc_params.append(params)
+        enc_stats.append(stats)
+        feat_in = bcfg.filters
+    v = num_classes + 1
+    dec = {"w": _conv_init(generator, (feat_in, v), cfg.init_mode, feat_in, v,
+                           device),
+           # torch Conv1d's default bias init: U(-1/sqrt(fan_in), +)
+           "b": symmetric_uniform(generator, (v,), feat_in ** -0.5,
+                                   device=device)}
+    return {"params": {"encoder": enc_params, "decoder": dec},
+            "batch_stats": {"encoder": enc_stats}}
+
+
 def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
-               compute_dtype):
-    """conv + BN (or folded bias). Returns (y fp32, new_lens)."""
+               compute_dtype, training: bool = False):
+    """conv + BN (or folded bias). Returns (y fp32, new_lens, new_stats)."""
     cast = (lambda a: a.to(compute_dtype)) if compute_dtype \
         else (lambda a: a)
     if conv_mask:
@@ -84,14 +185,16 @@ def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
         lens = conv_out_length(lens, bcfg.effective_kernel, bcfg.stride,
                                bcfg.dilation, bcfg.same_padding)
     if "bn" in params:
-        return batchnorm_apply(x, params["bn"], stats["bn"]), lens
-    return x + cast(params["b"]).to(torch.float32), lens
+        y, new_bn = batchnorm_apply(x, params["bn"], stats["bn"],
+                                    training=training)
+        return y, lens, {"bn": new_bn}
+    return x + cast(params["b"]).to(torch.float32), lens, stats
 
 
 def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
                  cfg: EncoderConfig, compute_dtype, block_impl: str):
-    """JasperBlock forward: R sub-layers (ReLU between), + residual, ReLU;
-    an eligible bf16 block as one fused repeat block."""
+    """Inference JasperBlock: R sub-layers (ReLU between), + residual,
+    ReLU; an eligible bf16 block as one fused repeat block."""
     if (compute_dtype == torch.bfloat16 and cfg.conv_mask
             and block_eligible(bcfg, params, False)):
         fused = fused_repeat_block_plain if block_impl == "plain" \
@@ -106,30 +209,43 @@ def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
                     res["b"] if res else None,
                     kernel=bcfg.effective_kernel)
         return out, lens
-    return _apply_block_ops(x, lens, params, stats, bcfg, cfg, compute_dtype)
+    return _apply_block_ops(x, lens, params, stats, bcfg, cfg,
+                            compute_dtype)[:2]
 
 
 def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
-                     cfg: EncoderConfig, compute_dtype):
-    """The per-op JasperBlock: each sub-layer's conv and bias apart."""
+                     cfg: EncoderConfig, compute_dtype,
+                     training: bool = False,
+                     generator: Optional[torch.Generator] = None):
+    """The per-op JasperBlock: each sub-layer's conv and BN (or bias)
+    apart; dropout (training only) after each ReLU. Returns (out, lens,
+    new_block_stats)."""
     out, out_lens = x, lens
+    new_stats = {"sub": [], "res": []}
     for r in range(bcfg.repeat):
-        out, out_lens = _apply_sub(out, out_lens, params["sub"][r],
-                                   stats["sub"][r] if stats else None, bcfg,
-                                   cfg.conv_mask, compute_dtype)
+        out, out_lens, st = _apply_sub(out, out_lens, params["sub"][r],
+                                       stats["sub"][r] if stats else None,
+                                       bcfg, cfg.conv_mask, compute_dtype,
+                                       training)
+        new_stats["sub"].append(st)
         if r < bcfg.repeat - 1:
-            out = torch.relu(out)
+            out = dropout(torch.relu(out), bcfg.dropout, generator, training)
     cast = (lambda a: a.to(compute_dtype)) if compute_dtype \
         else (lambda a: a)
     for i, pane in enumerate(params["res"]):
         res = mask_padding(x, lens) if cfg.conv_mask else x
         res = pointwise_conv(cast(res), cast(pane["conv_w"]))
+        pane_stats = stats["res"][i] if stats else {}
         if "bn" in pane:
-            res = batchnorm_apply(res, pane["bn"], stats["res"][i]["bn"])
+            res, new_bn = batchnorm_apply(res, pane["bn"], pane_stats["bn"],
+                                          training=training)
+            pane_stats = {"bn": new_bn}
         else:
             res = res + cast(pane["b"]).to(torch.float32)
+        new_stats["res"].append(pane_stats)
         out = out + res
-    return torch.relu(out), out_lens
+    out = dropout(torch.relu(out), bcfg.dropout, generator, training)
+    return out, out_lens, new_stats
 
 
 def quartznet_apply(
@@ -140,12 +256,17 @@ def quartznet_apply(
     cfg: EncoderConfig,
     compute_dtype: Optional[torch.dtype] = None,
     block_impl: str = "auto",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference forward pass.
+    training: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """Forward pass.
 
     feats: (B, T, feat_in) from the frontend (channels last); feat_lens:
     (B,) int. Returns (log_probs (B, T', num_classes + 1) fp32, out_lens
-    (B,) int32)."""
+    (B,) int32). With training=True (unfolded BN on batch statistics,
+    dropout drawn from `generator`) it returns (log_probs, out_lens,
+    new_batch_stats), as the JAX function does; the new stats carry no
+    gradient."""
     if block_impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, "
                          f"got {block_impl!r}")
@@ -153,13 +274,24 @@ def quartznet_apply(
     params = variables["params"]
     stats = variables.get("batch_stats", {}).get("encoder")
     x, lens = feats, feat_lens
+    new_enc_stats = []
     for i, bcfg in enumerate(cfg.blocks):
-        x, lens = _apply_block(x, lens, params["encoder"][i],
-                               stats[i] if stats else None, bcfg, cfg,
-                               compute_dtype, block_impl)
+        block_stats = stats[i] if stats else None
+        if training:
+            x, lens, st = _apply_block_ops(x, lens, params["encoder"][i],
+                                           block_stats, bcfg, cfg,
+                                           compute_dtype, True, generator)
+            new_enc_stats.append(st)
+        else:
+            x, lens = _apply_block(x, lens, params["encoder"][i],
+                                   block_stats, bcfg, cfg, compute_dtype,
+                                   block_impl)
     dec = params["decoder"]
     logits = pointwise_conv(x, dec["w"]) + dec["b"].to(torch.float32)
-    return torch.log_softmax(logits, dim=-1), lens.to(torch.int32)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    if training:
+        return log_probs, lens.to(torch.int32), {"encoder": new_enc_stats}
+    return log_probs, lens.to(torch.int32)
 
 
 def fold_batchnorm(variables: dict, cfg: EncoderConfig) -> dict:

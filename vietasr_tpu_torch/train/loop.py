@@ -1,0 +1,365 @@
+"""Train/eval steps and the Trainer loop (counterpart of
+vietasr_tpu/train/loop.py).
+
+- forward = featurize (dither) -> SpecAugment -> QuartzNet in training
+  mode (batch-stat BN) -> CTC loss; autograd takes the gradient.
+- gradient accumulation over microbatches, the BN running stats carried
+  from one microbatch to the next.
+- NaN/inf guard: a non-finite loss or global grad norm skips the update
+  of params, BN stats and optimizer state and counts the skip, all on the
+  device (no host round trip inside the step).
+
+Routes on the GPU: the featurizer is the log-mel CUDA kernel
+(frontend/cuda_frontend.py; features carry no gradient, and the dither is
+added to the waveform before it), the CTC loss the alpha/beta CUDA kernel
+pair (`ctc_impl="auto"`). On CPU tensors both take their plain versions,
+the featurizer the plain log-mel chain as JAX computes it.
+
+The JAX train step returns a new state; here the step updates `state` in
+place and returns it. Random numbers (dither, SpecAugment masks, dropout)
+come from one torch.Generator, drawn in that order; the JAX package splits
+a key, so the draws differ and their distributions do not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from vietasr_tpu_torch.config import ModelConfig
+from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
+                                                      make_fused_featurizer)
+from vietasr_tpu_torch.frontend.features import make_featurizer
+from vietasr_tpu_torch.models.quartznet import assign_tree, quartznet_apply
+from vietasr_tpu_torch.ops.ctc_loss import CTC_IMPLS, ctc_loss
+from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
+                                          ids_to_text)
+from vietasr_tpu_torch.ops.specaug import apply_spec_augment
+from vietasr_tpu_torch.train.metrics import levenshtein, word_error_rate
+from vietasr_tpu_torch.train.optim import global_norm
+from vietasr_tpu_torch.train.state import TrainState
+from vietasr_tpu_torch.utils.device import resolve_device
+from vietasr_tpu_torch.utils.typing import assert_audio_batch, assert_labels
+
+_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+BATCH_KEYS = ("signal", "signal_lens", "tokens", "token_lens")
+
+
+def batch_to_tensors(batch, device) -> Dict[str, torch.Tensor]:
+    """A Batch of numpy arrays -> {signal, signal_lens, tokens,
+    token_lens} tensors on `device`."""
+    return {k: torch.from_numpy(np.ascontiguousarray(getattr(batch, k)))
+            .to(device) for k in BATCH_KEYS}
+
+
+def make_train_featurizer(cfg: ModelConfig, device: torch.device):
+    """featurize(signal, lengths, *, generator, training): the log-mel
+    kernel on the GPU where fused_supported, else the plain chain."""
+    fused = device.type == "cuda" and fused_supported(cfg.featurizer)
+    return (make_fused_featurizer if fused else make_featurizer)(
+        cfg.featurizer, device=device)
+
+
+def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 ctc_impl: str = "auto", device=None):
+    """loss_fn(params, batch_stats, batch, generator, training) ->
+    (loss, (new_stats, log_probs, enc_lens)).
+
+    compute_dtype=torch.bfloat16 runs the encoder's convolutions and
+    products in bf16 with fp32 params and accumulation. Padded rows
+    (signal_lens == 0) and CTC-infeasible rows (the ~1e30 sentinel) are
+    masked per sample, torch CTCLoss(zero_infinity=True) semantics, and the
+    loss is the mean over the remaining rows."""
+    if ctc_impl not in CTC_IMPLS:
+        raise ValueError(f"ctc_impl must be one of {CTC_IMPLS}, "
+                         f"got {ctc_impl!r}")
+    featurize = make_train_featurizer(cfg, resolve_device(device))
+    blank = cfg.num_classes
+
+    def loss_fn(params, batch_stats, batch, generator, training: bool):
+        assert_audio_batch(batch["signal"], batch["signal_lens"])
+        assert_labels(batch["tokens"], batch["token_lens"])
+        feats, flens = featurize(batch["signal"], batch["signal_lens"],
+                                 generator=generator, training=training)
+        if training and use_specaug:
+            feats = apply_spec_augment(feats, cfg.spec_augment,
+                                       generator=generator)
+        variables = {"params": params, "batch_stats": batch_stats}
+        if training:
+            log_probs, enc_lens, new_stats = quartznet_apply(
+                variables, feats, flens, cfg=cfg.encoder,
+                compute_dtype=compute_dtype, training=True,
+                generator=generator)
+        else:
+            log_probs, enc_lens = quartznet_apply(
+                variables, feats, flens, cfg=cfg.encoder,
+                compute_dtype=compute_dtype)
+            new_stats = batch_stats
+        per_sample = ctc_loss(log_probs, batch["tokens"], enc_lens,
+                              batch["token_lens"], blank=blank,
+                              reduction="none", impl=ctc_impl)
+        valid = (batch["signal_lens"] > 0) & torch.isfinite(per_sample) \
+            & (per_sample < 1e25)
+        per_sample = torch.where(valid, per_sample,
+                                 torch.zeros_like(per_sample))
+        loss = per_sample.sum() / torch.clamp_min(valid.sum(), 1)
+        return loss, (new_stats, log_probs, enc_lens)
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
+                    use_specaug: bool = True,
+                    lr_schedule: Optional[Callable] = None,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    ctc_impl: str = "auto", device=None):
+    """train_step(state, batch, generator) -> (state, metrics): one update
+    of `state` (in place) from a batch of tensors; metrics are device
+    tensors (loss, grad_norm, and lr with a schedule)."""
+    loss_fn = make_loss_fn(cfg, use_specaug=use_specaug,
+                           compute_dtype=compute_dtype, ctc_impl=ctc_impl,
+                           device=device)
+
+    def grads_of(state: TrainState, stats, batch, generator):
+        loss, (new_stats, _, _) = loss_fn(state.params, stats, batch,
+                                          generator, True)
+        grads = torch.autograd.grad(loss, state.param_list())
+        return loss.detach(), new_stats, grads
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator]):
+        if grad_accum > 1:
+            bsz = batch["signal"].shape[0]
+            if bsz % grad_accum:
+                raise ValueError(f"batch {bsz} does not split into "
+                                 f"{grad_accum} microbatches")
+            m = bsz // grad_accum
+            new_stats, grads, loss = state.batch_stats, None, 0.0
+            for k in range(grad_accum):
+                micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
+                loss_k, new_stats, grads_k = grads_of(state, new_stats, micro,
+                                                      generator)
+                grads = grads_k if grads is None \
+                    else [a + b for a, b in zip(grads, grads_k)]
+                loss = loss + loss_k
+            grads = [g / grad_accum for g in grads]
+            loss = loss / grad_accum
+        else:
+            loss, new_stats, grads = grads_of(state, state.batch_stats, batch,
+                                              generator)
+
+        # a masked NaN row can leave the loss finite while the gradients are
+        # NaN (it still reaches the BN batch stats), so guard both
+        grad_norm = global_norm(grads)
+        finite = torch.isfinite(loss) & (loss < 1e25) \
+            & torch.isfinite(grad_norm)
+        for p, g in zip(state.param_list(), grads):
+            p.grad = torch.where(finite, g, torch.zeros_like(g))
+        state.optimizer.step(finite=finite)
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            assign_tree(state.batch_stats, new_stats, finite)
+            state.step += 1
+            state.skipped_steps += (~finite).to(torch.int32)
+        metrics = {"loss": loss,
+                   "grad_norm": torch.where(finite, grad_norm,
+                                            torch.full_like(grad_norm,
+                                                            float("inf")))}
+        if lr_schedule is not None:
+            metrics["lr"] = lr_schedule(state.step)
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, *, ctc_impl: str = "auto", device=None):
+    """eval_step(params, batch_stats, batch) -> {loss, preds, keep,
+    enc_lens}: the fp32 eval forward (running-stat BN), no gradient."""
+    loss_fn = make_loss_fn(cfg, use_specaug=False, ctc_impl=ctc_impl,
+                           device=device)
+    blank = cfg.num_classes
+
+    @torch.no_grad()
+    def eval_step(params, batch_stats, batch):
+        loss, (_, log_probs, enc_lens) = loss_fn(params, batch_stats, batch,
+                                                 None, False)
+        preds, keep = greedy_decode(log_probs, enc_lens, blank=blank)
+        return {"loss": loss, "preds": preds, "keep": keep,
+                "enc_lens": enc_lens}
+
+    return eval_step
+
+
+def _prefetch(iterable, depth: int = 2):
+    """Background-thread batch prefetch: host-side batch preparation runs
+    while the device executes the previous step. Worker exceptions
+    re-raise at the consumer; a consumer that stops early releases the
+    worker."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not _put(item):
+                    return
+            _put(done)
+        except BaseException as e:        # forwarded, not swallowed
+            _put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Epoch/step loop with callbacks, eval and checkpointing (the JAX
+    Trainer's fields, less `optimizer`, which the TrainState holds here,
+    and the not-yet-ported profile and value-schedule hooks). Callbacks are
+    plain callables fn(trainer, metrics_dict) invoked every `log_every`
+    steps. `device=None` means CUDA, and raises without a GPU."""
+
+    cfg: ModelConfig
+    grad_accum: int = 1
+    use_specaug: bool = True
+    lr_schedule: Optional[Callable] = None
+    compute_dtype: Optional[str] = None      # e.g. "bfloat16"
+    log_every: int = 10
+    eval_every: int = 0
+    checkpoint_manager: Optional[object] = None
+    checkpoint_every: int = 0
+    seed: int = 0
+    # log a sample hyp/ref + batch WER every log_every steps
+    monitor_progress: bool = False
+    # "auto": the CUDA kernel pair on the GPU, the plain recursion on CPU
+    ctc_impl: str = "auto"
+    # background-thread batch prefetch depth (0 disables)
+    prefetch_depth: int = 2
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        if self.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
+        self.device = resolve_device(self.device)
+        self._train_step = make_train_step(
+            self.cfg, grad_accum=self.grad_accum,
+            use_specaug=self.use_specaug, lr_schedule=self.lr_schedule,
+            compute_dtype=_DTYPES[self.compute_dtype],
+            ctc_impl=self.ctc_impl, device=self.device)
+        self._eval_step = make_eval_step(self.cfg, ctc_impl=self.ctc_impl,
+                                         device=self.device)
+        self.callbacks = []
+        self.history = []
+
+    def fit(self, state: TrainState, batcher: Iterable, *,
+            num_epochs: int = 1, eval_batcher: Optional[Iterable] = None
+            ) -> TrainState:
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.seed)
+        step = int(state.step)
+        for epoch in range(num_epochs):
+            t_epoch = time.time()
+            it = (_prefetch(iter(batcher), depth=self.prefetch_depth)
+                  if self.prefetch_depth > 0 else batcher)
+            for batch in it:
+                t0 = time.time()
+                state, metrics = self._train_step(
+                    state, batch_to_tensors(batch, self.device), generator)
+                step += 1
+                if self.log_every and step % self.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m.update(step=step, epoch=epoch,
+                             step_time=time.time() - t0)
+                    if self.monitor_progress:
+                        m.update(self._progress_sample(state, batch))
+                    self.history.append(m)
+                    for cb in self.callbacks:
+                        cb(self, m)
+                if (self.eval_every and eval_batcher is not None
+                        and step % self.eval_every == 0):
+                    self.evaluate(state, eval_batcher)
+                if (self.checkpoint_manager is not None
+                        and self.checkpoint_every
+                        and step % self.checkpoint_every == 0):
+                    self.checkpoint_manager.save(state, step)
+            self.history.append({"epoch": epoch,
+                                 "epoch_time": time.time() - t_epoch})
+        return state
+
+    def _decode(self, state: TrainState, batch):
+        """(hyps, refs, loss) of one batch, padded rows skipped."""
+        labels = self.cfg.labels
+        out = self._eval_step(state.params, state.batch_stats,
+                              batch_to_tensors(batch, self.device))
+        seqs = collapse_batch(out["preds"].cpu(), out["keep"].cpu())
+        hyps, refs = [], []
+        for i, ids in enumerate(seqs):
+            if batch.signal_lens[i] == 0:
+                continue
+            hyps.append(ids_to_text(ids, labels))
+            refs.append("".join(
+                labels[t] for t in batch.tokens[i, : batch.token_lens[i]]))
+        return hyps, refs, float(out["loss"])
+
+    def _progress_sample(self, state: TrainState, batch) -> dict:
+        """One hyp/ref pair and the batch WER of the current batch."""
+        hyps, refs, _ = self._decode(state, batch)
+        if not hyps:
+            return {}
+        return {"train_wer": word_error_rate(hyps, refs),
+                "sample_hyp": hyps[0], "sample_ref": refs[0]}
+
+    def evaluate(self, state: TrainState, batcher: Iterable) -> dict:
+        """Greedy-decode eval with corpus WER/CER (one process; the JAX
+        package's multi-host sum waits for parallel/, ROADMAP A.12)."""
+        hyps, refs, losses = [], [], []
+        for batch in batcher:
+            h, r, loss = self._decode(state, batch)
+            hyps += h
+            refs += r
+            losses.append(loss)
+
+        def counts(use_cer):
+            edits = tokens = 0
+            for h, r in zip(hyps, refs):
+                h_l = list(h) if use_cer else h.split()
+                r_l = list(r) if use_cer else r.split()
+                edits += levenshtein(h_l, r_l)
+                tokens += len(r_l)
+            return edits, tokens
+
+        (w_e, w_t), (c_e, c_t) = counts(False), counts(True)
+        result = {
+            "eval_loss": float(np.sum(losses)) / max(len(losses), 1),
+            "wer": w_e / w_t if w_t else float("inf"),
+            "cer": c_e / c_t if c_t else float("inf"),
+            "num_utts": len(hyps),
+        }
+        self.history.append(result)
+        return result

@@ -41,6 +41,15 @@ def assert_audio_batch(signal, lengths=None, *, port: str = "audio_signal"):
             _fail(f"{port}.lengths", f"({signal.shape[0]},) int", lengths)
 
 
+def assert_labels(tokens, lengths=None, *, port: str = "targets"):
+    """(B, L) int label ids [+ (B,) int lengths]."""
+    if tokens.ndim != 2 or not _dtype_name(tokens).startswith("int"):
+        _fail(port, "(B, L) int labels", tokens)
+    if lengths is not None and (lengths.ndim != 1
+                                or lengths.shape[0] != tokens.shape[0]):
+        _fail(f"{port}.lengths", f"({tokens.shape[0]},) int", lengths)
+
+
 def assert_log_probs(log_probs, *, num_classes: Optional[int] = None,
                      port: str = "log_probs"):
     """(B, T, V+1) float log-probabilities (blank = last class)."""
