@@ -10,7 +10,7 @@ only, so on a machine with a GPU and no JAX it runs as
 2e-4 for the frontend (the JAX package's own); one bf16 rounding step of
 the output, 2^-7 * max|want|, for the repeat block; none for the beam
 search, whose raw result (final state and backpointers) equals the plain
-version's at these small widths. The CTC pair: the alpha lattice and
+version's, ties included. The CTC pair: the alpha lattice and
 the gradient within 1e-6 of the plain versions (the same fp32 formulas in
 the same order with the same expf/logf; nonzero only if an elementwise
 PyTorch kernel rounds differently).
@@ -145,14 +145,20 @@ def test_transcriber_goes_through_both_kernels():
     assert np.isfinite(lp).all() and lens[0] == 150
 
 
-def _beam_inputs(bsz, t, w, seed, order, tmp_path, device):
+def _beam_inputs(bsz, t, w, seed, order, tmp_path, device, ties=False,
+                 lens=None):
     """Seeded log-probs over 5 classes (space = 3, blank = 4), ragged
-    lengths, the start state and a word LM of `order` (or none)."""
+    lengths, the start state and a word LM of `order` (or none). `ties`
+    rounds the logits to multiples of 0.25 before the log-softmax, so that
+    many candidate totals tie and the select's index tie-break decides."""
     rng = np.random.RandomState(seed)
-    x = torch.from_numpy((rng.randn(bsz, t, 5) * 1.8).astype(np.float32))
-    lp = torch.log_softmax(x, dim=-1).to(device)
-    lens = torch.tensor([t] + [max(1, t - 5 * i) for i in range(1, bsz)],
-                        dtype=torch.int32, device=device)
+    x = (rng.randn(bsz, t, 5) * 1.8).astype(np.float32)
+    if ties:
+        x = np.round(x * 4.0) / 4.0
+    lp = torch.log_softmax(torch.from_numpy(x), dim=-1).to(device)
+    if lens is None:
+        lens = [t] + [max(1, t - 5 * i) for i in range(1, bsz)]
+    lens = torch.tensor(lens, dtype=torch.int32, device=device)
     word_lm, probes = None, 8
     if order:
         arpa = str(tmp_path / f"w{order}.arpa")
@@ -172,13 +178,22 @@ def test_beam_kernel_refuses_cpu_tensors(tmp_path):
                          word_lm=wl, wlm_probes=probes)
 
 
+# (W, K, LM order, case): "ties" rounds the logits (many equal totals);
+# "ragged" has rows whose lengths differ by more than 2x (one stops after
+# a frame)
+BEAM_CASES = [(8, 3, 0, ""), (12, 4, 3, ""), (16, 3, 5, ""), (100, 4, 2, ""),
+              (100, 4, 3, "ties"), (128, 4, 3, ""), (50, 3, 3, "ragged")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,k,order", [(8, 3, 0), (12, 4, 3), (16, 3, 5),
-                                       (100, 4, 2)])
-def test_beam_kernel_matches_plain(w, k, order, tmp_path):
+@pytest.mark.parametrize("w,k,order,case", BEAM_CASES)
+def test_beam_kernel_matches_plain(w, k, order, case, tmp_path):
     _need_gpu()
-    lp, lens, wl, probes = _beam_inputs(3, 24, w, w + order, order, tmp_path,
-                                        "cuda")
+    t = 24
+    lens = [t, t // 2 - 1, t // 5, 1] if case == "ragged" else None
+    lp, lens, wl, probes = _beam_inputs(
+        3 if lens is None else len(lens), t, w, w + order, order, tmp_path,
+        "cuda", ties=case == "ties", lens=lens)
     kw = dict(beam_width=w, cutoff_top_n=k, space=3, alpha=0.5, beta=1.5,
               word_lm=wl, wlm_probes=probes)
     launches = fused_beam_search.launches
@@ -191,6 +206,128 @@ def test_beam_kernel_matches_plain(w, k, order, tmp_path):
     ids, n = fused_beam_search(lp, lens, blank=4, **kw)
     want_ids, want_n = tdb.device_beam_search(lp, lens, blank=4, **kw)
     assert torch.equal(n, want_n) and torch.equal(ids, want_ids)
+
+
+@pytest.mark.cuda
+def test_beam_kernel_wide_top_k_matches_plain(tmp_path):
+    """The kernel's largest shared-memory plan: W = 128 and K = 90 of 91
+    classes with a word 5-gram (over the first 4 labels)."""
+    _need_gpu()
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy((rng.randn(2, 6, 92) * 1.8).astype(np.float32))
+    lp = torch.log_softmax(x, dim=-1).cuda()
+    lens = torch.tensor([6, 4], dtype=torch.int32, device="cuda")
+    arpa = str(tmp_path / "w5.arpa")
+    train_ngram_arpa(["ab cab ba c", "ab ba cab ba", "cab ab ba c ab"] * 2,
+                     arpa, order=5)
+    labels = ["a", "b", "c", " "] + [chr(0x100 + i) for i in range(87)]
+    tables, probes = word_lm_tables(NGramLM(arpa), labels)
+    kw = dict(beam_width=128, cutoff_top_n=90, space=3, alpha=0.5, beta=1.5,
+              word_lm=tdb.word_lm_to_device(tables, "cuda"),
+              wlm_probes=probes)
+    got = fused_beam_search(lp, lens, blank=91, return_raw=True, **kw)
+    want = tdb.device_beam_search(lp, lens, blank=91, return_raw=True, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_beam_kernel_large_lm_matches_plain(tmp_path):
+    """A word 3-gram of more than 4,096 table rows, which the kernel probes
+    in device memory instead of its shared-memory copy."""
+    _need_gpu()
+    rng = np.random.RandomState(3)
+    words = ["".join("abc"[i] for i in rng.randint(0, 3, size=n))
+             for n in rng.randint(1, 6, size=400)]
+    arpa = str(tmp_path / "big3.arpa")
+    train_ngram_arpa([" ".join(rng.choice(words, size=8))
+                      for _ in range(1500)], arpa, order=3)
+    tables, probes = word_lm_tables(NGramLM(arpa), ["a", "b", "c", " "])
+    assert np.asarray(tables.packed).shape[0] > 4096
+    lp, lens, _, _ = _beam_inputs(3, 40, 100, 11, 0, tmp_path, "cuda",
+                                  lens=[40, 17, 3])
+    kw = dict(beam_width=100, cutoff_top_n=4, space=3, alpha=0.5, beta=1.5,
+              word_lm=tdb.word_lm_to_device(tables, "cuda"),
+              wlm_probes=probes)
+    got = fused_beam_search(lp, lens, blank=4, return_raw=True, **kw)
+    want = tdb.device_beam_search(lp, lens, blank=4, return_raw=True, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+def _beam_one_launch(tmp_path, device):
+    """decoder="device_beam" on `device` decodes every forward of a
+    transcribe_batch call in one kernel launch. Five signals over two
+    buckets with max_batch=2 refill the 2 s bucket's page-locked buffer
+    before anything is read back; the texts equal those of each forward's
+    group decoded on its own (the same forwards, so the same log-probs)."""
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    arpa = str(tmp_path / "vi3.arpa")
+    train_ngram_arpa(["xin chào các bạn", "chào mừng quý vị",
+                      "bản tin thời sự hôm nay"] * 2, arpa, order=3)
+    tr = Transcriber(
+        os.path.join(ROOT, "vietasr_tpu_torch/configs/quartznet12x1_vi.yaml"),
+        checkpoint=os.path.join(ROOT,
+                                "artifacts/real_speech_qn12x1_vi.msgpack.gz"),
+        options=TranscriberOptions(decoder="device_beam", lm_path=arpa,
+                                   beam_width=16, max_batch=2),
+        device=device)
+    rng = np.random.RandomState(5)
+    sigs = [(rng.randn(n) * 0.1).astype(np.float32)
+            for n in (20000, 52000, 16000, 27000, 60000)]
+    want = [None] * len(sigs)
+    for group in ([2, 0], [3], [1, 4]):       # the call's forwards
+        for i, text in zip(group, tr.transcribe_batch([sigs[i]
+                                                       for i in group])):
+            want[i] = text
+    fused_beam_search.launches = 0
+    assert tr.transcribe_batch(sigs) == want
+    assert fused_beam_search.launches == 1
+
+
+@pytest.mark.cuda
+def test_transcriber_beam_one_launch_per_call(tmp_path):
+    _need_gpu()
+    _beam_one_launch(tmp_path, None)
+
+
+@pytest.mark.cuda
+def test_transcriber_beam_on_second_device(tmp_path):
+    """The same on cuda:1 while cuda:0 is current: each upload's event is
+    recorded on the stream that made the copy, cuda:1's."""
+    _need_gpu()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second NVIDIA GPU")
+    assert torch.cuda.current_device() == 0
+    _beam_one_launch(tmp_path, "cuda:1")
+
+
+@pytest.mark.cuda
+def test_beam_kernel_counts_its_steps(tmp_path):
+    """With `stats`, the kernel reports per row the block-wide barriers its
+    steps took (5, or 6 in a step that ranks its keys in sorted runs) and
+    the keys >= its threshold it ranked (at least W a step: the threshold
+    lets the W best through), and the raw result does not change."""
+    _need_gpu()
+    lens = [40, 17, 1, 0]
+    lp, lens, wl, probes = _beam_inputs(4, 40, 100, 3, 3, tmp_path, "cuda",
+                                        lens=lens)
+    top_lp, top_ci = tdb.frame_topk(lp, 3)       # contiguous for K < V
+    state = tdb.init_packed_state(4, 100, wl, "cuda")
+    kw = dict(blank=4, space=3, alpha=0.5, beta=1.5, word_lm=wl,
+              wlm_probes=probes)
+    stats = torch.full((4, 2), -1, dtype=torch.int64, device="cuda")
+    got = beam_search_cuda(lp, lens, top_lp, top_ci, state, stats=stats, **kw)
+    want = beam_search_cuda(lp, lens, top_lp, top_ci, state, **kw)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    steps = lens.long().cpu()
+    barriers, ranked = stats.cpu().unbind(1)
+    assert ((5 * steps <= barriers) & (barriers <= 6 * steps)).all()
+    assert ((100 * steps <= ranked) & (ranked <= 400 * steps)).all()
 
 
 @pytest.mark.cuda

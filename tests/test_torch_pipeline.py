@@ -162,6 +162,102 @@ def test_device_beam_transcripts_equal_jax(anchor, clips, lm_files, kind,
     assert all(isinstance(t, str) and "  " not in t for t in got)
 
 
+@pytest.fixture(scope="module")
+def mixed_clips():
+    """Six clips over the 2, 4 and 6 s buckets; with max_batch=2 the 2 s
+    bucket's three clips take two forwards."""
+    rng = np.random.RandomState(1)
+    return [(rng.randn(n) * 0.1).astype(np.float32)
+            for n in (20000, 52000, 16000, 88000, 27000, 60000)]
+
+
+BEAM_SPLIT = dict(decoder="device_beam", beam_width=16, compute_dtype=None,
+                  max_batch=2)
+
+
+def test_device_beam_one_decode_equals_jax(anchor, mixed_clips, lm_files):
+    """The port decodes every row of a call in one beam search over log-probs
+    padded to the longest T; JAX decodes each forward on its own. Rows are
+    independent, so the texts, rendered in input order, are equal."""
+    kw = dict(BEAM_SPLIT, lm_path=lm_files["word"])
+    jax_tr = JaxTranscriber(CONFIG, variables=anchor, options=JaxOptions(**kw))
+    port = Transcriber(CONFIG, variables=anchor, device="cpu",
+                       options=TranscriberOptions(**kw))
+    want = jax_tr.transcribe_batch(mixed_clips)
+    got = port.transcribe_batch(mixed_clips)
+    assert got == want
+    assert len(set(got)) > 1
+
+
+def test_device_beam_decodes_once_per_call(anchor, mixed_clips, lm_files,
+                                           monkeypatch):
+    """transcribe_batch calls fused_beam_search once per call, on every row
+    (the length-sorted forwards' rows, padded to the longest T), and renders
+    each row's text at its signal's place."""
+    from vietasr_tpu_torch.ops import fused_beam
+
+    calls = []
+
+    def spy(log_probs, lengths, **kw):
+        calls.append((tuple(log_probs.shape), lengths.tolist()))
+        n = log_probs.shape[0]
+        # row b decodes to label b + 1 ('a', 'b', ...): texts show the row
+        ids = torch.arange(1, n + 1, dtype=torch.int32)[:, None]
+        return ids, torch.ones(n, dtype=torch.int32)
+
+    monkeypatch.setattr(fused_beam, "fused_beam_search", spy)
+    port = Transcriber(CONFIG, variables=anchor, device="cpu",
+                       options=TranscriberOptions(lm_path=lm_files["word"],
+                                                  **BEAM_SPLIT))
+    order = sorted(range(len(mixed_clips)), key=lambda i: len(mixed_clips[i]))
+    frames = [int(port.log_probs(mixed_clips[i])[1][0]) for i in order]
+    labels = port.cfg.labels
+    for n_calls in (1, 2):
+        texts = port.transcribe_batch(mixed_clips)
+        assert len(calls) == n_calls
+        shape, lens = calls[-1]
+        assert shape[0] == len(mixed_clips) and lens == frames
+        assert shape[1] == port.log_probs(mixed_clips[order[-1]])[0].shape[1]
+        assert texts == [labels[order.index(i) + 1]
+                         for i in range(len(mixed_clips))]
+
+
+def test_device_beam_caps_rows_per_decode(anchor, lm_files, monkeypatch):
+    """A call decodes at most 4 x max_batch rows per beam search, and audio
+    past the last bucket on its own, so the padded log-probs a search holds
+    stay bounded however many signals a call has. Rows keep their texts'
+    places."""
+    from vietasr_tpu_torch.ops import fused_beam
+
+    calls = []
+
+    def spy(log_probs, lengths, **kw):
+        n = log_probs.shape[0]
+        first = sum(len(c[1]) for c in calls)
+        calls.append((log_probs.shape[1], lengths.tolist()))
+        # the k-th row decoded over the call renders as label k + 1
+        ids = torch.arange(first + 1, first + n + 1, dtype=torch.int32)
+        return ids[:, None], torch.ones(n, dtype=torch.int32)
+
+    monkeypatch.setattr(fused_beam, "fused_beam_search", spy)
+    opts = dict(BEAM_SPLIT, max_batch=1, buckets_seconds=(2.0, 4.0))
+    port = Transcriber(CONFIG, variables=anchor, device="cpu",
+                       options=TranscriberOptions(lm_path=lm_files["word"],
+                                                  **opts))
+    # four clips of the 2 s bucket, two of the 4 s one, one past it (5 s)
+    sizes = (60000, 20000, 72000, 16000, 30000, 52000, 27000)
+    rng = np.random.RandomState(2)
+    sigs = [(rng.randn(n) * 0.1).astype(np.float32) for n in sizes]
+    texts = port.transcribe_batch(sigs)
+    assert [len(lens) for _, lens in calls] == [4, 2, 1]
+    frames = [port.log_probs(sigs[sizes.index(n)])[0].shape[1]
+              for n in (30000, 60000, 72000)]
+    assert [t for t, _ in calls] == frames
+    labels = port.cfg.labels
+    ranks = sorted(range(len(sizes)), key=lambda i: sizes[i])
+    assert texts == [labels[ranks.index(i) + 1] for i in range(len(sizes))]
+
+
 def test_options_not_ported_raise(anchor, tmp_path):
     from vietasr_tpu.ops.kenlm_binary import write_kenlm_binary
     from vietasr_tpu_torch.ops.lm import train_ngram_arpa

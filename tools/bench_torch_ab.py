@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Time one checkout of the port on one NVIDIA GPU, for A/B comparisons.
+
+    python3 tools/bench_torch_ab.py [--root DIR]
+
+Imports vietasr_tpu_torch from DIR (default: this checkout), so that two
+checkouts can be timed on one card in one session; run them in turns (A, B,
+B, A). The inputs come from this checkout's chip_smoke.py:
+  - the beam kernel alone at its phase-6 timing shape (seeded blank-heavy
+    log-probs B = 8, T = 840, V+1 = 91, ragged lengths, W = 100, top-8,
+    alpha 0.5, beta 1.5, the word 3-gram chip_smoke.py trains): ms per
+    call by CUDA events over 20 calls after a warm-up, and us per step
+    (the longest row's 840 steps run in series);
+  - the beam path: Transcriber(decoder="device_beam") with that word
+    3-gram at its default W = 100 over phase 5's 16 seeded signals of
+    1.5-16.5 s, audio-s/s by the host clock over 10 calls after a warm-up;
+  - the greedy path on the same signals (20 calls), and its forward alone
+    on one batch of 8 of them in the 16.7 s bucket (50 calls, ending in a
+    synchronise).
+Prints one JSON line with the card's name and power limit.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def host_seconds(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch_ab: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    sys.path.insert(0, root)
+    from vietasr_tpu_torch.ops.device_beam import (expansion_width,
+                                                   frame_topk,
+                                                   init_packed_state,
+                                                   word_lm_to_device)
+    from vietasr_tpu_torch.ops.fused_beam import beam_search_cuda
+    from vietasr_tpu_torch.ops.lm import NGramLM, word_lm_tables
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"root": root}
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_path = chip_smoke.train_word_lms(tmp)[3]
+        beam = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR,
+                           options=TranscriberOptions(decoder="device_beam",
+                                                      lm_path=lm_path))
+        tables, probes = word_lm_tables(NGramLM(lm_path), beam.cfg.labels)
+    greedy = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR)
+
+    # the kernel alone
+    labels = beam.cfg.labels
+    v1 = len(labels) + 1
+    lp, lens, _ = chip_smoke.synthetic_beam_inputs(np, torch, dev, v1)
+    wl = word_lm_to_device(tables, dev)
+    kw = chip_smoke.BEAM_KW
+    top_lp, top_ci = frame_topk(lp, expansion_width(v1 - 1,
+                                                    kw["cutoff_top_n"]))
+    state = init_packed_state(lp.shape[0], 100, wl, dev)
+
+    def kernel():
+        beam_search_cuda(lp, lens, top_lp, top_ci, state, blank=v1 - 1,
+                         space=labels.index(" "), alpha=kw["alpha"],
+                         beta=kw["beta"], word_lm=wl, wlm_probes=probes)
+
+    kernel()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        kernel()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 20
+    out["kernel_ms"] = ms
+    out["kernel_us_per_step"] = ms / lp.shape[1] * 1e3
+
+    # the paths a user calls
+    signals = chip_smoke.mixed_signals(np)
+    audio_s = sum(len(s) for s in signals) / 16000
+    dt = host_seconds(torch, lambda: beam.transcribe_batch(signals), 10)
+    out["beam_path_audio_s_per_s"] = audio_s / dt
+    dt = host_seconds(torch, lambda: greedy.transcribe_batch(signals), 20)
+    out["greedy_path_audio_s_per_s"] = audio_s / dt
+    full = signals[:8]
+    batch = greedy._host_batch(8, greedy.buckets[-1])
+    for row, s in enumerate(full):
+        batch[row, :len(s)] = s
+    flens = np.array([len(s) for s in full], np.int32)
+    dt = host_seconds(torch, lambda: greedy._fwd(batch, flens), 50)
+    out["greedy_forward_ms"] = dt * 1e3
+    out["card"] = chip_smoke.nvidia_smi_line()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

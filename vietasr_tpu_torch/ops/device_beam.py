@@ -629,8 +629,8 @@ def device_beam_transcripts(log_probs, lengths, labels: Sequence[str],
     else:
         ids, lens = device_beam_search(log_probs, lengths, blank=len(labels),
                                        **kwargs)
-    ids = ids.cpu().numpy()
-    lens = lens.cpu().numpy()
+    packed = torch.cat([lens.to(ids.dtype)[:, None], ids], 1).cpu().numpy()
+    lens, ids = packed[:, 0], packed[:, 1:]
     texts = ["".join(labels[i] for i in ids[b, : lens[b]])
              for b in range(ids.shape[0])]
     if kwargs.get("space", -1) >= 0 and kwargs.get("lm_table") is None:

@@ -5,10 +5,12 @@ Counterpart of vietasr_tpu/ops/pallas_beam.py::pallas_beam_search (the
 Pallas `_beam_kernel`). Contract: the same output as `device_beam_search`
 with canonical (space-normalised) beam identity, `cutoff_top_n > 0`, no
 char-LM table, W <= 128 and an optional word LM of order <= 5. The
-kernel keeps `device_beam_search`'s slot order (its top-W select is a
-total order: value descending, then candidate index ascending), so its
-raw result, final packed state and (parent, char) backpointers, matches
-the plain version slot by slot.
+kernel keeps `device_beam_search`'s slot order (its top-W select ranks
+the candidates above a threshold in a total order: value descending, then
+candidate index ascending), so its raw result, final packed state and
+(parent, char) backpointers, matches the plain version slot by slot. Rows
+are independent, so one launch takes every utterance of a call, each
+stopping at its own length.
 
 What runs where, as in the JAX package: the per-frame top-K is a PyTorch
 sort before the kernel; the final ranking with the trailing partial word,
@@ -41,9 +43,9 @@ from vietasr_tpu_torch.ops.device_beam import (KERNEL_MAX_BEAM_WIDTH,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("beam_search")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vt_beam_search.argtypes = [p] * 12 + [i] * 11 + [f, f, p]
+    lib.vt_beam_search.argtypes = [p] * 13 + [i] * 12 + [f, f, p]
     lib.vt_beam_search.restype = i
-    lib.vt_beam_smem_bytes.argtypes = [i] * 5
+    lib.vt_beam_smem_bytes.argtypes = [i] * 6
     lib.vt_beam_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -65,14 +67,18 @@ def beam_search_cuda(log_probs: torch.Tensor, lengths: torch.Tensor,
                      state: torch.Tensor, *, blank: int, space: int,
                      alpha: float = 0.5, beta: float = 0.0,
                      word_lm: Optional[WordLMTables] = None,
-                     wlm_probes: int = 8):
+                     wlm_probes: int = 8,
+                     stats: Optional[torch.Tensor] = None):
     """The kernel: CUDA tensors only, one launch.
 
     log_probs (B, T, V+1) f32, lengths (B,) int32, the frame's top-K
     top_lp (B, T, K) f32 / top_ci (B, T, K) int32, the packed start state
     (B, W, n_cols) int32, word_lm in its tensor form. Returns
     (final_state (B, W, n_cols) int32, parents (T, B, W) int32,
-    chars (T, B, W) int32), as device_beam_search(return_raw=True)."""
+    chars (T, B, W) int32), as device_beam_search(return_raw=True).
+    `stats`, a (B, 2) int64 tensor, receives per row the block-wide
+    barriers its steps took and the keys >= the select's threshold they
+    ranked."""
     dev = log_probs.device
     if dev.type != "cuda":
         raise ValueError(f"beam kernel: log_probs must be a CUDA tensor, "
@@ -87,6 +93,8 @@ def beam_search_cuda(log_probs: torch.Tensor, lengths: torch.Tensor,
     if not 1 <= w <= KERNEL_MAX_BEAM_WIDTH:
         raise ValueError(f"beam kernel: beam width {w} outside [1, "
                          f"{KERNEL_MAX_BEAM_WIDTH}]")
+    if t_max >= 1 << 23:
+        raise ValueError(f"beam kernel: T = {t_max} frames >= 2^23")
     if not 1 <= k_c < v1 or not 0 <= space < v1 - 1 or blank != v1 - 1:
         raise ValueError("beam kernel: needs 1 <= K <= V, 0 <= space < V "
                          "and blank == V")
@@ -97,8 +105,12 @@ def beam_search_cuda(log_probs: torch.Tensor, lengths: torch.Tensor,
     _need("top_lp", top_lp, dev, torch.float32, (bsz, t_max, k_c))
     _need("top_ci", top_ci, dev, torch.int32, (bsz, t_max, k_c))
     _need("state", state, dev, torch.int32, (bsz, w, n_cols))
+    if stats is not None:
+        _need("stats", stats, dev, torch.int64, (bsz, 2))
     lm_ptrs = [None, None, None, None]
+    lm_rows = 0
     if word_lm is not None:
+        lm_rows = int(word_lm.packed.shape[0])
         _need("word_lm.packed", word_lm.packed, dev, torch.int32,
               (word_lm.packed.shape[0], 4))
         _need("word_lm.masks", word_lm.masks, dev, torch.int64, (levels,))
@@ -107,7 +119,7 @@ def beam_search_cuda(log_probs: torch.Tensor, lengths: torch.Tensor,
         lm_ptrs = [word_lm.packed.data_ptr(), word_lm.masks.data_ptr(),
                    word_lm.bases.data_ptr(), word_lm.unk_logp.data_ptr()]
     lib = _lib()
-    smem = lib.vt_beam_smem_bytes(w, k_c, v1, n_cols, levels)
+    smem = lib.vt_beam_smem_bytes(w, k_c, v1, n_cols, levels, lm_rows)
     if smem <= 0 or smem > _build.SMEM_LIMIT:
         raise ValueError(f"beam kernel: {smem} B of shared memory for "
                          f"W={w}, K={k_c}, V+1={v1} exceeds "
@@ -121,8 +133,8 @@ def beam_search_cuda(log_probs: torch.Tensor, lengths: torch.Tensor,
             log_probs.data_ptr(), lengths.data_ptr(), top_lp.data_ptr(),
             top_ci.data_ptr(), state.data_ptr(), *lm_ptrs,
             out_state.data_ptr(), parents.data_ptr(), chars.data_ptr(),
-            bsz, t_max, v1, k_c, w, n_cols, blank, space, levels,
-            int(wlm_probes), int(smem), alpha, beta, stream)
+            None if stats is None else stats.data_ptr(), bsz, t_max, v1,
+            k_c, w, n_cols, blank, space, levels, int(wlm_probes), lm_rows, int(smem), alpha, beta, stream)
     _build.check(lib, err, "beam kernel")
     fused_beam_search.launches += 1
     return out_state, parents, chars

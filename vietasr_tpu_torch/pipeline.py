@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vietasr_tpu_torch.config import ModelConfig, load_config
 from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
@@ -38,6 +39,8 @@ from vietasr_tpu_torch.utils.device import resolve_device
 from vietasr_tpu_torch.utils.typing import assert_waveform
 
 _DTYPES = {None: None, "bfloat16": torch.bfloat16, "float32": None}
+# the beam decoder decodes up to this many x max_batch rows in one search
+_BEAM_BATCHES_PER_DECODE = 4
 
 
 @dataclasses.dataclass
@@ -131,6 +134,7 @@ class Transcriber:
         sr = fcfg.sample_rate
         self.buckets = [int(s * sr) for s in opts.buckets_seconds]
         self._pinned: dict = {}     # bucket samples -> page-locked buffer
+        self._uploaded: dict = {}   # bucket samples -> its last upload's event
         self._device_lm_table = None
         self._device_word_lm = None
         self._device_wlm_probes = 8
@@ -167,19 +171,28 @@ class Transcriber:
         return log_probs, enc_lens, preds, keep
 
     def _fwd(self, batch: np.ndarray, lens: np.ndarray):
-        return self._forward(
-            torch.from_numpy(batch).to(self.device, non_blocking=True),
-            torch.from_numpy(lens).to(self.device))
+        signal = torch.from_numpy(batch).to(self.device, non_blocking=True)
+        buf = self._pinned.get(batch.shape[1])
+        if buf is not None and batch.ctypes.data == buf.data_ptr():
+            # the copy ran on the target device's current stream
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            self._uploaded[batch.shape[1]] = done
+        return self._forward(signal, torch.from_numpy(lens).to(self.device))
 
     def _host_batch(self, rows: int, samples: int) -> np.ndarray:
         """A zeroed (rows, samples) float32 host array to pad a batch into.
         On the GPU a batch of a fixed bucket goes into page-locked memory,
         one (max_batch, bucket) buffer per bucket (24 MB for the default
-        buckets), so the upload is one DMA at full rate; callers read the
-        forward's results back (which synchronises) before the buffer is
-        filled again. Long audio (rounded up to whole seconds past the last
-        bucket) and oversized batches use ordinary memory, so the pinned
-        total stays bounded."""
+        buckets), so the upload is one DMA at full rate. That upload is
+        asynchronous, and the beam decoder runs every forward of a call
+        before it reads anything back, so a bucket with more than
+        max_batch signals refills its buffer while the last upload from it
+        may still be in flight: `_fwd` records an event after each upload
+        from a page-locked buffer, and this waits on it before the buffer
+        is handed out again. Long audio (rounded up to whole seconds past
+        the last bucket) and oversized batches use ordinary memory, so the
+        pinned total stays bounded."""
         if (self.device.type != "cuda" or samples not in self.buckets
                 or rows > self.opts.max_batch):
             return np.zeros((rows, samples), np.float32)
@@ -188,6 +201,9 @@ class Transcriber:
             buf = torch.empty((self.opts.max_batch, samples),
                               dtype=torch.float32, pin_memory=True)
             self._pinned[samples] = buf
+        done = self._uploaded.pop(samples, None)
+        if done is not None:
+            done.synchronize()
         arr = buf.numpy()[:rows]
         arr.fill(0.0)
         return arr
@@ -243,12 +259,33 @@ class Transcriber:
         """Single-utterance transcription."""
         return self.transcribe_batch([signal])[0]
 
+    def _decode_beam(self, beam: list, out: list) -> None:
+        """One beam search over the rows of `beam`'s forwards ((rows,
+        log_probs, enc_lens) each), their log-probs padded to the longest
+        T; each row's text goes to its signal's place in `out`."""
+        t_max = max(lp.shape[1] for _, lp, _ in beam)
+        lp = torch.cat([F.pad(lp, (0, 0, 0, t_max - lp.shape[1]))
+                        for _, lp, _ in beam])
+        enc_lens = torch.cat([el for _, _, el in beam])
+        rows = [gi for group, _, _ in beam for gi in group]
+        for gi, text in zip(rows, self._device_beam(lp, enc_lens)):
+            out[gi] = text
+        beam.clear()
+
     def transcribe_batch(self, signals: List[np.ndarray]) -> List[str]:
         """Sort by length, then batch up to max_batch utterances of one
-        bucket per forward."""
+        bucket per forward. The greedy decoder decodes each forward's rows
+        as it comes. `decoder="device_beam"` keeps the forwards' log-probs
+        on the device and decodes up to 4 x max_batch rows of the
+        configured buckets in one beam search (one kernel launch on the GPU;
+        rows are independent, each stopping at its own length), padded to
+        the longest T among them; audio past the last bucket decodes one
+        forward at a time. So a search holds at most 4 x max_batch rows of
+        the last bucket's frames, however many signals a call has."""
         for s in signals:
             assert_waveform(np.asarray(s), port="transcribe.signal")
         out: List[Optional[str]] = [None] * len(signals)
+        beam = []                  # (rows, log_probs, enc_lens) per forward
         order = sorted(range(len(signals)), key=lambda i: len(signals[i]))
         i = 0
         while i < len(order):
@@ -266,10 +303,18 @@ class Transcriber:
                 lens[row] = min(len(s), bl)
             lp, enc_lens, preds, keep = self._fwd(batch, lens)
             if self.opts.decoder == "device_beam":
-                texts = self._device_beam(lp, enc_lens)
-            else:
-                texts = [ids_to_text(ids, self.cfg.labels)
-                         for ids in collapse_batch(preds, keep)]
+                held = sum(len(g) for g, _, _ in beam)
+                if beam and (bl not in self.buckets or held + len(group)
+                             > _BEAM_BATCHES_PER_DECODE * self.opts.max_batch):
+                    self._decode_beam(beam, out)
+                beam.append((group, lp, enc_lens))
+                if bl not in self.buckets:
+                    self._decode_beam(beam, out)
+                continue
+            texts = [ids_to_text(ids, self.cfg.labels)
+                     for ids in collapse_batch(preds, keep)]
             for row, gi in enumerate(group):
                 out[gi] = texts[row]
+        if beam:
+            self._decode_beam(beam, out)
         return out  # type: ignore
