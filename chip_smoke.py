@@ -9,7 +9,12 @@ Phases, each of which raises on failure:
   3. frontend kernel vs its plain PyTorch version (2 / 8 / 16.7 s buckets,
      B in {1, 8}, ragged lengths), max |d| < 2e-4
   4. repeat-block kernel vs its plain version at every QuartzNet12x1 block
-     shape (T = 840, B = 8, ragged lengths) and at two R > 1 shapes
+     shape (T = 840, B = 8), at the 512-wide block shapes of phase 5's
+     small forwards (B = 2 x T = 304, B = 4 x T = 408, B = 2 x T = 552)
+     and at two R > 1 shapes, at ragged and at full lengths: the rows per
+     block and column groups each launch chose, the blocks it skipped as
+     padding, its time; the library composition (cuDNN depthwise, two
+     cuBLAS bf16 matmuls) printed beside it as composition_ms
   5. end to end: Transcriber on the anchor checkpoint in bf16 over 16
      seeded signals of 1.5-16.5 s, with the launch counters read around the
      run; log-probs held against a plain-path Transcriber on the same card.
@@ -146,25 +151,36 @@ def device_ms(fn, reps: int = 20) -> float:
     return sum(r[0] for r in device_profile(fn, reps))
 
 
-def kernel_ms(fn, name: str, reps: int = 20, launches: int = 1):
-    """One kernel's device time per fn() call, fn() launching it `launches`
-    times. CUDA events around `reps` calls give an upper bound (they also
-    count host gaps between launches); the CUPTI trace gives the kernel
-    alone, but on the H100 machine a trace sometimes holds only part of
-    the launches, and then its durations are not to be trusted either. So:
-    CUPTI's time where the trace saw every launch, else the events' time.
-    Returns (ms, launches per call traced, event ms)."""
+def event_ms(fn, reps: int = 20) -> float:
+    """ms per fn() call by CUDA events around `reps` calls after a warm-up:
+    an upper bound on what fn() runs on the card. A sleep kernel (~25 ms)
+    goes first, so that the host queues the calls while the card is busy
+    and its launch gaps do not count (the repeat wrapper costs the host
+    more than most of its launches cost the card)."""
     import torch
 
-    rows = [r for r in device_profile(fn, reps) if name in r[2]]
-    traced = sum(r[1] for r in rows)
+    fn()
+    torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
-    ev_ms = start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, name: str, reps: int = 20, launches: int = 1):
+    """One kernel's device time per fn() call, fn() launching it `launches`
+    times. The CUPTI trace gives the kernel alone, but on the H100 machine
+    a trace sometimes holds only part of the launches, and then its
+    durations are not to be trusted either. So: CUPTI's time where the
+    trace saw every launch, else `event_ms`'s. Returns (ms, launches per
+    call traced, event ms)."""
+    rows = [r for r in device_profile(fn, reps) if name in r[2]]
+    traced = sum(r[1] for r in rows)
+    ev_ms = event_ms(fn, reps)
     if abs(traced - launches) > 1e-6:
         return ev_ms, traced, ev_ms
     return sum(r[0] for r in rows), traced, ev_ms
@@ -267,16 +283,21 @@ def frontend_phase(np, torch, dev):
             "library_ms": None}
 
 
-def repeat_bound_ms(bsz, t, c_in, c_out, k, r, has_res):
+def repeat_bound_ms(bsz, t, c_in, c_out, k, r, has_res, rows):
     """Least time for one fused block: the larger of its bf16 GEMM work on
     the tensor cores and its fp32 depthwise work on the CUDA cores (the two
-    units run side by side), or its bytes."""
+    units run side by side), or its bytes. Only the `rows` time rows that
+    lie inside their lengths (sum of min(len, T)) need a product or their
+    input: a row past its length comes out as its bias alone. So the
+    operations and the bf16 input bytes count those rows, the output bytes
+    every row, the weights once. The R > 1 intermediates are not counted:
+    the block needs none of them in memory."""
     cs = [c_in] + [c_out] * (r - 1)
-    gemm = sum(2 * bsz * t * c * c_out for c in cs)
-    gemm += 2 * bsz * t * c_in * c_out if has_res else 0
-    dw = sum(2 * bsz * t * c * k for c in cs)
+    gemm = sum(2 * rows * c * c_out for c in cs)
+    gemm += 2 * rows * c_in * c_out if has_res else 0
+    dw = sum(2 * rows * c * k for c in cs)
     t_ops = max(gemm / PEAK_BF16, dw / PEAK_FP32) * 1e3
-    nbytes = (2 * bsz * t * (c_in + c_out) + 4 * bsz
+    nbytes = (2 * rows * c_in + 2 * bsz * t * c_out + 4 * bsz
               + sum(4 * k * c + 2 * c * c_out + 4 * c_out for c in cs)
               + ((2 * c_in * c_out + 4 * c_out) if has_res else 0))
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -284,70 +305,155 @@ def repeat_bound_ms(bsz, t, c_in, c_out, k, r, has_res):
                                  else "bytes")
 
 
+# (C_in, C_out, K, R, B, T, count per forward): the 13 eligible blocks of
+# QuartzNet12x1 at the 16.7 s bucket with B = 8 (the 64-row grids); the
+# 512-wide blocks at the grids of phase 5's three small forwards (B = 2 x
+# 6 s, B = 4 x 8 s, B = 2 x 11 s: 32-row blocks whose output columns split
+# over two blocks per tile); then two multi-repeat shapes
+REPEAT_SHAPES = [(256, 256, 33, 1, 8, 840, 3), (256, 256, 39, 1, 8, 840, 3),
+                 (256, 512, 51, 1, 8, 840, 1), (512, 512, 51, 1, 8, 840, 2),
+                 (512, 512, 63, 1, 8, 840, 3), (512, 512, 75, 1, 8, 840, 1),
+                 *((c_in, 512, k, 1, bsz, t, 0)
+                   for bsz, t in ((2, 304), (4, 408), (2, 552))
+                   for c_in, k in ((256, 51), (512, 63), (512, 75))),
+                 (64, 64, 9, 3, 8, 100, 0), (32, 48, 7, 2, 8, 70, 0)]
+
+
+def repeat_inputs(np, torch, dev, c_in, c_out, k, r, t, bsz=8, full=False):
+    """Phase 4's seeded operands of one block shape: x (B, T, C_in) bf16,
+    lengths drawn from U[T/4, T] with row 0 full (every row full with
+    `full`), fp32 taps and biases, bf16 1x1 weights, a residual."""
+    rng = np.random.RandomState(c_in + c_out + k + r)
+
+    def arr(*shape, scale=1.0, dtype=torch.float32):
+        a = (rng.randn(*shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    x = arr(bsz, t, c_in, scale=0.5, dtype=torch.bfloat16)
+    lens = rng.randint(t // 4, t + 1, size=bsz).astype(np.int32)
+    lens[0] = t
+    if full:
+        lens[:] = t
+    lens = torch.from_numpy(lens).to(dev)
+    cs = [c_in] + [c_out] * (r - 1)
+    dws = [arr(k, c, scale=k ** -0.5) for c in cs]
+    pws = [arr(c, c_out, scale=c ** -0.5, dtype=torch.bfloat16) for c in cs]
+    bs = [arr(c_out, scale=0.1) for _ in cs]
+    res_w = arr(c_in, c_out, scale=c_in ** -0.5, dtype=torch.bfloat16)
+    res_b = arr(c_out, scale=0.1)
+    return x, lens, dws, pws, bs, res_w, res_b
+
+
+def repeat_launches(bsz, t, c_in, c_out, k, r, lens):
+    """[(time rows per block, column groups, blocks, blocks skipped as
+    padding)] of each of the block's R launches, as the kernel plans them
+    on this card."""
+    from vietasr_tpu_torch.ops.repeat_block import launch_plan
+
+    valid = lens.clamp(0, t).tolist()
+    out = []
+    for i in range(r):
+        tt, groups = launch_plan(i == 0, bsz, t, c_in if i == 0 else c_out,
+                                 c_out, c_in, i == r - 1, k)
+        tiles = -(-t // tt)
+        out.append((tt, groups, tiles * bsz * groups,
+                    groups * sum(tiles - -(-n // tt) for n in valid)))
+    return out
+
+
+def repeat_composition(torch, x, mask, dw_conv, pw, b, res_w, res_b, k):
+    """The R = 1 block as library calls, a yardstick the port never calls:
+    the masked depthwise by F.conv1d in fp32 (cuDNN, TF32 off), two bf16
+    torch.matmul (cuBLAS, fp32 sums, bf16 out), biases and ReLU."""
+    import torch.nn.functional as F
+
+    xm = torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    y = F.conv1d(xm.float().transpose(1, 2), dw_conv, padding=k // 2,
+                 groups=dw_conv.shape[0]).transpose(1, 2)
+    y = torch.where(mask, y, 0.0).to(torch.bfloat16)
+    z = torch.matmul(y, pw) + b + (torch.matmul(xm, res_w) + res_b)
+    return torch.relu(z).to(torch.bfloat16)
+
+
 def repeat_phase(np, torch, dev):
     from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
                                                     fused_repeat_block_plain)
 
-    # (C_in, C_out, K, R, T, count per forward): the 13 eligible blocks of
-    # QuartzNet12x1 at the 16.7 s bucket, then two multi-repeat shapes
-    shapes = [(256, 256, 33, 1, 840, 3), (256, 256, 39, 1, 840, 3),
-              (256, 512, 51, 1, 840, 1), (512, 512, 51, 1, 840, 2),
-              (512, 512, 63, 1, 840, 3), (512, 512, 75, 1, 840, 1),
-              (64, 64, 9, 3, 100, 0), (32, 48, 7, 2, 70, 0)]
-    bsz = 8
     worst = 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    tot = {"ms": 0.0, "full_length_ms": 0.0, "plain_ms": 0.0,
+           "composition_ms": 0.0, "bound_ms": 0.0, "bound_full_ms": 0.0}
     bound_by_main = set()
-    for c_in, c_out, k, r, t, per_fwd in shapes:
-        rng = np.random.RandomState(c_in + c_out + k + r)
-
-        def arr(*shape, scale=1.0, dtype=torch.float32):
-            a = (rng.randn(*shape) * scale).astype(np.float32)
-            return torch.from_numpy(a).to(dev).to(dtype)
-
-        x = arr(bsz, t, c_in, scale=0.5, dtype=torch.bfloat16)
-        lens = rng.randint(t // 4, t + 1, size=bsz).astype(np.int32)
-        lens[0] = t
-        lens = torch.from_numpy(lens).to(dev)
-        cs = [c_in] + [c_out] * (r - 1)
-        dws = [arr(k, c, scale=k ** -0.5) for c in cs]
-        pws = [arr(c, c_out, scale=c ** -0.5, dtype=torch.bfloat16)
-               for c in cs]
-        bs = [arr(c_out, scale=0.1) for _ in cs]
-        res_w = arr(c_in, c_out, scale=c_in ** -0.5, dtype=torch.bfloat16)
-        res_b = arr(c_out, scale=0.1)
-        args = (x, lens, dws, pws, bs, res_w, res_b)
-        got = fused_repeat_block(*args, kernel=k)
-        want = fused_repeat_block_plain(*args, kernel=k)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        check(got.shape == want.shape and got.dtype == torch.bfloat16,
-              "repeat: shape or dtype differs from the plain version")
-        check(bool(torch.isfinite(got.float()).all()), "repeat: non-finite")
-        check(err <= REPEAT_TOL_REL * scale,
-              f"repeat ({c_in},{c_out},{k},R={r}): max|d| {err} > "
-              f"{REPEAT_TOL_REL} * {scale}")
-        worst = max(worst, err)
-        ms, seen, ev_ms = kernel_ms(
-            lambda: fused_repeat_block(*args, kernel=k), "repeat_kernel",
-            launches=r)
-        plain_ms = device_ms(lambda: fused_repeat_block_plain(*args,
-                                                              kernel=k))
-        bound, bound_by = repeat_bound_ms(bsz, t, c_in, c_out, k, r, True)
-        print(f"repeat (C_in {c_in}, C_out {c_out}, K {k}, R {r}) B={bsz} "
-              f"T={t}: max|d| {err:.3e} (max|want| {scale:.3f}), "
-              f"{ms:.4f} ms ({seen:g} traced per call; events "
-              f"{ev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"by {bound_by}, x{per_fwd} per forward")
-        tot["ms"] += per_fwd * ms
-        tot["plain_ms"] += per_fwd * plain_ms
-        tot["bound_ms"] += per_fwd * bound
-        if per_fwd:
-            bound_by_main.add(bound_by)
+    plans = set()
+    for c_in, c_out, k, r, bsz, t, per_fwd in REPEAT_SHAPES:
+        times = {}
+        for full in (False, True):
+            args = repeat_inputs(np, torch, dev, c_in, c_out, k, r, t, bsz,
+                                 full)
+            got = fused_repeat_block(*args, kernel=k)
+            want = fused_repeat_block_plain(*args, kernel=k)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            what = f"repeat ({c_in},{c_out},{k},R={r}) B={bsz} T={t} " \
+                f"full={full}"
+            check(got.shape == want.shape and got.dtype == torch.bfloat16,
+                  f"{what}: shape or dtype differs from the plain version")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{what}: non-finite")
+            check(err <= REPEAT_TOL_REL * scale,
+                  f"{what}: max|d| {err} > {REPEAT_TOL_REL} * {scale}")
+            worst = max(worst, err)
+            plan = repeat_launches(bsz, t, c_in, c_out, k, r, args[1])
+            plans.update(p[:2] for p in plan)
+            ms, seen, ev_ms = kernel_ms(
+                lambda: fused_repeat_block(*args, kernel=k), "repeat_kernel",
+                launches=r)
+            rows = int(args[1].clamp(0, t).sum())
+            bound, bound_by = repeat_bound_ms(bsz, t, c_in, c_out, k, r,
+                                              True, rows)
+            times[full] = (ms, bound)
+            line = (f"repeat (C_in {c_in}, C_out {c_out}, K {k}, R {r}) "
+                    f"B={bsz} T={t} {'full' if full else 'ragged'} lengths "
+                    f"({rows} valid rows): max|d| {err:.3e} (max|want| "
+                    f"{scale:.3f}), {ms:.4f} ms ({seen:g} traced per call; "
+                    f"events {ev_ms:.4f}), bound {bound:.4f} ms by "
+                    f"{bound_by}; launches (rows per block, column groups, "
+                    f"blocks, skipped as padding) {plan}")
+            if not full:
+                plain_ms = device_ms(lambda: fused_repeat_block_plain(
+                    *args, kernel=k))
+                line += f", plain {plain_ms:.4f} ms"
+                tot["plain_ms"] += per_fwd * plain_ms
+                if per_fwd:
+                    bound_by_main.add(bound_by)
+            if not full and per_fwd:
+                x, lens, dws, pws, bs, res_w, res_b = args
+                mask = (torch.arange(t, device=dev)[None, :]
+                        < lens[:, None])[:, :, None]
+                dw_conv = dws[0].t().unsqueeze(1).contiguous()
+                comp = repeat_composition(torch, x, mask, dw_conv, pws[0],
+                                          bs[0], res_w, res_b, k)
+                comp_err = float((comp.float() - want.float()).abs().max())
+                comp_ms = device_ms(lambda: repeat_composition(
+                    torch, x, mask, dw_conv, pws[0], bs[0], res_w, res_b, k))
+                line += (f", composition {comp_ms:.4f} ms (max|d| vs plain "
+                         f"{comp_err:.3e})")
+                tot["composition_ms"] += per_fwd * comp_ms
+            print(line + f", x{per_fwd} per forward")
+        tot["ms"] += per_fwd * times[False][0]
+        tot["bound_ms"] += per_fwd * times[False][1]
+        tot["full_length_ms"] += per_fwd * times[True][0]
+        tot["bound_full_ms"] += per_fwd * times[True][1]
+    check({(64, 1), (32, 1), (32, 2)} <= plans,
+          f"repeat: phase 4 held only the launch plans {sorted(plans)} "
+          "against the plain version")
+    print(f"composition_ms (F.conv1d fp32 + 2 bf16 matmuls + bias + ReLU, "
+          f"13 blocks of one forward, ragged lengths): "
+          f"{tot['composition_ms']:.4f}")
     print(f"repeat kernel, 13 launches of one forward at B=8 x 16.7 s: "
-          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms")
+          f"ragged lengths {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f}),"
+          f" full lengths {tot['full_length_ms']:.4f} ms (bound "
+          f"{tot['bound_full_ms']:.4f}), plain {tot['plain_ms']:.4f} ms")
     return {"name": "repeat_block", "route": "cuda",
             "source": "vietasr_tpu_torch/csrc/repeat_block.cu",
             "replaces": "vietasr_tpu/ops/pallas_repeat.py:57",

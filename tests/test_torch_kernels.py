@@ -61,13 +61,15 @@ def _audio(bsz, seconds, seed, sr=16000):
     return torch.from_numpy(sig), torch.from_numpy(lens)
 
 
-def _block_operands(c_in, c_out, k, r, t, bsz=3, seed=0):
+def _block_operands(c_in, c_out, k, r, t, bsz=3, seed=0, lens=None,
+                    x_dtype=torch.bfloat16):
     rng = np.random.RandomState(seed)
     f = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
         (rng.randn(*s) * scale).astype(np.float32))
     cs = [c_in] + [c_out] * (r - 1)
-    x = f(bsz, t, c_in, scale=0.5).to(torch.bfloat16)
-    lens = torch.tensor([t, t - 7, t // 2][:bsz], dtype=torch.int32)
+    x = f(bsz, t, c_in, scale=0.5).to(x_dtype)
+    lens = torch.tensor([t, t - 7, t // 2][:bsz] if lens is None else lens,
+                        dtype=torch.int32)
     return (x, lens, [f(k, c, scale=k ** -0.5) for c in cs],
             [f(c, c_out, scale=c ** -0.5).to(torch.bfloat16) for c in cs],
             [f(c_out, scale=0.1) for _ in cs],
@@ -108,14 +110,69 @@ def test_frontend_kernel_matches_plain(bsz, seconds, features):
     assert float((got - want).abs().max()) < FRONTEND_TOL
 
 
+def _phase4_lens(c_in, c_out, k, r, t, bsz=8):
+    """chip_smoke.py phase 4's ragged lengths for this block shape."""
+    rng = np.random.RandomState(c_in + c_out + k + r)
+    rng.randn(bsz, t, c_in)
+    lens = rng.randint(t // 4, t + 1, size=bsz)
+    lens[0] = t
+    return lens.tolist()
+
+
+def _repeat_case(c_in, c_out, k, r, last_act=False, t=200, bsz=3, lens=None,
+                 x_dtype=torch.bfloat16, name=None):
+    return pytest.param(c_in, c_out, k, r, last_act, t, bsz, lens, x_dtype,
+                        id=name or f"{c_in}-{c_out}-{k}-{r}-{last_act}")
+
+
+# the kernel takes 64-row tiles, or 32-row ones when their grid fits in
+# one wave on the card (B = 2 and B = 3 here), splits the output columns
+# of a small 32-row grid over two blocks, and skips the tiles that start
+# at or past a row's length
+REPEAT_CASES = [
+    _repeat_case(256, 512, 51, 1), _repeat_case(512, 512, 75, 1),
+    _repeat_case(64, 64, 9, 3), _repeat_case(64, 128, 9, 2, True),
+] + [
+    # the 13 main-path blocks' 6 shapes at B = 8 x 16.7 s, ragged lengths
+    _repeat_case(c_in, c_out, k, 1, t=840, bsz=8,
+                 lens=_phase4_lens(c_in, c_out, k, 1, 840),
+                 name=f"main-{c_in}-{c_out}-{k}")
+    for c_in, c_out, k in ((256, 256, 33), (256, 256, 39), (256, 512, 51),
+                           (512, 512, 51), (512, 512, 63), (512, 512, 75))
+] + [
+    _repeat_case(256, 256, 33, 1, t=1, bsz=2, lens=[1, 0], name="T1-len0"),
+    _repeat_case(256, 256, 33, 1, t=65, bsz=2, lens=[65, 0], name="T65-len0"),
+    _repeat_case(512, 512, 75, 1, t=200, bsz=2, lens=[200, 3],
+                 name="T200-B2"),
+    # a small grid splits a 512-wide output over two blocks per tile
+    _repeat_case(256, 512, 51, 1, t=65, bsz=2, lens=[0, 40],
+                 name="T65-len0-split-columns"),
+    _repeat_case(64, 512, 9, 2, True, t=100, bsz=3, lens=[100, 0, 33],
+                 name="R2-last_act-split-columns"),
+    _repeat_case(256, 256, 33, 1, t=1000, bsz=8,
+                 lens=[1000, 0, 1, 64, 65, 128, 999, 500],
+                 name="64-row-tiles-len0-len1"),
+    # fp32 input: staged as fp32 in the weight ring's memory, at 64-row and
+    # at 32-row tiles
+    _repeat_case(512, 512, 75, 1, t=840, bsz=8,
+                 lens=_phase4_lens(512, 512, 75, 1, 840),
+                 x_dtype=torch.float32, name="fp32-64-row-tiles"),
+    _repeat_case(64, 128, 9, 2, x_dtype=torch.float32, name="fp32-R2"),
+    _repeat_case(64, 64, 9, 3, True, t=840, bsz=8,
+                 lens=_phase4_lens(64, 64, 9, 3, 840),
+                 name="R3-last_act-64-row-tiles"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,k,r,last_act", [
-    (256, 512, 51, 1, False), (512, 512, 75, 1, False),
-    (64, 64, 9, 3, False), (64, 128, 9, 2, True)])
-def test_repeat_kernel_matches_plain(c_in, c_out, k, r, last_act):
+@pytest.mark.parametrize("c_in,c_out,k,r,last_act,t,bsz,lens,x_dtype",
+                         REPEAT_CASES)
+def test_repeat_kernel_matches_plain(c_in, c_out, k, r, last_act, t, bsz,
+                                     lens, x_dtype):
     _need_gpu()
     args = [a.cuda() if torch.is_tensor(a) else [w.cuda() for w in a]
-            for a in _block_operands(c_in, c_out, k, r, 200)]
+            for a in _block_operands(c_in, c_out, k, r, t, bsz, lens=lens,
+                                     x_dtype=x_dtype)]
     launches = fused_repeat_block.launches
     got = fused_repeat_block(*args, kernel=k, last_act=last_act).float()
     want = fused_repeat_block_plain(*args, kernel=k,

@@ -26,10 +26,12 @@ torch.set_num_threads(1)
 REL_TOL = 2.0 ** -7
 
 
-def _operands(c_in, c_out, k, r, t, bsz=3, residual=True, seed=0):
+def _operands(c_in, c_out, k, r, t, bsz=3, residual=True, seed=0,
+              lens=None):
     rng = np.random.RandomState(seed)
     x = (rng.randn(bsz, t, c_in) * 0.5).astype(np.float32)
-    lens = np.array([t, t - 7, max(t // 2, 1)][:bsz], np.int32)
+    lens = np.array([t, t - 7, max(t // 2, 1)][:bsz] if lens is None
+                    else lens, np.int32)
     cs = [c_in] + [c_out] * (r - 1)
     dws = [(rng.randn(k, c) * k ** -0.5).astype(np.float32) for c in cs]
     pws = [(rng.randn(c, c_out) * c ** -0.5).astype(np.float32) for c in cs]
@@ -58,14 +60,27 @@ def _port(x, lens, dws, pws, bs, res_w, res_b, k, fn=fused_repeat_block):
     return out.float().numpy()
 
 
-@pytest.mark.parametrize("c_in,c_out,k,r,t", [
-    (8, 8, 9, 3, 64),         # square, multi-repeat
-    (8, 16, 7, 2, 50),        # widening first repeat
-    (16, 16, 33, 5, 40),      # halo wider than T
-    (16, 32, 33, 1, 48),      # C_in < C_out, R = 1 (QuartzNet12x1 block 7)
+def _case(c_in, c_out, k, r, t, lens=None, name=None):
+    return pytest.param(c_in, c_out, k, r, t, lens,
+                        id=name or f"{c_in}-{c_out}-{k}-{r}-{t}")
+
+
+@pytest.mark.parametrize("c_in,c_out,k,r,t,lens", [
+    _case(8, 8, 9, 3, 64),        # square, multi-repeat
+    _case(8, 16, 7, 2, 50),       # widening first repeat
+    _case(16, 16, 33, 5, 40),     # halo wider than T
+    _case(16, 32, 33, 1, 48),     # C_in < C_out, R = 1 (QuartzNet12x1 block 7)
+    # the CUDA kernel's tile geometry (64- or 32-row tiles; a tile that
+    # starts at or past len is skipped and written from the biases): a
+    # zero-length and a length-1 row, T not a multiple of 64 with lengths
+    # that leave whole 64-row tiles (and 32-row ones) of padding
+    _case(16, 16, 9, 1, 70, [70, 0, 1], "len0-len1-T70"),
+    _case(32, 16, 33, 1, 130, [130, 64, 5], "T130-whole-pad-tiles"),
+    _case(16, 32, 17, 2, 130, [1, 129, 63], "T130-R2-len1"),
+    _case(32, 32, 33, 1, 70, [0, 32, 64], "T70-tile-boundaries"),
 ])
-def test_matches_jax_pallas_block(c_in, c_out, k, r, t):
-    ops = _operands(c_in, c_out, k, r, t)
+def test_matches_jax_pallas_block(c_in, c_out, k, r, t, lens):
+    ops = _operands(c_in, c_out, k, r, t, lens=lens)
     want = _jax(*ops, k)
     launches = fused_repeat_block.launches
     got = _port(*ops, k)

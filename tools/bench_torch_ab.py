@@ -6,10 +6,14 @@
 Imports vietasr_tpu_torch from DIR (default: this checkout), so that two
 checkouts can be timed on one card in one session; run them in turns (A, B,
 B, A). The inputs come from this checkout's chip_smoke.py:
+  - the repeat-block kernel alone: the 13 launches of one forward at
+    phase 4's shapes (B = 8, T = 840), at phase 4's ragged lengths and at
+    full lengths, each launch by `chip_smoke.event_ms` (CUDA events over
+    20 calls behind a sleep kernel, after a warm-up);
   - the beam kernel alone at its phase-6 timing shape (seeded blank-heavy
     log-probs B = 8, T = 840, V+1 = 91, ragged lengths, W = 100, top-8,
     alpha 0.5, beta 1.5, the word 3-gram chip_smoke.py trains): ms per
-    call by CUDA events over 20 calls after a warm-up, and us per step
+    call by `chip_smoke.event_ms`, and us per step
     (the longest row's 840 steps run in series);
   - the beam path: Transcriber(decoder="device_beam") with that word
     3-gram at its default W = 100 over phase 5's 16 seeded signals of
@@ -60,6 +64,7 @@ def main() -> int:
                                                    word_lm_to_device)
     from vietasr_tpu_torch.ops.fused_beam import beam_search_cuda
     from vietasr_tpu_torch.ops.lm import NGramLM, word_lm_tables
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
     from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,7 +79,18 @@ def main() -> int:
         tables, probes = word_lm_tables(NGramLM(lm_path), beam.cfg.labels)
     greedy = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR)
 
-    # the kernel alone
+    # the repeat kernel alone: one forward's 13 launches
+    for full in (False, True):
+        total = 0.0
+        for c_in, c_out, k, r, bsz, t, per_fwd in chip_smoke.REPEAT_SHAPES:
+            if per_fwd:
+                args = chip_smoke.repeat_inputs(np, torch, dev, c_in, c_out,
+                                                k, r, t, bsz, full=full)
+                total += per_fwd * chip_smoke.event_ms(
+                    lambda: fused_repeat_block(*args, kernel=k))
+        out["repeat_full_lengths_ms" if full else "repeat_ms"] = total
+
+    # the beam kernel alone
     labels = beam.cfg.labels
     v1 = len(labels) + 1
     lp, lens, _ = chip_smoke.synthetic_beam_inputs(np, torch, dev, v1)
@@ -89,15 +105,7 @@ def main() -> int:
                          space=labels.index(" "), alpha=kw["alpha"],
                          beta=kw["beta"], word_lm=wl, wlm_probes=probes)
 
-    kernel()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(20):
-        kernel()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / 20
+    ms = chip_smoke.event_ms(kernel)
     out["kernel_ms"] = ms
     out["kernel_us_per_step"] = ms / lp.shape[1] * 1e3
 

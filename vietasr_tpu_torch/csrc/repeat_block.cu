@@ -15,31 +15,61 @@
 // GEMMs are ~7 GFLOP of bf16 (7 us at 989 TFLOP/s), the depthwise 0.43
 // GFLOP of fp32 on the CUDA cores (6.5 us at 67 TFLOP/s) and the bytes
 // ~15 MB (4.5 us): operations bound it, split between the tensor cores
-// and the CUDA cores, so the kernel keeps every intermediate on chip and
-// keeps both kinds of unit fed from shared memory. One block owns TT = 32
-// time rows of one batch row; its time goes mostly to waiting on memory,
-// so every load phase issues all its copies before it uses any:
-//   1. The residual input rows (masked, bf16) are copied with cp.async
-//      into their A tile first, to land while the depthwise runs.
-//   2. Depthwise, in channel chunks of CH = 64: the halo'd input rows
-//      [t0 - K/2, t0 + TT + K/2 + 8) (16-byte loads, masked, widened to
-//      fp32) and the chunk's K taps are staged in shared memory; each
-//      thread owns one channel and 8 consecutive output rows (8 fp32
-//      accumulators) and slides a 16-row register window over the taps,
-//      8 taps at a time: 64 FMAs per 16 shared loads. The masked result is
-//      written as bf16 into the GEMM's A tile (TT x C_in).
-//   3. For each 128-wide chunk of output channels, one pass over the
-//      concatenated reduction [pointwise rows | residual rows] streams the
-//      weights through two shared-memory buffers of 64-row tiles, filled
-//      with 16-byte cp.async copies by the whole block while the previous
-//      tile is multiplied (one barrier per tile; on the H100 deeper rings
-//      of smaller tiles measured slower); 8 warps (2 x 4) each compute a 16 x 32 tile
-//      with mma.sync m16n8k16 (bf16 in, fp32 sums in registers), their
-//      operands read by ldmatrix (x4; .trans for the row-major weights):
-//      per 16-deep step, 3 shared loads for 4 MMAs. (When a ReLU sits
-//      between the two products, the residual pass runs second, onto the
-//      ReLU'd pointwise sums.) The bias / ReLU epilogue works on the
-//      registers and stores column pairs.
+// and the CUDA cores. Every block multiplies its rows by the whole weight
+// matrix, so the weights are read from L2 once per block: the number of
+// rows a block owns sets the L2 traffic (1 MiB of bf16 weights per block
+// for a 512 -> 512 block with its residual).
+//
+// Design. One block of 8 warps owns TT time rows of one batch row:
+//   - TT = 64 by default (112 blocks at B = 8, T = 840: one wave on the
+//     132 SMs, one block per SM). TT = 32 when the grid of 32-row blocks
+//     fits in one wave, or when 64 rows do not fit in shared memory
+//     (`tile_rows`). A 32-row grid that fits twice over splits an output
+//     of two 256-column passes over two blocks per tile, each doing the
+//     depthwise and one pass (`col_groups`).
+//   - A block whose first row is at or past `len` loads and multiplies
+//     nothing: it writes relu(b_pw [ReLU] + b_res) with the epilogue's
+//     arithmetic. Partial tiles run in full.
+//   - Depthwise, in channel chunks of CH = 64: the halo'd input rows
+//     [t0 - K/2, t0 + TT + round8(K) - K/2) are staged in shared memory in
+//     the input's own type (bf16 on the main path; widened in registers,
+//     which is exact) with the chunk's K fp32 taps; each thread owns one
+//     channel and TT/4 consecutive output rows and slides a register
+//     window over the taps, 8 taps at a time, in ascending tap order
+//     through fmaf. The masked result goes as bf16 into the GEMM's A tile.
+//   - The GEMM streams [pw; res] through a ring of NSTAGE = 2 tiles of
+//     KB = 64 weight rows x NC = 256 columns, filled with 16-byte cp.async
+//     copies, one barrier per tile, as one sequence over the block's column
+//     passes (the ring does not drain between passes). The depthwise
+//     staging uses the ring's memory, so the ring's first tile is issued
+//     when the depthwise is done; the residual rows' copies are issued
+//     before it and land while it runs.
+//   - Warps are 2 (rows) x 4 (columns), each with a (TT/2) x 64 tile of
+//     m16n8k16 mma.sync products (bf16 in, fp32 sums in registers: 64 a
+//     thread at TT = 64), operands read by ldmatrix (x4; .trans for the
+//     row-major weights), every fragment of a 16-deep step before its
+//     MMAs: TT/32 + 4 shared loads for TT/2 MMAs. When a ReLU sits between
+//     the two products, it is applied to the sums where the residual's
+//     tiles begin. The bias / ReLU epilogue works on the registers and
+//     stores column pairs.
+// Measured on an H100 80GB HBM3 at 700 W (one forward's 13 launches at
+// B = 8, T = 840, ragged lengths, CUDA events; 32-row blocks, 128-column
+// passes and fp32 staging took 0.87 ms): this design 0.72 ms, then 0.69
+// with the ring's memory shared (medians of 6 interleaved runs: a ring of
+// its own where it fit, K <= 51 at 512 channels, whose first tile landed
+// during the depthwise, read 0.7217 vs 0.6856 ms, and 0.44 vs 0.42 ms on
+// the grids of 2-4 rows x 304-552 frames); a 3-deep
+// ring of 32-row weight tiles 0.81 (the ring's depth did not matter, the
+// barriers per weight row did: with no weight loads at all the 32-row
+// tiles' GEMM still took 50 of its 70 us at 512 channels); 16 warps of
+// 16 rows 0.95; 32-row blocks small enough for two per SM 0.95;
+// double-buffered fragments 0.75; a channel-major staging read 8 rows a
+// load 0.77 (its stores cost more than its loads saved); fetching the
+// next chunk's staging into registers during the depthwise changed
+// nothing. Rows per block: 64 rows 0.72 vs 32 rows 0.96 at B = 8, T = 840;
+// 32 rows 0.45 vs 0.71 at B = 2, T = 200, 0.57 vs 0.73 at B = 8, T = 420
+// and 0.58 vs 0.73 at B = 4, T = 840 (both grids fit in one wave). The
+// column split: 0.45 vs 0.59 ms at B = 2, T = 200.
 // Rows t >= len come out as relu(b_pw + b_res), exactly as in the JAX
 // package; later blocks mask them.
 
@@ -49,40 +79,45 @@
 
 namespace {
 
-constexpr int TT = 32;          // time rows per block
 constexpr int CH = 64;          // depthwise channel chunk
-constexpr int NC = 128;         // output channels per GEMM pass (4 warps x 32)
+constexpr int NC = 256;         // output channels per GEMM pass (4 warps x 64)
+constexpr int NJ = 8;           // m16n8 fragments a warp holds per row tile
 constexpr int KB = 64;          // weight rows per staged tile
-constexpr int NSTAGE = 2;       // staged weight tile buffers
+constexpr int NSTAGE = 2;       // weight tiles in the ring
 constexpr int THREADS = 256;
 constexpr int PADH = 8;         // bf16 row padding of the A tiles
-constexpr int LDB = NC + 8;     // bf16 row pitch of the staged weight tile
+constexpr int LDB = NC + 8;     // bf16 row pitch of a staged weight tile
 constexpr int TILE = KB * LDB;  // bf16 elements of one staged weight tile
-constexpr int BATCH = 4;        // 16-byte loads a thread issues before use
+constexpr int BATCH = 8;        // 16-byte loads a thread issues before use
+constexpr size_t SMEM_MAX = 232448;   // shared memory one H100 block may use
+constexpr int MAX_DEVICES = 64;
 
-// 16 bytes of the block input, widened to fp32
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& v, float* f) {
-    f[0] = __uint_as_float(v.x);
-    f[1] = __uint_as_float(v.y);
-    f[2] = __uint_as_float(v.z);
-    f[3] = __uint_as_float(v.w);
-  }
+__host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
+
+// Byte offsets of the shared-memory regions: the A tiles [a_dw | a_res],
+// then the weight ring, whose memory the depthwise staging (input rows in
+// their own type, then K x CH fp32 taps) uses before the GEMM starts.
+struct Layout {
+  size_t a_res, ring, taps, total;
 };
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& v, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 p = __bfloat1622float2(h[i]);
-      f[2 * i] = p.x;
-      f[2 * i + 1] = p.y;
-    }
-  }
-};
+
+__host__ __device__ inline Layout layout(int tt, int in_bytes, int cx, int cr,
+                                         bool has_res, int k) {
+  Layout l;
+  const size_t ring = (size_t)NSTAGE * TILE * 2;
+  const size_t stage = (size_t)(tt + round8(k)) * CH * in_bytes;
+  const size_t taps = (size_t)k * CH * sizeof(float);
+  l.a_res = (size_t)tt * (cx + PADH) * 2;
+  l.ring = l.a_res + (has_res ? (size_t)tt * (cr + PADH) * 2 : 0);
+  l.taps = l.ring + stage;
+  l.total = l.ring + (stage + taps > ring ? stage + taps : ring);
+  return l;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 // two adjacent output columns
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -90,19 +125,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
-
-// The depthwise staging (input rows, then K taps, fp32) and the GEMM's two
-// weight tiles share one region after the A tiles.
-__host__ __device__ inline size_t smem_bytes(int cx, int cr, bool has_res,
-                                             int k) {
-  const size_t a = (size_t)TT * (cx + PADH) * 2 +
-                   (has_res ? (size_t)TT * (cr + PADH) * 2 : 0);
-  const size_t stage = (size_t)(TT + round8(k) + k) * CH * sizeof(float);
-  const size_t gemm = (size_t)NSTAGE * TILE * 2;
-  return a + (stage > gemm ? stage : gemm);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -151,7 +173,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* __restrict__ w,
                                           int kb, int K, int co, int n0) {
-  for (int i = threadIdx.x; i < KB * (NC / 8); i += THREADS) {
+  static_assert(KB * (NC / 8) % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int u = 0; u < KB * (NC / 8) / THREADS; ++u) {
+    const int i = u * THREADS + threadIdx.x;
     const int r = i / (NC / 8);
     const int cc = (i - r * (NC / 8)) * 8;
     __nv_bfloat16* d = dst + r * LDB + cc;
@@ -163,107 +188,80 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   cp_async_commit();
 }
 
-// One operand pair of a product: this warp's 16 rows of A (lda pitch) and
-// the weights W (K, co).
-struct Seg {
-  const __nv_bfloat16* a;
-  int lda;
-  const __nv_bfloat16* w;
-  int K;
-};
-
-// acc[j] += [A1 | A2] x [W1; W2][:, c + 8j : c + 8j + 8) for j < 4, with
-// c = n0 + wn * 32 in the block's 128-column chunk at n0 (s2.K may be 0;
-// every K is a multiple of 16); acc[j] is the m16n8 fragment (rows lane/4
-// and lane/4 + 8, columns 2 * (lane % 4) + {0, 1}). The weights stream
-// through the NSTAGE tile buffers at bsm, NSTAGE - 1 tiles ahead of the
-// one in use (a group per tile, empty past the end, so the count of
-// groups in flight stays fixed). Every thread of the block calls it (it
-// holds __syncthreads); it begins with one, so the caller's use of the
-// buffers is over, and leaves no copy in flight.
-__device__ __forceinline__ void gemm_pass(float (&acc)[4][4], Seg s1, Seg s2,
-                                          int co, int n0, __nv_bfloat16* bsm,
-                                          int wn) {
-  const int lane = threadIdx.x & 31;
-  const int lrow = lane % 16, lcol = (lane / 16) * 8;   // ldmatrix address
-  const int nt1 = (s1.K + KB - 1) / KB;
-  const int nt = nt1 + (s2.K + KB - 1) / KB;
-  auto load = [&](int t, __nv_bfloat16* dst) {
-    if (t < nt1)
-      load_tile(dst, s1.w, t * KB, s1.K, co, n0);
-    else
-      load_tile(dst, s2.w, (t - nt1) * KB, s2.K, co, n0);
-  };
-  __syncthreads();                         // the buffers are free
-  for (int t = 0; t < NSTAGE - 1; ++t) {
-    if (t < nt)
-      load(t, bsm + t * TILE);
-    else
-      cp_async_commit();
-  }
-  for (int t = 0; t < nt; ++t) {
-    cp_async_wait<NSTAGE - 2>();           // tile t has landed
-    __syncthreads();                       // for all; tile t - 1 is consumed
-    const int tn = t + NSTAGE - 1;         // into tile t - 1's buffer
-    if (tn < nt)
-      load(tn, bsm + (tn % NSTAGE) * TILE);
-    else
-      cp_async_commit();
-    const __nv_bfloat16* tile = bsm + (t % NSTAGE) * TILE;
-    const bool first = t < nt1;
-    const int k0 = (first ? t : t - nt1) * KB;
-    const __nv_bfloat16* a = (first ? s1.a : s2.a) + k0;
-    const int lda = first ? s1.lda : s2.lda;
-    const int kend = min(KB, (first ? s1.K : s2.K) - k0);
-    for (int kk = 0; kk < kend; kk += 16) {
-      unsigned fa[4], fb0[4], fb1[4];
-      ldsm_x4(fa, a + lrow * lda + kk + lcol);
-      const __nv_bfloat16* bt = tile + (kk + lrow) * LDB + wn * 32 + lcol;
-      ldsm_x4_t(fb0, bt);             // columns +0..15: b0, b1 of j = 0, 1
-      ldsm_x4_t(fb1, bt + 16);        // columns +16..31: j = 2, 3
-      mma_bf16(acc[0], fa, fb0[0], fb0[1]);
-      mma_bf16(acc[1], fa, fb0[2], fb0[3]);
-      mma_bf16(acc[2], fa, fb1[0], fb1[1]);
-      mma_bf16(acc[3], fa, fb1[2], fb1[3]);
-    }
-  }
-}
-
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int TT, typename Tin, typename Tout>
+__global__ void __launch_bounds__(THREADS, 64 / TT)
 repeat_kernel(const Tin* __restrict__ x, const __nv_bfloat16* __restrict__ xres,
               const int* __restrict__ lens, const float* __restrict__ dw,
               const __nv_bfloat16* __restrict__ pw, const float* __restrict__ bias,
               const __nv_bfloat16* __restrict__ resw, const float* __restrict__ resb,
               Tout* __restrict__ out, int T, int cx, int co, int cr, int k,
               int act_z) {
+  constexpr int MT = TT / 32;              // m16 row tiles per warp
+  constexpr int RPT = TT * CH / THREADS;   // depthwise rows per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int k2 = k / 2;
-  const int rows_st = TT + round8(k);
-  const int lda = cx + PADH;
-  const int ldr = cr + PADH;
+  const Layout lay = layout(TT, sizeof(Tin), cx, cr, xres != nullptr, k);
   __nv_bfloat16* a_dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* a_res = a_dw + TT * lda;
-  unsigned char* scratch_raw =
-      reinterpret_cast<unsigned char*>(a_res + (xres ? TT * ldr : 0));
-  float* stage = reinterpret_cast<float*>(scratch_raw);   // rows_st x CH
-  float* taps = stage + rows_st * CH;                       // k x CH
-  __nv_bfloat16* bsm = reinterpret_cast<__nv_bfloat16*>(scratch_raw);
+  __nv_bfloat16* a_res = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.a_res);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.ring);
+  Tin* stage = reinterpret_cast<Tin*>(smem_raw + lay.ring);
+  float* taps = reinterpret_cast<float*>(smem_raw + lay.taps);
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TT;
   const int len = min(lens[b], T);
   const int tid = threadIdx.x;
 
-  // 1. masked residual input rows, in flight during the depthwise (the
-  //    first gemm_pass waits for this cp.async group with its first tile)
+  // this block's column passes: p = grp, grp + ngrp, ... of NC columns
+  const int grp = blockIdx.z, ngrp = gridDim.z;
+  const int npass = ((co + NC - 1) / NC - grp + ngrp - 1) / ngrp;
+
+  // 0. a tile of padding only: the epilogue's arithmetic on zero sums
+  if (t0 >= len) {
+    const int rows = min(TT, T - t0);
+    const int half = co / 2;
+    for (int i = tid; i < rows * half; i += THREADS) {
+      const int r = i / half;
+      const int col = (i - r * half) * 2;
+      if ((col / NC) % ngrp != grp) continue;
+      float z[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        z[e] = 0.f + bias[col + e];
+        if (act_z) z[e] = fmaxf(z[e], 0.f);
+        z[e] = fmaxf(z[e] + (xres ? resb[col + e] : 0.f), 0.f);
+      }
+      store2(out + ((size_t)b * T + t0 + r) * co + col, z[0], z[1]);
+    }
+    return;
+  }
+
+  // the weight tiles, one sequence over this block's passes: pass p is
+  // [pw rows | res rows] x cols [p * NC, (p + 1) * NC)
+  const int nt1 = (cx + KB - 1) / KB;
+  const int ntp = nt1 + (xres ? (cr + KB - 1) / KB : 0);
+  const int nt = ntp * npass;
+  auto issue = [&](int g) {             // one cp.async group, empty past nt
+    if (g >= nt) {
+      cp_async_commit();
+      return;
+    }
+    const int q = g / ntp, t = g - q * ntp;
+    const int p = grp + q * ngrp;
+    __nv_bfloat16* dst = ring + (g % NSTAGE) * TILE;
+    if (t < nt1)
+      load_tile(dst, pw, t * KB, cx, co, p * NC);
+    else
+      load_tile(dst, resw, (t - nt1) * KB, cr, co, p * NC);
+  };
+  // the masked residual input rows, a group older than any weight tile;
+  // they land while the depthwise runs
   if (xres) {
     const int cpr = cr / 8;
     for (int i = tid; i < TT * cpr; i += THREADS) {
       const int r = i / cpr;
       const int cc = (i - r * cpr) * 8;
       const int t = t0 + r;
-      __nv_bfloat16* d = a_res + r * ldr + cc;
+      __nv_bfloat16* d = a_res + r * (cr + PADH) + cc;
       if (t < len)
         cp_async16(d, xres + ((size_t)b * T + t) * cr + cc);
       else
@@ -272,13 +270,16 @@ repeat_kernel(const Tin* __restrict__ x, const __nv_bfloat16* __restrict__ xres,
     cp_async_commit();
   }
 
-  // 2. depthwise, channel chunk by channel chunk
-  constexpr int VEC = Vec16<Tin>::N;
-  constexpr int VPR = CH / VEC;       // 16-byte vectors per staged row
+  // 1. depthwise, channel chunk by channel chunk
+  const int k2 = k / 2;
+  const int rows_st = TT + round8(k);
+  const int lda = cx + PADH;
+  constexpr int VEC = 16 / sizeof(Tin);
+  constexpr int VPR = CH / VEC;         // 16-byte vectors per staged row
   const int c = tid % CH;
-  const int r0 = (tid / CH) * 8;      // THREADS / CH = 4 groups of 8 rows = TT
+  const int r0 = (tid / CH) * RPT;
   for (int c0 = 0; c0 < cx; c0 += CH) {
-    const int chn = min(CH, cx - c0);  // a multiple of 16
+    const int chn = min(CH, cx - c0);   // a multiple of 16
     const int nx = rows_st * VPR;
     for (int base = 0; base < nx; base += BATCH * THREADS) {
       uint4 v[BATCH];
@@ -294,17 +295,9 @@ repeat_kernel(const Tin* __restrict__ x, const __nv_bfloat16* __restrict__ xres,
               x + ((size_t)b * T + g) * cx + c0 + cc));
       }
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
+      for (int u = 0; u < BATCH; ++u) {  // stage[r * CH + cc] = stage[i * VEC]
         const int i = base + u * THREADS + tid;
-        if (i < nx) {                  // stage[r * CH + cc] = stage[i * VEC]
-          float f[VEC];
-          Vec16<Tin>::unpack(v[u], f);
-          float4* d = reinterpret_cast<float4*>(stage + i * VEC);
-#pragma unroll
-          for (int q = 0; q < VEC / 4; ++q)
-            d[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2],
-                               f[4 * q + 3]);
-        }
+        if (i < nx) reinterpret_cast<uint4*>(stage)[i] = v[u];
       }
     }
     const int nw = k * (CH / 4);
@@ -328,113 +321,219 @@ repeat_kernel(const Tin* __restrict__ x, const __nv_bfloat16* __restrict__ xres,
     }
     __syncthreads();
     if (c < chn) {
-      float acc[8], win[16];
-      const float* s = stage + r0 * CH + c;
+      float acc[RPT], win[RPT + 8];
+      const Tin* s = stage + r0 * CH + c;
       const float* wc = taps + c;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < RPT; ++i) {
         acc[i] = 0.f;
-        win[i] = s[i * CH];
+        win[i] = to_float(s[i * CH]);
       }
       for (int j0 = 0; j0 < k; j0 += 8) {
         float wt[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          win[8 + i] = s[(j0 + 8 + i) * CH];
+          win[RPT + i] = to_float(s[(j0 + RPT + i) * CH]);
           wt[i] = (j0 + i < k) ? wc[(j0 + i) * CH] : 0.f;
         }
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(win[i + jj], wt[jj], acc[i]);
+          for (int i = 0; i < RPT; ++i)
+            acc[i] = fmaf(win[i + jj], wt[jj], acc[i]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) win[i] = win[8 + i];
+        for (int i = 0; i < RPT; ++i) win[i] = win[i + 8];
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < RPT; ++i) {
         const int t = t0 + r0 + i;
         a_dw[(r0 + i) * lda + c0 + c] = __float2bfloat16(t < len ? acc[i] : 0.f);
       }
     }
     __syncthreads();
   }
+  for (int g = 0; g < NSTAGE - 1; ++g) issue(g);   // the staging is done
 
-  // 3. GEMMs + epilogue
+  // 2. GEMMs + epilogue: the ring runs NSTAGE - 1 tiles ahead of the one
+  //    in use, one barrier per tile
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int wm = warp / 4;            // rows wm * 16
-  const int wn = warp % 4;            // cols wn * 32 of the chunk
+  const int wm = warp / 4;              // rows wm * TT / 2
+  const int wn = warp % 4;              // cols wn * 64 of the pass
+  const int lrow = lane % 16, lcol = (lane / 16) * 8;   // ldmatrix address
   const bool relu_between = xres && act_z;
-  const Seg seg_pw = {a_dw + wm * 16 * lda, lda, pw, cx};
-  const Seg seg_res = {a_res + wm * 16 * ldr, ldr, resw, xres ? cr : 0};
-  const Seg none = {nullptr, 0, nullptr, 0};
-  for (int n0 = 0; n0 < co; n0 += NC) {
-    // this lane's outputs: columns cl + 8j + {0, 1}, rows rl + {0, 8}
-    const int cl = n0 + wn * 32 + 2 * (lane % 4);
-    const int rl = t0 + wm * 16 + lane / 4;
-    float bz[4][2], br[4][2], acc[4][4];
+  float acc[MT][NJ][4];
+  for (int g = 0; g < nt; ++g) {
+    cp_async_wait<NSTAGE - 2>();        // tile g (and the residual rows)
+    __syncthreads();                    // for all; tile g - 1 is consumed
+    issue(g + NSTAGE - 1);              // into tile g - 1's buffer
+    const int q = g / ntp, t = g - q * ntp;
+    const int p = grp + q * ngrp;
+    // this lane's outputs: columns cl + 8j + {0, 1}, rows rl + 16m + {0, 8}
+    const int cl = p * NC + wn * 64 + 2 * (lane % 4);
+    if (t == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = cl + 8 * j;
-      const bool ok = col < co;       // co is even: col + 1 < co too
-      bz[j][0] = ok ? bias[col] : 0.f;
-      bz[j][1] = ok ? bias[col + 1] : 0.f;
-      br[j][0] = (ok && xres) ? resb[col] : 0.f;
-      br[j][1] = (ok && xres) ? resb[col + 1] : 0.f;
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
     }
-    gemm_pass(acc, seg_pw, relu_between ? none : seg_res, co, n0, bsm, wn);
-    if (relu_between) {
-      // ReLU(z + b) first, then the residual product on top of it
+    if (relu_between && t == nt1) {     // ReLU(z + b) under the residual
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NJ; ++j) {
+        const int col = cl + 8 * j;     // co is even: col + 1 < co too
+        const float b0 = col < co ? bias[col] : 0.f;
+        const float b1 = col < co ? bias[col + 1] : 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[j][e] = fmaxf(acc[j][e] + bz[j][e & 1], 0.f);
-      gemm_pass(acc, seg_res, none, co, n0, bsm, wn);
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[m][j][e] = fmaxf(acc[m][j][e] + ((e & 1) ? b1 : b0), 0.f);
+      }
     }
+    const bool first = t < nt1;
+    const int k0 = (first ? t : t - nt1) * KB;
+    const int ld = first ? lda : cr + PADH;
+    const __nv_bfloat16* a =
+        (first ? a_dw : a_res) + (wm * (TT / 2) + lrow) * ld + k0 + lcol;
+    const __nv_bfloat16* bt =
+        ring + (g % NSTAGE) * TILE + lrow * LDB + wn * 64 + lcol;
+    const int kend = min(KB, (first ? cx : cr) - k0);   // a multiple of 16
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int kk = 0; kk < KB; kk += 16) {
+      if (kk >= kend) break;
+      // every fragment of the step first, then its MMAs
+      unsigned fa[MT][4], fb[NJ / 2][4];   // fb[q]: columns 16q..16q+15
+#pragma unroll
+      for (int m = 0; m < MT; ++m) ldsm_x4(fa[m], a + m * 16 * ld + kk);
+#pragma unroll
+      for (int q = 0; q < NJ / 2; ++q)
+        ldsm_x4_t(fb[q], bt + kk * LDB + q * 16);
+#pragma unroll
+      for (int q = 0; q < NJ / 2; ++q)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(acc[m][2 * q], fa[m], fb[q][0], fb[q][1]);
+          mma_bf16(acc[m][2 * q + 1], fa[m], fb[q][2], fb[q][3]);
+        }
+    }
+    if (t != ntp - 1) continue;
+    // epilogue of pass p
+    const int rl = t0 + wm * (TT / 2) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
       const int col = cl + 8 * j;
       if (col >= co) continue;
+      float bz[2], br[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = rl + 8 * h;
-        if (t >= T) continue;
-        float z[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          z[e] = acc[j][2 * h + e];
-          if (!relu_between) {
-            z[e] += bz[j][e];
-            if (act_z) z[e] = fmaxf(z[e], 0.f);
-          }
-          z[e] = fmaxf(z[e] + br[j][e], 0.f);
-        }
-        store2(out + ((size_t)b * T + t) * co + col, z[0], z[1]);
+      for (int e = 0; e < 2; ++e) {
+        bz[e] = bias[col + e];
+        br[e] = xres ? resb[col + e] : 0.f;
       }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tr = rl + 16 * m + 8 * h;
+          if (tr >= T) continue;
+          float z[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            z[e] = acc[m][j][2 * h + e];
+            if (!relu_between) {
+              z[e] += bz[e];
+              if (act_z) z[e] = fmaxf(z[e], 0.f);
+            }
+            z[e] = fmaxf(z[e] + br[e], 0.f);
+          }
+          store2(out + ((size_t)b * T + tr) * co + col, z[0], z[1]);
+        }
     }
   }
 }
 
-template <typename Tin, typename Tout>
+int device_index() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev < MAX_DEVICES ? dev : MAX_DEVICES - 1;
+}
+
+int num_sms() {
+  static int sms[MAX_DEVICES];
+  const int dev = device_index();
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+// Column groups: a 32-row grid small enough splits an output of two or
+// more NC-wide passes over two blocks per tile (each does the depthwise
+// and its own passes), so that each block's chain of weight tiles halves.
+int col_groups(int batch, int T, int co, int tt) {
+  if (tt == 32 && co >= 2 * NC &&
+      (long long)(T + 31) / 32 * batch * 2 <= num_sms())
+    return 2;
+  return 1;
+}
+
+// Time rows per block: 64, unless the grid of 32-row blocks fits in one
+// wave of one block per SM (a small bucket: twice the blocks at half the
+// rows each finish sooner) or 64 rows do not fit in shared memory.
+int tile_rows(int x_bf16, int batch, int T, int cx, int cr, int has_res,
+              int k) {
+  if ((long long)(T + 31) / 32 * batch <= num_sms()) return 32;
+  if (layout(64, x_bf16 ? 2 : 4, cx, cr, has_res != 0, k).total > SMEM_MAX)
+    return 32;
+  return 64;
+}
+
+template <int TT, typename Tin, typename Tout>
 int launch(const void* x, const void* xres, const void* lens, const void* dw,
            const void* pw, const void* bias, const void* resw,
            const void* resb, void* out, int batch, int T, int cx, int co,
            int cr, int k, int act_z, cudaStream_t stream) {
-  const size_t smem = smem_bytes(cx, cr, xres != nullptr, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      repeat_kernel<Tin, Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TT - 1) / TT, batch);
-  repeat_kernel<Tin, Tout><<<grid, THREADS, smem, stream>>>(
+  // the attribute is a ceiling, set once per instantiation and device
+  static bool ready[MAX_DEVICES];
+  const int dev = device_index();
+  if (!ready[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        repeat_kernel<TT, Tin, Tout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  const size_t smem =
+      layout(TT, sizeof(Tin), cx, cr, xres != nullptr, k).total;
+  dim3 grid((T + TT - 1) / TT, batch, col_groups(batch, T, co, TT));
+  repeat_kernel<TT, Tin, Tout><<<grid, THREADS, smem, stream>>>(
       (const Tin*)x, (const __nv_bfloat16*)xres, (const int*)lens,
       (const float*)dw, (const __nv_bfloat16*)pw, (const float*)bias,
       (const __nv_bfloat16*)resw, (const float*)resb, (Tout*)out, T, cx, co,
       cr, k, act_z);
   return (int)cudaGetLastError();
+}
+
+template <int TT>
+int launch_tt(const void* x, int x_bf16, const void* xres, const void* lens,
+              const void* dw, const void* pw, const void* bias,
+              const void* resw, const void* resb, void* out, int out_bf16,
+              int batch, int T, int cx, int co, int cr, int k, int act_z,
+              cudaStream_t s) {
+  if (x_bf16 && out_bf16)
+    return launch<TT, __nv_bfloat16, __nv_bfloat16>(
+        x, xres, lens, dw, pw, bias, resw, resb, out, batch, T, cx, co, cr, k,
+        act_z, s);
+  if (x_bf16)
+    return launch<TT, __nv_bfloat16, float>(x, xres, lens, dw, pw, bias, resw,
+                                            resb, out, batch, T, cx, co, cr, k,
+                                            act_z, s);
+  if (out_bf16)
+    return launch<TT, float, __nv_bfloat16>(x, xres, lens, dw, pw, bias, resw,
+                                            resb, out, batch, T, cx, co, cr, k,
+                                            act_z, s);
+  return launch<TT, float, float>(x, xres, lens, dw, pw, bias, resw, resb, out,
+                                  batch, T, cx, co, cr, k, act_z, s);
 }
 
 }  // namespace
@@ -443,10 +542,26 @@ extern "C" const char* vt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Shared-memory bytes one launch asks for (the wrapper refuses shapes
+// Time rows per block that vt_repeat_forward picks for this launch on the
+// current device (32 or 64).
+extern "C" int vt_repeat_tile_rows(int x_bf16, int batch, int T, int cx,
+                                   int cr, int has_res, int k) {
+  return tile_rows(x_bf16, batch, T, cx, cr, has_res, k);
+}
+
+// Blocks that split each tile's output columns (1 or 2; see col_groups).
+extern "C" int vt_repeat_col_groups(int x_bf16, int batch, int T, int cx,
+                                    int co, int cr, int has_res, int k) {
+  return col_groups(batch, T, co,
+                    tile_rows(x_bf16, batch, T, cx, cr, has_res, k));
+}
+
+// Shared-memory bytes this launch asks for (the wrapper refuses shapes
 // that exceed the card's 227 KB per block).
-extern "C" long long vt_repeat_smem_bytes(int cx, int cr, int has_res, int k) {
-  return (long long)smem_bytes(cx, cr, has_res != 0, k);
+extern "C" long long vt_repeat_smem_bytes(int x_bf16, int batch, int T,
+                                          int cx, int cr, int has_res, int k) {
+  const int tt = tile_rows(x_bf16, batch, T, cx, cr, has_res, k);
+  return (long long)layout(tt, x_bf16 ? 2 : 4, cx, cr, has_res != 0, k).total;
 }
 
 // One repeat. x is bf16 (x_bf16 = 1) or fp32; out is bf16 (out_bf16 = 1) or
@@ -462,15 +577,9 @@ extern "C" int vt_repeat_forward(const void* x, int x_bf16, const void* xres,
                                  int cx, int co, int cr, int k, int act_z,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16 && out_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, xres, lens, dw, pw, bias, resw, resb, out,
-                                                batch, T, cx, co, cr, k, act_z, s);
-  if (x_bf16)
-    return launch<__nv_bfloat16, float>(x, xres, lens, dw, pw, bias, resw, resb, out,
-                                        batch, T, cx, co, cr, k, act_z, s);
-  if (out_bf16)
-    return launch<float, __nv_bfloat16>(x, xres, lens, dw, pw, bias, resw, resb, out,
-                                        batch, T, cx, co, cr, k, act_z, s);
-  return launch<float, float>(x, xres, lens, dw, pw, bias, resw, resb, out,
-                              batch, T, cx, co, cr, k, act_z, s);
+  if (tile_rows(x_bf16, batch, T, cx, cr, xres != nullptr, k) == 64)
+    return launch_tt<64>(x, x_bf16, xres, lens, dw, pw, bias, resw, resb, out,
+                         out_bf16, batch, T, cx, co, cr, k, act_z, s);
+  return launch_tt<32>(x, x_bf16, xres, lens, dw, pw, bias, resw, resb, out,
+                       out_bf16, batch, T, cx, co, cr, k, act_z, s);
 }

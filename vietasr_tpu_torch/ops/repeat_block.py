@@ -79,9 +79,26 @@ def _lib() -> ctypes.CDLL:
     lib.vt_repeat_forward.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, i, i, i, p]
     lib.vt_repeat_forward.restype = i
-    lib.vt_repeat_smem_bytes.argtypes = [i, i, i, i]
+    lib.vt_repeat_smem_bytes.argtypes = [i] * 7
     lib.vt_repeat_smem_bytes.restype = ctypes.c_longlong
+    lib.vt_repeat_tile_rows.argtypes = [i] * 7
+    lib.vt_repeat_tile_rows.restype = i
+    lib.vt_repeat_col_groups.argtypes = [i] * 8
+    lib.vt_repeat_col_groups.restype = i
     return lib
+
+
+def launch_plan(x_bf16: bool, bsz: int, t: int, cx: int, c_out: int,
+                c_in: int, has_res: bool, kernel: int) -> tuple:
+    """(time rows per block, blocks per tile) of one kernel launch on the
+    current CUDA device: the kernel picks 64 rows, or 32 for a grid that
+    fits in one wave, and splits the output columns of a small 32-row grid
+    over two blocks (see csrc/repeat_block.cu)."""
+    lib = _lib()
+    return (lib.vt_repeat_tile_rows(int(x_bf16), bsz, t, cx, c_in,
+                                    int(has_res), kernel),
+            lib.vt_repeat_col_groups(int(x_bf16), bsz, t, cx, c_out, c_in,
+                                     int(has_res), kernel))
 
 
 def _need(name: str, tsr: torch.Tensor, device: torch.device, dtype,
@@ -150,17 +167,19 @@ def fused_repeat_block_cuda(x, lens, dw_ws, pw_ws, bs, res_w, res_b, *,
         _need(f"pw_ws[{i}]", pw, dev, torch.bfloat16, (cx, c_out))
         _need(f"bs[{i}]", b, dev, torch.float32, (c_out,))
         res = last and has_res
-        smem = lib.vt_repeat_smem_bytes(cx, c_in, int(res), kernel)
-        if smem > _build.SMEM_LIMIT:
-            raise ValueError(f"repeat kernel: {smem} B of shared memory "
-                             f"for C={cx}, K={kernel} exceeds "
-                             f"{_build.SMEM_LIMIT}")
         # intermediates between repeats stay fp32 (the TPU kernel kept
         # them fp32 in VMEM); the block output takes x's dtype
         out = torch.empty((bsz, t, c_out),
                           dtype=x.dtype if last else torch.float32,
                           device=dev)
         with torch.cuda.device(dev):
+            smem = lib.vt_repeat_smem_bytes(int(cur.dtype == torch.bfloat16),
+                                            bsz, t, cx, c_in, int(res),
+                                            kernel)
+            if smem > _build.SMEM_LIMIT:
+                raise ValueError(f"repeat kernel: {smem} B of shared memory "
+                                 f"for C={cx}, K={kernel} exceeds "
+                                 f"{_build.SMEM_LIMIT}")
             err = lib.vt_repeat_forward(
                 cur.data_ptr(), int(cur.dtype == torch.bfloat16),
                 xres.data_ptr() if res else None, lens.data_ptr(),
