@@ -6,8 +6,14 @@
 Phases, each of which raises on failure:
   1. build   - compile every kernel under vietasr_tpu_torch/csrc with nvcc
   2. device  - the card's name and power limit (nvidia-smi)
-  3. frontend kernel vs its plain PyTorch version (2 / 8 / 16.7 s buckets,
-     B in {1, 8}, ragged lengths), max |d| < 2e-4
+  3. frontend kernel (an FFT per frame) vs its plain PyTorch version
+     (frames @ DFT matrix) at B in {1, 8} x {2, 8, 16.7} s and B = 32 x
+     16.7 s, 64 and 80 mels, ragged lengths with row 0 full: features
+     within 2e-4 with equal seq_len, the log-mel no further from an fp64
+     chain than the plain chain is, partials within 1e-5 of their largest;
+     the kernel's ms per shape, its bound (bytes vs a real FFT's
+     operations), the DFT-count bound, the plain version's ms and the
+     torch.stft + |X|^2 + mel + log composition's ms
   4. repeat-block kernel vs its plain version at every QuartzNet12x1 block
      shape (T = 840, B = 8), at the 512-wide block shapes of phase 5's
      small forwards (B = 2 x T = 304, B = 4 x T = 408, B = 2 x T = 552)
@@ -80,6 +86,10 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 FRONTEND_TOL = 2e-4        # the JAX package's own fused-frontend tolerance
+# frontend partials (per-tile sums of up to 16 log-mel values and their
+# squares) vs the plain version's, relative to the largest: fp32 sums of the
+# same terms in another order
+FRONTEND_PARTS_RTOL = 1e-5
 # repeat block: bf16 output; one bf16 rounding step at the output's largest
 # magnitude is 2^-8 * 2^ceil(log2 max); allow 2^-7 * max|want|, a quarter of
 # the JAX test's 0.03 * max|want|
@@ -198,23 +208,83 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def frontend_bounds(cfg, tables, mel, bsz, sp, t_out, n_tiles):
+    """(bound_ms, bound_by, dft_bound_ms) of one kernel call. bound_ms: the
+    larger of the function's bytes (xp, seq_len, the log-mel and the
+    partials, the constants, each once) at PEAK_BYTES and a real FFT's
+    operations, 2.5 n_fft log2(n_fft) a frame, plus the power (3 a bin),
+    the mel's nonzero taps (2 each) and the log, guard and partials (4 a
+    mel), at PEAK_FP32. dft_bound_ms: the same function counted with the
+    DFT as frames @ matrix over the window's nonzero samples (2 * rows *
+    2 * n_bins a frame) and the DFT matrix's bytes, the count the DFT
+    kernel was held to."""
+    import math
+
+    n_fft, n_mels = cfg.fft_length, cfg.features
+    nb = n_fft // 2 + 1
+    frames = bsz * t_out
+    mel_taps = int((mel != 0).sum())
+    tail = 3 * nb + 2 * mel_taps + 4 * n_mels
+    io = 4 * (bsz * sp + bsz + frames * n_mels + bsz * n_tiles * 2 * n_mels)
+    const = sum(t.numel() * t.element_size() for t in (
+        tables.window, tables.twiddle, tables.mel_index, tables.mel_weight))
+    t_ops = frames * (2.5 * n_fft * math.log2(n_fft) + tail) / PEAK_FP32
+    t_bytes = (io + const) / PEAK_BYTES
+    rows = int((tables.window != 0).sum())
+    d_ops = frames * (2 * rows * 2 * nb + tail) / PEAK_FP32
+    d_bytes = (io + 4 * (n_fft * 2 * nb + nb * n_mels)) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(d_ops, d_bytes) * 1e3)
+
+
+def frontend_fp64_logmel(torch, xp, cfg, mel):
+    """The log-mel frames in fp64: an fp64 DFT of the same frames with the
+    fp64 window, power, the mel matrix in fp64, log with the guard."""
+    from vietasr_tpu_torch.frontend.features import _window_full
+
+    win = torch.as_tensor(_window_full(cfg), device=xp.device)
+    frames = xp.double().unfold(1, cfg.fft_length, cfg.hop_length) * win
+    power = torch.fft.rfft(frames, dim=-1).abs() ** 2
+    m = power @ mel.double()
+    if cfg.log_zero_guard_type == "clamp":
+        return torch.log(torch.clamp_min(m, cfg.log_zero_guard_value))
+    return torch.log(m + cfg.log_zero_guard_value)
+
+
+def frontend_composition(torch, xp, cfg, window, mel):
+    """The function as library calls, a yardstick the port never calls:
+    torch.stft (cuFFT) of the padded signal with the fp32 window, |X|^2,
+    the mel matmul, log with the guard."""
+    spec = torch.stft(xp, cfg.fft_length, hop_length=cfg.hop_length,
+                      win_length=cfg.fft_length, window=window,
+                      center=False, return_complex=True)
+    power = (spec.real ** 2 + spec.imag ** 2).transpose(1, 2)
+    return torch.log(power @ mel + cfg.log_zero_guard_value)
+
+
 def frontend_phase(np, torch, dev):
     from vietasr_tpu_torch.frontend.cuda_frontend import (
-        fused_log_mel_features, fused_log_mel_features_plain,
-        log_mel_tiles_cuda, log_mel_tiles_plain, pack_dft)
+        FRAMES_PER_TILE, fft_tables, fused_log_mel_features,
+        fused_log_mel_features_plain, log_mel_tiles_cuda,
+        log_mel_tiles_plain)
     from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                      _mel_matrix,
                                                      _windowed_dft_matrix,
                                                      feature_seq_len,
                                                      preemphasize_and_pad)
 
-    cfg = FeaturizerConfig(dither=0.0)
-    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
-    mel = torch.as_tensor(_mel_matrix(cfg), device=dev)
-    worst = 0.0
-    for seconds in (2.0, 8.0, 16.7):
-        for bsz in (1, 8):
-            rng = np.random.RandomState(int(seconds * 10) + bsz)
+    worst = {"feats": 0.0, "fp64": 0.0, "plain_fp64": 0.0, "parts": 0.0}
+    by_shape, row = {}, None
+    for n_mels in (64, 80):
+        cfg = FeaturizerConfig(dither=0.0, features=n_mels)
+        dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
+        mel = torch.as_tensor(_mel_matrix(cfg), device=dev)
+        tables = fft_tables(cfg, dev)     # once per config, as in use
+        for bsz, seconds in ((1, 2.0), (8, 2.0), (1, 8.0), (8, 8.0),
+                             (1, 16.7), (8, 16.7), (32, 16.7)):
+            what = f"frontend {n_mels} mels B={bsz} {seconds} s"
+            rng = np.random.RandomState(int(seconds * 10) + bsz + n_mels)
             n = int(seconds * cfg.sample_rate)
             sig = torch.from_numpy(
                 (rng.randn(bsz, n) * 0.1).astype(np.float32)).to(dev)
@@ -222,65 +292,79 @@ def frontend_phase(np, torch, dev):
             lens[0] = n
             lens = torch.from_numpy(lens).to(dev)
             got, got_len = fused_log_mel_features(sig, lens, cfg=cfg,
-                                                  dft_matrix=dft,
-                                                  mel_matrix=mel)
+                                                  tables=tables)
             want, want_len = fused_log_mel_features_plain(
                 sig, lens, cfg=cfg, dft_matrix=dft, mel_matrix=mel)
+            # the kernel itself vs its plain version and an fp64 chain
+            xp = preemphasize_and_pad(sig, cfg).contiguous()
+            seq_len = feature_seq_len(lens, cfg.hop_length)
+            lm_k, parts_k = log_mel_tiles_cuda(xp, seq_len, tables, cfg=cfg)
+            lm_p, parts_p = log_mel_tiles_plain(xp, seq_len, dft, mel,
+                                                cfg=cfg)
+            lm_64 = frontend_fp64_logmel(torch, xp, cfg, mel)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(bool(torch.isfinite(got).all()), "frontend: non-finite")
+            check(bool(torch.isfinite(got).all())
+                  and bool(torch.isfinite(lm_k).all()), f"{what}: non-finite")
             check(got.shape == want.shape and bool((got_len == want_len)
                                                    .all()),
-                  "frontend: shape or seq_len differs from the plain version")
+                  f"{what}: shape or seq_len differs from the plain version")
+            err = float((got - want).abs().max())
             check(err < FRONTEND_TOL,
-                  f"frontend: max|d| {err} >= {FRONTEND_TOL} at B={bsz} "
-                  f"{seconds} s")
-            worst = max(worst, err)
-            print(f"frontend B={bsz} {seconds:>4} s: feats "
-                  f"{tuple(got.shape)} max|d| vs plain {err:.3e}")
+                  f"{what}: features max|d| {err} >= {FRONTEND_TOL}")
+            lm_err = float((lm_k - lm_p).abs().max())
+            k64 = float((lm_k.double() - lm_64).abs().max())
+            p64 = float((lm_p.double() - lm_64).abs().max())
+            check(k64 <= p64, f"{what}: log-mel {k64} from fp64, further "
+                  f"than the plain chain's {p64}")
+            p_err = float((parts_k - parts_p).abs().max()
+                          / parts_p.abs().max())
+            check(p_err <= FRONTEND_PARTS_RTOL,
+                  f"{what}: partials {p_err} of their largest")
+            for key, v in (("feats", err), ("fp64", k64),
+                           ("plain_fp64", p64), ("parts", p_err)):
+                worst[key] = max(worst[key], v)
 
-    # the kernel alone at the main path's largest shape: B = 8, 16.7 s
-    bsz, n = 8, int(16.7 * cfg.sample_rate)
-    rng = np.random.RandomState(0)
-    sig = torch.from_numpy((rng.randn(bsz, n) * 0.1).astype(np.float32)).to(dev)
-    lens = torch.from_numpy(rng.randint(n // 2, n + 1, size=bsz)
-                            .astype(np.int32)).to(dev)
-    xp = preemphasize_and_pad(sig, cfg).contiguous()
-    seq_len = feature_seq_len(lens, cfg.hop_length)
-    n_fft, nb, n_mels = cfg.fft_length, cfg.fft_length // 2 + 1, cfg.features
-    packed = pack_dft(dft, nb)       # once per config, as the featurizer does
-    lm_k, parts_k = log_mel_tiles_cuda(xp, seq_len, packed, mel, cfg=cfg)
-    lm_p, parts_p = log_mel_tiles_plain(xp, seq_len, dft, mel, cfg=cfg)
-    torch.cuda.synchronize()
-    tile_err = float((lm_k - lm_p).abs().max())
-    check(tile_err < FRONTEND_TOL, f"frontend tiles: max|d| {tile_err}")
-    ms, seen, ev_ms = kernel_ms(lambda: log_mel_tiles_cuda(
-        xp, seq_len, packed, mel, cfg=cfg), "logmel_kernel")
-    plain_ms = device_ms(lambda: log_mel_tiles_plain(xp, seq_len, dft, mel,
-                                                     cfg=cfg))
-    # the work the function needs: the DFT over the window's nonzero rows
-    # only, the mel product over each filter's nonzero taps only
-    rows = int(dft.abs().amax(dim=1).count_nonzero())
-    mel_taps = int(mel.count_nonzero())
-    frames = bsz * lm_k.shape[1]
-    flops = frames * (2 * rows * 2 * nb + 3 * nb + 2 * mel_taps
-                      + 4 * n_mels)
-    nbytes = 4 * (xp.numel() + dft.numel() + mel.numel() + seq_len.numel()
-                  + lm_k.numel() + parts_k.numel())
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"frontend kernel B=8 x 16.7 s ({frames} frames): {ms:.4f} ms "
-          f"({seen:g} launches per call traced; CUDA events "
-          f"{ev_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({flops / 1e9:.3f} GFLOP fp32 over {rows} nonzero DFT rows and "
-          f"{mel_taps} mel taps, {nbytes / 1e6:.2f} MB)")
+            t_out = lm_k.shape[1]
+            n_tiles = -(-t_out // FRAMES_PER_TILE)
+            ms, seen, ev_ms = kernel_ms(lambda: log_mel_tiles_cuda(
+                xp, seq_len, tables, cfg=cfg), "logmel_kernel")
+            bound, bound_by, dft_bound = frontend_bounds(
+                cfg, tables, mel, bsz, xp.shape[1], t_out, n_tiles)
+            by_shape[f"{n_mels}x{bsz}x{seconds}s"] = ms
+            print(f"{what}: feats {tuple(got.shape)} max|d| vs plain "
+                  f"{err:.3e}, log-mel {lm_err:.3e}, partials {p_err:.3e} "
+                  f"of their largest; log-mel vs fp64: kernel {k64:.3e}, "
+                  f"plain {p64:.3e}; kernel {ms:.4f} ms ({seen:g} launches "
+                  f"per call traced; events {ev_ms:.4f}), bound "
+                  f"{bound:.4f} ms by {bound_by}, dft_bound {dft_bound:.4f}"
+                  f" ms")
+            if (n_mels, bsz, seconds) != (64, 8, 16.7) \
+                    and (n_mels, bsz) != (64, 32):
+                continue
+            plain_ms = device_ms(lambda: log_mel_tiles_plain(
+                xp, seq_len, dft, mel, cfg=cfg))
+            comp = frontend_composition(torch, xp, cfg, tables.window, mel)
+            comp_ms = device_ms(lambda: frontend_composition(
+                torch, xp, cfg, tables.window, mel))
+            c64 = float((comp.double() - lm_64).abs().max())
+            print(f"  B={bsz} x {seconds} s ({bsz * t_out} frames): plain "
+                  f"{plain_ms:.4f} ms, composition_ms {comp_ms:.4f} "
+                  f"(torch.stft + |X|^2 + mel + log; log-mel vs fp64 "
+                  f"{c64:.3e})")
+            if bsz == 8:
+                row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "dft_bound_ms": dft_bound,
+                       "composition_ms": comp_ms}
+    print(f"frontend: worst features max|d| {worst['feats']:.3e} (tol "
+          f"{FRONTEND_TOL}), log-mel vs fp64 kernel {worst['fp64']:.3e} / "
+          f"plain {worst['plain_fp64']:.3e}, partials {worst['parts']:.3e}")
     return {"name": "log_mel_frontend", "route": "cuda",
             "source": "vietasr_tpu_torch/csrc/frontend.cu",
             "replaces": "vietasr_tpu/frontend/pallas_frontend.py:51",
-            "max_abs_err": max(worst, tile_err), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "max_abs_err": worst["feats"], **row, "library_ms": None,
+            "ms_by_shape": by_shape, "fp64_err": worst["fp64"],
+            "plain_fp64_err": worst["plain_fp64"],
+            "parts_rel_err": worst["parts"]}
 
 
 def repeat_bound_ms(bsz, t, c_in, c_out, k, r, has_res, rows):

@@ -23,11 +23,13 @@ import pytest
 import torch
 
 from vietasr_tpu_torch.frontend.cuda_frontend import (
-    fused_log_mel_features, fused_log_mel_features_plain, log_mel_tiles_cuda,
-    pack_dft)
+    FRAMES_PER_TILE, fft_tables, fused_log_mel_features,
+    fused_log_mel_features_plain, log_mel_tiles_cuda, log_mel_tiles_plain)
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
-                                                 _mel_matrix,
-                                                 _windowed_dft_matrix)
+                                                 _mel_matrix, _window_full,
+                                                 _windowed_dft_matrix,
+                                                 feature_seq_len,
+                                                 preemphasize_and_pad)
 from vietasr_tpu_torch.ops import device_beam as tdb
 from vietasr_tpu_torch.ops import fused_ctc
 from vietasr_tpu_torch.ops.ctc_loss import emission_lookup, lattice_masks
@@ -81,11 +83,22 @@ def test_frontend_kernel_refuses_cpu_tensors():
     """The CUDA entry never falls back: given CPU tensors it raises."""
     cfg = FeaturizerConfig(dither=0.0)
     xp = torch.zeros(1, 16000 + cfg.fft_length)
-    dft = pack_dft(torch.as_tensor(_windowed_dft_matrix(cfg)),
-                   cfg.fft_length // 2 + 1)
     with pytest.raises(ValueError, match="CUDA"):
-        log_mel_tiles_cuda(xp, torch.tensor([100], dtype=torch.int32), dft,
-                           torch.as_tensor(_mel_matrix(cfg)), cfg=cfg)
+        log_mel_tiles_cuda(xp, torch.tensor([100], dtype=torch.int32),
+                           fft_tables(cfg), cfg=cfg)
+
+
+@pytest.mark.parametrize("overrides", [{"n_fft": 1024}, {"features": 129},
+                                       {"window_stride": 0.04}])
+def test_frontend_kernel_refuses_a_config_outside_its_plan(overrides):
+    """n_fft other than 512 (the FFT's 16 x 16 plan), more than 128 mels,
+    a hop longer than n_fft: refused before any launch."""
+    cfg = FeaturizerConfig(dither=0.0, **overrides)
+    xp = torch.zeros(1, 16000 + cfg.fft_length)
+    with pytest.raises(ValueError, match="not covered"):
+        log_mel_tiles_cuda(xp, torch.tensor([100], dtype=torch.int32),
+                           fft_tables(FeaturizerConfig(dither=0.0)),
+                           cfg=cfg)
 
 
 def test_repeat_kernel_refuses_cpu_tensors():
@@ -93,14 +106,25 @@ def test_repeat_kernel_refuses_cpu_tensors():
         fused_repeat_block_cuda(*_block_operands(16, 16, 9, 1, 40), kernel=9)
 
 
+# 2.0 s and 1.3 s give 201 and 131 frames (not multiples of the 16-frame
+# tile); row 0 of every batch is at full length, the others ragged
+FRONTEND_CASES = [(1, 2.0, 64), (4, 5.3, 64), (2, 1.3, 80), (8, 16.7, 64),
+                  (32, 16.7, 64), (8, 16.7, 80), (1, 16.7, 80),
+                  (32, 2.0, 80), (8, 8.0, 64)]
+
+
+def _frontend_audio(bsz, seconds, features):
+    sig, lens = _audio(bsz, seconds, bsz + features)
+    lens[0] = sig.shape[1]
+    return sig.cuda(), lens.cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bsz,seconds,features", [(1, 2.0, 64),
-                                                  (4, 5.3, 64),
-                                                  (2, 1.3, 80)])
+@pytest.mark.parametrize("bsz,seconds,features", FRONTEND_CASES)
 def test_frontend_kernel_matches_plain(bsz, seconds, features):
     _need_gpu()
     cfg = FeaturizerConfig(dither=0.0, features=features)
-    sig, lens = (a.cuda() for a in _audio(bsz, seconds, bsz))
+    sig, lens = _frontend_audio(bsz, seconds, features)
     launches = fused_log_mel_features.launches
     got, got_len = fused_log_mel_features(sig, lens, cfg=cfg)
     want, want_len = fused_log_mel_features_plain(sig, lens, cfg=cfg)
@@ -108,6 +132,44 @@ def test_frontend_kernel_matches_plain(bsz, seconds, features):
     assert fused_log_mel_features.launches == launches + 1
     assert torch.equal(got_len, want_len)
     assert float((got - want).abs().max()) < FRONTEND_TOL
+    # the partials: fp32 sums of the same terms in another order
+    tables = fft_tables(cfg, "cuda")
+    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device="cuda")
+    mel = torch.as_tensor(_mel_matrix(cfg), device="cuda")
+    xp = preemphasize_and_pad(sig, cfg).contiguous()
+    seq_len = feature_seq_len(lens, cfg.hop_length)
+    lm_k, parts_k = log_mel_tiles_cuda(xp, seq_len, tables, cfg=cfg)
+    lm_p, parts_p = log_mel_tiles_plain(xp, seq_len, dft, mel, cfg=cfg)
+    assert parts_k.shape == parts_p.shape == (
+        bsz, -(-lm_p.shape[1] // FRAMES_PER_TILE), 2, features)
+    assert float((parts_k - parts_p).abs().max()) \
+        <= 1e-5 * float(parts_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,seconds,features", FRONTEND_CASES)
+def test_frontend_kernel_no_further_from_fp64_than_plain(bsz, seconds,
+                                                         features):
+    """The accuracy contract: the kernel's log-mel frames (an FFT) lie no
+    further from an fp64 chain (fp64 DFT of the same frames with the fp64
+    window, power, mel, log) than the plain fp32 chain (frames @ DFT
+    matrix) does."""
+    _need_gpu()
+    cfg = FeaturizerConfig(dither=0.0, features=features)
+    sig, lens = _frontend_audio(bsz, seconds, features)
+    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device="cuda")
+    mel = torch.as_tensor(_mel_matrix(cfg), device="cuda")
+    xp = preemphasize_and_pad(sig, cfg).contiguous()
+    seq_len = feature_seq_len(lens, cfg.hop_length)
+    lm_k, _ = log_mel_tiles_cuda(xp, seq_len, fft_tables(cfg, "cuda"),
+                                 cfg=cfg)
+    lm_p, _ = log_mel_tiles_plain(xp, seq_len, dft, mel, cfg=cfg)
+    win = torch.as_tensor(_window_full(cfg), device="cuda")
+    frames = xp.double().unfold(1, cfg.fft_length, cfg.hop_length) * win
+    want = torch.log((torch.fft.rfft(frames, dim=-1).abs() ** 2)
+                     @ mel.double() + cfg.log_zero_guard_value)
+    assert float((lm_k.double() - want).abs().max()) \
+        <= float((lm_p.double() - want).abs().max())
 
 
 def _phase4_lens(c_in, c_out, k, r, t, bsz=8):

@@ -10,6 +10,11 @@ B, A). The inputs come from this checkout's chip_smoke.py:
     phase 4's shapes (B = 8, T = 840), at phase 4's ragged lengths and at
     full lengths, each launch by `chip_smoke.event_ms` (CUDA events over
     20 calls behind a sleep kernel, after a warm-up);
+  - the frontend kernel alone at B = 8 x 16.7 s and B = 32 x 16.7 s (64
+    mels, seeded noise x 0.1, ragged lengths with row 0 full), by
+    `chip_smoke.event_ms`, with the constants the checkout's own
+    featurizer builds (the DFT kernel's packed matrix or the FFT kernel's
+    tables);
   - the beam kernel alone at its phase-6 timing shape (seeded blank-heavy
     log-probs B = 8, T = 840, V+1 = 91, ragged lengths, W = 100, top-8,
     alpha 0.5, beta 1.5, the word 3-gram chip_smoke.py trains): ms per
@@ -44,6 +49,36 @@ def host_seconds(torch, fn, reps):
     return (time.perf_counter() - t0) / reps
 
 
+def frontend_call(np, torch, dev, bsz, seconds):
+    """A closure that launches this checkout's frontend kernel once on
+    seeded inputs, with the constants built as its featurizer builds them:
+    `fft_tables` where the checkout has it, else `pack_dft` of the DFT
+    matrix."""
+    from vietasr_tpu_torch.frontend import cuda_frontend as cf
+    from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
+                                                     _mel_matrix,
+                                                     _windowed_dft_matrix,
+                                                     feature_seq_len,
+                                                     preemphasize_and_pad)
+
+    cfg = FeaturizerConfig(dither=0.0)
+    rng = np.random.RandomState(bsz)
+    n = int(seconds * cfg.sample_rate)
+    sig = torch.from_numpy((rng.randn(bsz, n) * 0.1).astype(np.float32))
+    lens = rng.randint(n // 4, n + 1, size=bsz).astype(np.int32)
+    lens[0] = n
+    xp = preemphasize_and_pad(sig.to(dev), cfg).contiguous()
+    seq_len = feature_seq_len(torch.from_numpy(lens).to(dev),
+                              cfg.hop_length)
+    if hasattr(cf, "fft_tables"):
+        tables = cf.fft_tables(cfg, dev)
+        return lambda: cf.log_mel_tiles_cuda(xp, seq_len, tables, cfg=cfg)
+    dft = cf.pack_dft(torch.as_tensor(_windowed_dft_matrix(cfg), device=dev),
+                      cfg.fft_length // 2 + 1)
+    mel = torch.as_tensor(_mel_matrix(cfg), device=dev)
+    return lambda: cf.log_mel_tiles_cuda(xp, seq_len, dft, mel, cfg=cfg)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -71,6 +106,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     out = {"root": root}
+    # the frontend kernel alone
+    for bsz in (8, 32):
+        out[f"frontend_{bsz}x16.7s_ms"] = chip_smoke.event_ms(
+            frontend_call(np, torch, dev, bsz, 16.7))
     with tempfile.TemporaryDirectory() as tmp:
         lm_path = chip_smoke.train_word_lms(tmp)[3]
         beam = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR,

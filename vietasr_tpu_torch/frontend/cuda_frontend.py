@@ -1,30 +1,36 @@
-"""Fused log-mel frontend: framing + windowed DFT + power + mel + log in one
+"""Fused log-mel frontend: framing + window + FFT + power + mel + log in one
 CUDA kernel (csrc/frontend.cu), with a plain PyTorch version beside it.
 
 Counterpart of vietasr_tpu/frontend/pallas_frontend.py::
-fused_log_mel_features, with the same contract: (B, S) + lengths ->
-(B, T padded to pad_to, n_mels), seq_len. The kernel replaces the Pallas
-`_kernel`; it emits the log-mel frames and per-tile (sum, sum of squares)
-partials over valid frames, and the Bessel-corrected per-feature
-normalization stays a small plain epilogue, as it was an XLA epilogue in
-JAX. Pre-emphasis and the reflect pad stay plain ops in front of it.
+fused_log_mel_features (precision="highest"), with the same contract:
+(B, S) + lengths -> (B, T padded to pad_to, n_mels), seq_len. The kernel
+replaces the Pallas `_kernel`; it emits the log-mel frames and per-tile
+(sum, sum of squares) partials over valid frames, and the Bessel-corrected
+per-feature normalization stays a small plain epilogue, as it was an XLA
+epilogue in JAX. Pre-emphasis and the reflect pad stay plain ops in front
+of it.
 
-`fused_log_mel_features` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors; `fused_log_mel_features_plain` is
-the plain version on any device (the reference the kernel is held to).
+The kernel computes the one-sided spectrum by an FFT (fp64 inside, fp32 in
+and out) from the constants of `fft_tables`; its plain version,
+`log_mel_tiles_plain`, is the TPU kernel's function as written there:
+frames @ windowed-DFT matrix in fp32. `fused_log_mel_features` launches
+the kernel for CUDA tensors and takes the plain version only for CPU
+tensors; `fused_log_mel_features_plain` is the plain version on any
+device (the reference the kernel is held to).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from vietasr_tpu_torch import _build
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
-                                                 _mel_matrix,
+                                                 _mel_matrix, _window_full,
                                                  _windowed_dft_matrix,
                                                  add_dither, feature_seq_len,
                                                  log_guard,
@@ -33,22 +39,25 @@ from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
 from vietasr_tpu_torch.utils.device import resolve_device
 from vietasr_tpu_torch.utils.typing import assert_audio_batch
 
-FRAMES_PER_TILE = 32          # FRAMES in csrc/frontend.cu
-MAIN_BINS = 256               # NB_MAIN in csrc/frontend.cu
-ROW_CHUNK = 16                # CHUNK in csrc/frontend.cu
+FRAMES_PER_TILE = 16          # FRAMES in csrc/frontend.cu
+FFT_LENGTH = 512              # NFFT: the FFT is 16 x 16 complex points
+MEL_RUNS = 16                 # RUNS: mel tap runs, one per half-warp
+TWIDDLE_ROWS = 16 * 16 + 8 * 16   # TW_ROWS: W256^(l k1), W512^(l + 16 k2)
+TAP_BASE = 20                 # TAP_BASE: mel_index's run starts, padded
+MAX_MELS = 128                # MAX_MELS
 
 
 def fused_supported(cfg: FeaturizerConfig) -> bool:
     """True when the fused kernel covers this config; the plain chain in
     features.py serves the rest (same numerics). Beyond the JAX package's
-    conditions, the kernel's tiling needs 256 to 287 frequency bins
-    (n_fft 512, as every shipped config has), hop a multiple of 4 and n_fft
-    a multiple of 16."""
+    conditions, the kernel's FFT needs n_fft 512 (as every shipped config
+    has), a hop of at most n_fft and at most 128 mels."""
     return (cfg.frame_splicing == 1 and cfg.log
             and cfg.mag_power == 2.0
             and cfg.normalize in ("per_feature", "", None, False)
-            and 0 <= cfg.fft_length // 2 + 1 - MAIN_BINS < 32
-            and cfg.hop_length % 4 == 0 and cfg.fft_length % 16 == 0)
+            and cfg.fft_length == FFT_LENGTH
+            and 1 <= cfg.hop_length <= FFT_LENGTH
+            and 1 <= cfg.features <= MAX_MELS)
 
 
 def log_mel_tiles_plain(xp: torch.Tensor, seq_len: torch.Tensor,
@@ -77,81 +86,161 @@ def log_mel_tiles_plain(xp: torch.Tensor, seq_len: torch.Tensor,
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frontend")
-    if lib.vt_logmel_frames_per_tile() != FRAMES_PER_TILE \
-            or lib.vt_logmel_row_chunk() != ROW_CHUNK:
-        raise RuntimeError("csrc/frontend.cu FRAMES / CHUNK differ from "
-                           "FRAMES_PER_TILE / ROW_CHUNK")
+    got = (lib.vt_logmel_frames_per_tile(), lib.vt_logmel_fft_length(),
+           lib.vt_logmel_mel_runs(), lib.vt_logmel_twiddle_rows(),
+           lib.vt_logmel_tap_base())
+    if got != (FRAMES_PER_TILE, FFT_LENGTH, MEL_RUNS, TWIDDLE_ROWS,
+               TAP_BASE):
+        raise RuntimeError(
+            f"csrc/frontend.cu FRAMES / NFFT / RUNS / TW_ROWS / TAP_BASE "
+            f"{got} differ from cuda_frontend.py's FRAMES_PER_TILE / "
+            "FFT_LENGTH / MEL_RUNS / TWIDDLE_ROWS / TAP_BASE")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vt_logmel_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                      i, i, i, ctypes.c_float, i, p]
+    lib.vt_logmel_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                      i, i, i, i, ctypes.c_float, i, p]
     lib.vt_logmel_forward.restype = i
     lib.vt_logmel_smem_bytes.argtypes = [i, i, i, i]
     lib.vt_logmel_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-class PackedDFT(NamedTuple):
-    """The kernel's layout of the (n_fft, 2 * n_bins) [re | im] DFT matrix
-    (pack_dft): a constant of the config, packed once."""
-    coef: torch.Tensor     # (n_fft, 512): [re | im] of bins 0..255
-    extra: torch.Tensor    # (n_bins - 256, 2, n_fft): the other bins
-    row_lo: int            # rows outside [row_lo, row_hi) are all zero
-    row_hi: int
+class FFTTables(NamedTuple):
+    """The kernel's constants for one config (fft_tables), built once."""
+    window: torch.Tensor      # (n_fft,) fp32: the zero-padded window
+    twiddle: torch.Tensor     # (TWIDDLE_ROWS, 2) fp64 (cos, sin) rows
+    mel_index: torch.Tensor   # int32: run starts (to TAP_BASE), taps
+    mel_weight: torch.Tensor  # fp32: the packed taps' weights
+    taps: int                 # packed taps (a multiple of 4)
+    win_lo: int               # the window is zero outside [win_lo, win_hi)
+    win_hi: int
 
 
-def pack_dft(dft: torch.Tensor, n_bins: int) -> PackedDFT:
-    """coef rows are 16-byte aligned for cp.async and extra holds the
-    remaining bins' columns as contiguous rows. [row_lo, row_hi) covers
-    every row with a nonzero entry (the window's support), rounded out to
-    whole ROW_CHUNKs: the kernel skips the rest, which add exact zeros."""
-    m = MAIN_BINS
-    coef = torch.cat([dft[:, :m], dft[:, n_bins:n_bins + m]], dim=1)
-    extra = torch.stack([dft[:, m:n_bins].t(), dft[:, n_bins + m:].t()], 1)
-    nonzero = torch.nonzero(dft.abs().amax(dim=1)).flatten().tolist()
-    if nonzero:
-        row_lo = nonzero[0] // ROW_CHUNK * ROW_CHUNK
-        row_hi = -(-(nonzero[-1] + 1) // ROW_CHUNK) * ROW_CHUNK
-    else:
-        row_lo, row_hi = 0, ROW_CHUNK
-    return PackedDFT(coef.contiguous(), extra.contiguous(), row_lo, row_hi)
+def twiddle_table() -> np.ndarray:
+    """(TWIDDLE_ROWS, 2) fp64 (cos, sin) of the kernel's twiddles W =
+    exp(-2 pi i e / N) = cos - i sin: row k1 * 16 + l holds W256^(l k1)
+    (stage 1 of the 16 x 16 FFT), row 256 + k2 * 16 + l holds W512^(l +
+    16 k2) (the real split of bin l + 16 k2). Exponents are reduced in
+    integers, so each entry is one fp64 cos / sin of an angle in [0, 2 pi)."""
+    lane = np.arange(16)
+    e1 = (lane[None, :] * np.arange(16)[:, None]) % 256        # [k1][l]
+    e2 = lane[None, :] + 16 * np.arange(8)[:, None]            # [k2][l]
+    ang = np.concatenate([2.0 * np.pi * e1.ravel() / 256,
+                          2.0 * np.pi * e2.ravel() / 512])
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1)
+
+
+def pack_mel_taps(mel: np.ndarray, runs: int = MEL_RUNS):
+    """(n_bins, n_mels) filterbank -> (index int32, weight fp32, taps).
+    Each filter's nonzero taps, in bin order, filters in order; a filter
+    with none gets one tap of weight 0. The filters are cut into `runs`
+    contiguous runs whose largest tap count is as small as it can be (one
+    run a half-warp in the kernel), each run padded to a multiple of 4 taps
+    with weight-0 taps (the kernel loads 4 at a time). index = [run starts
+    (runs + 1), zero-padded to a multiple of 4 | per tap: bin | last of
+    its filter << 10 | filter << 11]; weight: per tap."""
+    n_bins, n_mels = mel.shape
+    if n_bins > 1 << 10:
+        raise ValueError("pack_mel_taps: more than 1024 bins")
+    per_mel = []
+    for m in range(n_mels):
+        nz = np.flatnonzero(mel[:, m])
+        per_mel.append(nz if nz.size else np.zeros(1, np.int64))
+    counts = [len(b) for b in per_mel]
+    lo, hi = max(counts), sum(counts)
+    while lo < hi:                      # least feasible run capacity
+        cap = (lo + hi) // 2
+        n_runs, fill = 1, 0
+        for c in counts:
+            if fill + c > cap:
+                n_runs, fill = n_runs + 1, 0
+            fill += c
+        lo, hi = (cap + 1, hi) if n_runs > runs else (lo, cap)
+    groups, fill = [[]], 0
+    for m, c in enumerate(counts):
+        if fill + c > lo:
+            groups.append([])
+            fill = 0
+        groups[-1].append(m)
+        fill += c
+    starts, code, weight = [0], [], []
+    for run in groups:
+        for m in run:
+            bins = per_mel[m]
+            last = np.zeros(len(bins), np.int64)
+            last[-1] = 1
+            code.append(bins | (last << 10) | (m << 11))
+            weight.append(mel[bins, m])
+        pad = -sum(counts[m] for m in run) % 4
+        code.append(np.full(pad, run[-1] << 11, np.int64))
+        weight.append(np.zeros(pad, np.float32))
+        starts.append(starts[-1] + sum(counts[m] for m in run) + pad)
+    starts += [starts[-1]] * (runs + 1 - len(starts))
+    starts += [0] * (-len(starts) % 4)
+    index = np.concatenate([np.asarray(starts, np.int64)] + code)
+    return (index.astype(np.int32),
+            np.concatenate(weight).astype(np.float32), starts[runs])
+
+
+def fft_tables(cfg: FeaturizerConfig, device=None) -> FFTTables:
+    """The kernel's constants for cfg, on `device`: the window taps
+    (_window_full rounded once to fp32, i.e. column 0 of the windowed DFT
+    matrix), the twiddle table and the packed mel taps."""
+    win64 = _window_full(cfg)
+    nz = np.flatnonzero(win64.astype(np.float32))
+    index, weight, taps = pack_mel_taps(_mel_matrix(cfg))
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return FFTTables(
+        window=torch.as_tensor(win64.astype(np.float32), device=dev),
+        twiddle=torch.as_tensor(twiddle_table(), device=dev),
+        mel_index=torch.as_tensor(index, device=dev),
+        mel_weight=torch.as_tensor(weight, device=dev), taps=taps,
+        win_lo=int(nz[0]), win_hi=int(nz[-1]) + 1)
 
 
 def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
-                       dft: PackedDFT, mel: torch.Tensor, *,
-                       cfg: FeaturizerConfig):
+                       tables: FFTTables, *, cfg: FeaturizerConfig):
     """The kernel: same contract as log_mel_tiles_plain, CUDA tensors only,
-    with the DFT matrix in the kernel's layout (pack_dft)."""
-    n_fft, hop = cfg.fft_length, cfg.hop_length
-    n_bins = n_fft // 2 + 1
-    n_mels = cfg.features
+    with the config's constants from fft_tables."""
+    n_fft, hop, n_mels = cfg.fft_length, cfg.hop_length, cfg.features
+    if not isinstance(tables, FFTTables):
+        raise TypeError("frontend kernel: tables must be fft_tables' "
+                        "FFTTables")
+    if not fused_supported(cfg):
+        raise ValueError("frontend kernel: config not covered "
+                         "(see fused_supported)")
     bsz, sp = xp.shape
-    if not isinstance(dft, PackedDFT):
-        raise TypeError("frontend kernel: dft must be pack_dft's PackedDFT")
     for name, tsr, dtype in (("xp", xp, torch.float32),
                              ("seq_len", seq_len, torch.int32),
-                             ("dft.coef", dft.coef, torch.float32),
-                             ("dft.extra", dft.extra, torch.float32),
-                             ("mel", mel, torch.float32)):
+                             ("window", tables.window, torch.float32),
+                             ("twiddle", tables.twiddle, torch.float64),
+                             ("mel_index", tables.mel_index, torch.int32),
+                             ("mel_weight", tables.mel_weight,
+                              torch.float32)):
         if tsr.device.type != "cuda" or tsr.device != xp.device:
             raise ValueError(f"frontend kernel: {name} must be on "
                              f"{xp.device} (CUDA), got {tsr.device}")
         if tsr.dtype != dtype or not tsr.is_contiguous():
             raise ValueError(f"frontend kernel: {name} must be contiguous "
                              f"{dtype}, got {tsr.dtype}")
-    if dft.coef.shape != (n_fft, 2 * MAIN_BINS) \
-            or dft.extra.shape != (n_bins - MAIN_BINS, 2, n_fft) \
-            or not 0 <= dft.row_lo < dft.row_hi <= n_fft \
-            or mel.shape != (n_bins, n_mels) or seq_len.shape != (bsz,):
-        raise ValueError("frontend kernel: dft/mel/seq_len shapes do not "
-                         "match the config")
-    if not fused_supported(cfg):
-        raise ValueError("frontend kernel: config not covered "
-                         "(see fused_supported)")
+    taps = tables.taps
+    if tables.window.shape != (n_fft,) \
+            or tables.twiddle.shape != (TWIDDLE_ROWS, 2) \
+            or tables.mel_index.numel() != TAP_BASE + taps \
+            or tables.mel_weight.numel() != taps or taps % 4 \
+            or not 0 <= tables.win_lo < tables.win_hi <= n_fft \
+            or seq_len.shape != (bsz,) or sp < n_fft:
+        raise ValueError("frontend kernel: tables / seq_len / xp shapes do "
+                         "not match the config")
+    if any(t.data_ptr() % 16 for t in (xp, tables.mel_index,
+                                       tables.mel_weight)):
+        raise ValueError("frontend kernel: xp and the mel taps must be "
+                         "16-byte aligned")
     lib = _lib()
-    smem = lib.vt_logmel_smem_bytes(n_fft, hop, n_bins, n_mels)
+    smem = lib.vt_logmel_smem_bytes(n_fft, hop, n_mels, taps)
     if not 0 < smem <= _build.SMEM_LIMIT:
         raise ValueError(f"frontend kernel: n_fft={n_fft}, hop={hop}, "
-                         f"n_mels={n_mels} are outside the kernel's plan")
+                         f"n_mels={n_mels}, {taps} mel taps are outside "
+                         "the kernel's plan")
     t_out = (sp - n_fft) // hop + 1
     n_tiles = -(-t_out // FRAMES_PER_TILE)
     logmel = torch.empty((bsz, t_out, n_mels), dtype=torch.float32,
@@ -160,11 +249,11 @@ def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
                         device=xp.device)
     with torch.cuda.device(xp.device):
         err = lib.vt_logmel_forward(
-            xp.data_ptr(), seq_len.data_ptr(), dft.coef.data_ptr(),
-            dft.extra.data_ptr(), mel.data_ptr(), logmel.data_ptr(),
-            parts.data_ptr(), bsz, sp,
-            t_out, n_fft, hop, n_bins, n_mels, dft.row_lo, dft.row_hi,
-            float(cfg.log_zero_guard_value),
+            xp.data_ptr(), seq_len.data_ptr(), tables.window.data_ptr(),
+            tables.twiddle.data_ptr(), tables.mel_index.data_ptr(),
+            tables.mel_weight.data_ptr(), logmel.data_ptr(),
+            parts.data_ptr(), bsz, sp, t_out, n_fft, hop, n_mels, taps,
+            tables.win_lo, tables.win_hi, float(cfg.log_zero_guard_value),
             int(cfg.log_zero_guard_type == "clamp"),
             torch.cuda.current_stream(xp.device).cuda_stream)
     _build.check(lib, err, "frontend kernel")
@@ -172,23 +261,16 @@ def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
     return logmel, parts
 
 
-def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles_fn,
-               dft_matrix, mel_matrix):
+def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles):
+    """tiles(xp, seq_len) -> (logmel, parts): the kernel or its plain
+    version, with its constants bound."""
     assert_audio_batch(signal, lengths, port="featurizer.input_signal")
     if not fused_supported(cfg):
         raise NotImplementedError(
             "fused frontend: config not covered (see fused_supported)")
     xp = preemphasize_and_pad(signal.to(torch.float32), cfg).contiguous()
     seq_len = feature_seq_len(lengths, cfg.hop_length)
-    if dft_matrix is None:
-        dft_matrix = torch.as_tensor(_windowed_dft_matrix(cfg),
-                                     device=xp.device)
-    if tiles_fn is log_mel_tiles_cuda and not isinstance(dft_matrix,
-                                                         PackedDFT):
-        dft_matrix = pack_dft(dft_matrix, cfg.fft_length // 2 + 1)
-    if mel_matrix is None:
-        mel_matrix = torch.as_tensor(_mel_matrix(cfg), device=xp.device)
-    logmel, parts = tiles_fn(xp, seq_len, dft_matrix, mel_matrix, cfg=cfg)
+    logmel, parts = tiles(xp, seq_len)
 
     # plain epilogue: Bessel-corrected per-feature normalization from the
     # per-tile partials (single pass, as the Pallas wrapper does)
@@ -205,26 +287,40 @@ def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles_fn,
     return mask_and_pad_time(feats, seq_len, logmel.shape[1], cfg), seq_len
 
 
+def _plain_tiles(cfg, device, dft_matrix, mel_matrix):
+    if dft_matrix is None:
+        dft_matrix = torch.as_tensor(_windowed_dft_matrix(cfg), device=device)
+    if mel_matrix is None:
+        mel_matrix = torch.as_tensor(_mel_matrix(cfg), device=device)
+    return functools.partial(log_mel_tiles_plain, dft=dft_matrix,
+                             mel=mel_matrix, cfg=cfg)
+
+
 def fused_log_mel_features(signal: torch.Tensor, lengths: torch.Tensor, *,
                            cfg: FeaturizerConfig,
-                           dft_matrix: Union[torch.Tensor, PackedDFT,
-                                             None] = None,
+                           tables: Optional[FFTTables] = None,
+                           dft_matrix: Optional[torch.Tensor] = None,
                            mel_matrix: Optional[torch.Tensor] = None,
                            generator: Optional[torch.Generator] = None,
                            training: bool = False):
     """(B, S) float waveform + (B,) int lengths ->
     (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32).
 
-    CUDA tensors go through the kernel (counted in `.launches`); CPU
-    tensors through its plain version. The constant DFT / mel matrices are
-    built on the signal's device, and the DFT packed for the kernel, unless
-    given (make_fused_featurizer builds and packs them once). training=True
-    adds the dither from `generator` before the kernel, as log_mel_features
-    does before its DFT."""
-    tiles = log_mel_tiles_plain if signal.device.type == "cpu" \
-        else log_mel_tiles_cuda
+    CUDA tensors go through the kernel (counted in `.launches`) with
+    `tables` (fft_tables, built on the signal's device unless given); CPU
+    tensors through its plain version with the DFT / mel matrices (built
+    unless given). make_fused_featurizer builds the constants once.
+    training=True adds the dither from `generator` before the kernel, as
+    log_mel_features does before its DFT."""
+    if signal.device.type == "cpu":
+        tiles = _plain_tiles(cfg, signal.device, dft_matrix, mel_matrix)
+    else:
+        if tables is None:
+            tables = fft_tables(cfg, signal.device)
+        tiles = functools.partial(log_mel_tiles_cuda, tables=tables,
+                                  cfg=cfg)
     return _featurize(add_dither(signal, cfg, generator, training), lengths,
-                      cfg, tiles, dft_matrix, mel_matrix)
+                      cfg, tiles)
 
 
 fused_log_mel_features.launches = 0
@@ -235,17 +331,20 @@ def fused_log_mel_features_plain(signal: torch.Tensor, lengths: torch.Tensor,
                                  dft_matrix: Optional[torch.Tensor] = None,
                                  mel_matrix: Optional[torch.Tensor] = None):
     """The plain version of fused_log_mel_features, on any device."""
-    return _featurize(signal, lengths, cfg, log_mel_tiles_plain, dft_matrix,
-                      mel_matrix)
+    return _featurize(signal, lengths, cfg,
+                      _plain_tiles(cfg, signal.device, dft_matrix,
+                                   mel_matrix))
 
 
 def make_fused_featurizer(cfg: FeaturizerConfig, *, device=None):
-    """Same factory contract as features.make_featurizer. On the GPU the
-    DFT matrix is bound in the kernel's layout, packed once here."""
+    """Same factory contract as features.make_featurizer. The constants are
+    built once here, on the device: the kernel's fft_tables on the GPU, the
+    plain version's DFT and mel matrices on the CPU."""
     dev = resolve_device(device)
-    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
     if dev.type == "cuda":
-        dft = pack_dft(dft, cfg.fft_length // 2 + 1)
+        return functools.partial(fused_log_mel_features, cfg=cfg,
+                                 tables=fft_tables(cfg, dev))
     return functools.partial(
-        fused_log_mel_features, cfg=cfg, dft_matrix=dft,
+        fused_log_mel_features, cfg=cfg,
+        dft_matrix=torch.as_tensor(_windowed_dft_matrix(cfg), device=dev),
         mel_matrix=torch.as_tensor(_mel_matrix(cfg), device=dev))

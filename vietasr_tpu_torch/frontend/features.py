@@ -86,22 +86,27 @@ def feature_seq_len(sample_len: torch.Tensor, hop_length: int) -> torch.Tensor:
     return torch.ceil(sample_len.to(torch.float32) / hop_length).to(torch.int32)
 
 
-def _windowed_dft_matrix(cfg: FeaturizerConfig) -> np.ndarray:
-    """(n_fft, 2 * n_bins) fp32: frames @ M yields [real | imag] of the
-    one-sided DFT of the windowed frame. The window is zero-padded to n_fft
-    centered, as torch.stft does for win_length < n_fft."""
-    n_fft = cfg.fft_length
-    n_bins = n_fft // 2 + 1
+def _window_full(cfg: FeaturizerConfig) -> np.ndarray:
+    """(n_fft,) fp64 window, zero-padded to n_fft centered, as torch.stft
+    does for win_length < n_fft."""
     if cfg.window == "hann":
         win = hann_window(cfg.win_length, dtype=np.float64)
     elif cfg.window in (None, "none", "ones"):
         win = np.ones(cfg.win_length, dtype=np.float64)
     else:
         raise ValueError(f"unsupported window: {cfg.window!r}")
-    pad = (n_fft - cfg.win_length) // 2
-    win_full = np.zeros(n_fft, dtype=np.float64)
+    pad = (cfg.fft_length - cfg.win_length) // 2
+    win_full = np.zeros(cfg.fft_length, dtype=np.float64)
     win_full[pad : pad + cfg.win_length] = win
+    return win_full
 
+
+def _windowed_dft_matrix(cfg: FeaturizerConfig) -> np.ndarray:
+    """(n_fft, 2 * n_bins) fp32: frames @ M yields [real | imag] of the
+    one-sided DFT of the windowed frame (window: _window_full)."""
+    n_fft = cfg.fft_length
+    n_bins = n_fft // 2 + 1
+    win_full = _window_full(cfg)
     n = np.arange(n_fft)[:, None]
     k = np.arange(n_bins)[None, :]
     ang = 2.0 * np.pi * n * k / n_fft
