@@ -40,8 +40,10 @@ Phases, each of which raises on failure:
   7. CTC alpha and beta kernels vs their plain versions: the training
      shape (B = 32, T = 840 encoder frames, ragged lengths, ~13 characters
      per second of audio: S = 435) and edge cases (target length 0, an
-     infeasible row, repeated labels, B = 1, S = 1025 just above the
-     1024-thread block); losses, alphas and gradients within CTC_TOL; the
+     infeasible row, repeated labels, B = 1, S = 1025, T = 1, T = 3 below
+     the prefetch ring's depth, input lengths 0 and 1, S = 1, S = 4095);
+     losses, alphas and gradients within CTC_TOL and, counted, 0 elements
+     differing from the plain versions; the launch plan of each shape; the
      loss also against F.ctc_loss, which times the library's CTC
   8. the training path end to end: Trainer on QuartzNet12x1_vi at full
      width (init_quartznet, seed 0), bf16, Novograd lr 0.02, wd 0.001,
@@ -99,10 +101,11 @@ REPEAT_TOL_REL = 2.0 ** -7
 E2E_LOGP_TOL = 0.25
 BEAM_KW = dict(cutoff_top_n=8, alpha=0.5, beta=1.5)
 # CTC pair vs its plain version: the same fp32 formulas in the same order
-# with the same expf/logf, so alphas, losses and gradients should agree bit
-# for bit; allow 1e-6 (relative for alphas and losses, absolute for the
-# gradient, whose entries lie in [0, ybar]) for an elementwise PyTorch
-# kernel that rounds one step differently
+# with the same expf/logf (the exps the kernels skip are exactly 1, or add
+# less than half an ulp), so alphas, losses and gradients agree bit for
+# bit, which phase 7 counts; CTC_TOL (relative for alphas and losses,
+# absolute for the gradient, whose entries lie in [0, ybar]) is the bound
+# printed beside it
 CTC_TOL = 1e-6
 # the port's loss vs F.ctc_loss: another algorithm (its own lattice and
 # summation order) over up to 840 dependent fp32 steps
@@ -943,9 +946,24 @@ def ctc_case(np, torch, dev, seed, ilen, tlen, t_max, num_classes=90,
                 can=can.contiguous(), valid=valid.contiguous())
 
 
+def ctc_training_lengths(np):
+    """Input and target lengths of the training shape (T = 840): 32
+    utterances of 1.5-16.7 s, row 0 the longest, at 50 encoder frames and
+    ~13 characters a second (S = 435); the lattice is ctc_case(np, torch,
+    dev, 8, ilen, tlen, 840)."""
+    rng = np.random.RandomState(7)
+    secs = rng.uniform(1.5, 16.7, size=32)
+    secs[0] = 16.7
+    ilen = np.minimum((secs * 50).astype(np.int32), 840)
+    tlen = np.round(secs * 13).astype(np.int32)
+    return ilen, tlen
+
+
 def ctc_compare(torch, c):
     """Both kernels against their plain versions on one case: (max |d ll|
-    over feasible rows, max relative |d alpha|, max |d grad|)."""
+    over feasible rows, max relative |d alpha|, max |d grad|, ll, the
+    numbers of alpha, loss and gradient elements that differ from the plain
+    versions'); fails unless all three numbers are 0."""
     from vietasr_tpu_torch.ops import fused_ctc as fc
 
     lat = (c["lp_ext"], c["can"], c["valid"], c["ilen"])
@@ -972,12 +990,16 @@ def ctc_compare(torch, c):
     check(d_g <= CTC_TOL, f"ctc: |d grad| {d_g}")
     check(bool(torch.isfinite(g_k).all()), "ctc: non-finite gradient")
     for b in range(bsz):
-        check(not bool(g_k[b, int(c["ilen"][b]):].any()),
+        check(not bool(g_k[b, max(int(c["ilen"][b]), 0):].any()),
               f"ctc: gradient past the input length in row {b}")
         if not bool(feasible[b]):
             check(not bool(g_k[b].any()),
                   f"ctc: infeasible row {b} has a gradient")
-    return d_ll, d_a, d_g, ll_k
+    differ = tuple(int((k != p).sum()) for k, p in
+                   ((a_k, a_p), (ll_k, ll_p), (g_k, g_p)))
+    check(differ == (0, 0, 0), f"ctc: (alpha, loss, gradient) elements "
+          f"differing from the plain versions: {differ}")
+    return d_ll, d_a, d_g, ll_k, differ
 
 
 def ctc_bound_ms(ilen, tlen, t_max, s):
@@ -1014,14 +1036,8 @@ def ctc_phase(np, torch, dev):
     from vietasr_tpu_torch.ops.ctc_loss import (ctc_loss, emission_lookup,
                                                 lattice_masks)
 
-    # the training shape: 32 utterances of 1.5-16.7 s at 50 encoder frames
-    # and ~13 characters per second
-    rng = np.random.RandomState(7)
-    secs = rng.uniform(1.5, 16.7, size=32)
-    secs[0] = 16.7
     t_max = 840
-    main_ilen = np.minimum((secs * 50).astype(np.int32), t_max)
-    main_tlen = np.round(secs * 13).astype(np.int32)
+    main_ilen, main_tlen = ctc_training_lengths(np)
     cases = {"training B=32 T=840 S=435": dict(
         seed=8, ilen=main_ilen, tlen=main_tlen, t_max=t_max)}
     edge_targets = np.zeros((6, 30), np.int64)
@@ -1036,15 +1052,32 @@ def ctc_phase(np, torch, dev):
     cases["B=1 T=300"] = dict(seed=10, ilen=[300], tlen=[80], t_max=300)
     cases["S=1025 B=3 T=1100"] = dict(seed=11, ilen=[1100, 1090, 900],
                                       tlen=[512, 500, 300], t_max=1100)
+    # the schedule's edges: T = 1, T below the prefetch ring's depth, input
+    # lengths 0 and 1, every target empty (S = 1), the widest lattice
+    cases["T=1 B=3"] = dict(seed=13, ilen=[1, 1, 1], tlen=[0, 1, 2], t_max=1)
+    cases["T=3 B=4"] = dict(seed=14, ilen=[3, 2, 1, 3], tlen=[1, 2, 0, 1],
+                            t_max=3)
+    cases["lengths 0 and 1 B=4 T=50"] = dict(
+        seed=15, ilen=[0, 1, 50, 25], tlen=[10, 0, 20, 8], t_max=50)
+    cases["S=1 B=6 T=30"] = dict(seed=16, ilen=[30, 20, 1, 24, 0, 21],
+                                 tlen=[0] * 6, t_max=30,
+                                 targets=np.zeros((6, 0), np.int64))
+    cases["S=4095 B=2 T=4200"] = dict(seed=17, ilen=[4200, 3000],
+                                      tlen=[2047, 1500], t_max=4200)
     worst_ll = worst_g = 0.0
     for name, kw in cases.items():
         c = ctc_case(np, torch, dev, **kw)
-        d_ll, d_a, d_g, ll = ctc_compare(torch, c)
+        d_ll, d_a, d_g, ll, differ = ctc_compare(torch, c)
         infeasible = int((ll <= fc.NEG / 2).sum())
         worst_ll, worst_g = max(worst_ll, d_ll), max(worst_g, d_g)
+        s = c["lp_ext"].shape[2]
+        plans = [tuple(fc.device_plan(s, n, dev))[:3] for n in (1, 2)]
         print(f"ctc {name}: max|d loss| {d_ll:.3e}, max rel|d alpha| "
               f"{d_a:.3e}, max|d grad| {d_g:.3e} (tol {CTC_TOL}); "
-              f"{infeasible} infeasible rows with zero gradient")
+              f"(alpha, loss, gradient) elements differing from the plain "
+              f"versions {differ}; {infeasible} infeasible rows with zero "
+              f"gradient; launch plans (positions a thread, threads, ring) "
+              f"alpha {plans[0]}, beta {plans[1]}")
         if name.startswith("edges"):
             check(infeasible == 1, "ctc edges: want exactly 1 infeasible row")
         if name.startswith("training"):

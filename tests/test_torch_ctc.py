@@ -229,3 +229,99 @@ def test_bad_arguments_raise():
         ctc_loss(*args, blank=BLANK, impl="pallas")
     with pytest.raises(ValueError, match="reduction"):
         ctc_loss(*args, blank=BLANK, reduction="sum")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' per-cell arithmetic and launch plan (csrc/ctc.cu), on the CPU
+
+
+def _kernel_lse3(a, b, c, two):
+    """A torch mirror of csrc/ctc.cu::lse3_k: the max's term as 1 + (m - m)
+    and only the other exps taken; `two` (a gated cell) with c = NEG, whose
+    term is left out as 0."""
+    neg = torch.full_like(a, fused_ctc.NEG)
+    if two:
+        c = neg
+    m = torch.maximum(a, torch.maximum(b, c))
+    d = m - m
+    one = 1.0 + d
+    am = a == m
+    ex = torch.exp(torch.where(am, b, a) - m)
+    if two:
+        e = one + ex
+    else:
+        cm = ~am & ~(b == m)
+        ey = torch.exp(torch.where(cm, b, c) - m)
+        e = torch.where(cm, (ex + ey) + one, (one + ex) + ey)
+    return torch.where(m <= fused_ctc.NEG / 2, neg, (m + torch.log(e)) + d)
+
+
+def _lse3_grid():
+    """Every triple of special and ordinary values: ties, 0 and -0, exps
+    that underflow, NEG and the NEG / 2 threshold with its neighbours,
+    -1e29, -inf, +inf and NaN, then seeded random triples, some with
+    repeated entries."""
+    half = np.float32(fused_ctc.NEG / 2)
+    special = np.array(
+        [0.0, -0.0, -1e-3, -0.5, -1.5, -4.5, -20.0, -87.5, -104.0, -110.0,
+         -1e29, fused_ctc.NEG, half, np.nextafter(half, np.float32(0)),
+         np.nextafter(half, np.float32(-np.inf)), -np.inf, np.inf, np.nan],
+        np.float32)
+    a, b, c = (x.ravel() for x in np.meshgrid(special, special, special,
+                                              indexing="ij"))
+    rng = np.random.RandomState(9)
+    r = (rng.randn(3, 20000) * 30).astype(np.float32)
+    r[1, ::3] = r[0, ::3]                      # ties
+    r[2, 1::3] = r[1, 1::3]
+    return [torch.from_numpy(np.concatenate([x, y]))
+            for x, y in zip((a, b, c), r)]
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["three-term", "gated"])
+def test_kernel_lse3_is_bit_exact(two):
+    """The kernels' lse3 (the max's exp as 1 + (m - m), a gated s-2 / s+2
+    term as 0) equals fused_ctc.lse3 bit for bit, NaN for NaN."""
+    a, b, c = _lse3_grid()
+    if two:
+        c = torch.full_like(a, fused_ctc.NEG)
+    got = _kernel_lse3(a, b, c, two)
+    want = fused_ctc.lse3(a, b, c)
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all()), [(float(x), float(y), float(z)) for x, y, z in
+                              zip(a[~same][:4], b[~same][:4], c[~same][:4])]
+    assert bool(torch.isnan(want).any())
+    assert bool((want == fused_ctc.NEG).any())
+
+
+@pytest.mark.parametrize("smem_limit", [232448, 100 * 1024])
+@pytest.mark.parametrize("streams", [1, 2], ids=["alpha", "beta"])
+def test_launch_plan_covers_every_width(streams, smem_limit):
+    """Every lattice width 1 ... 4096 gets a plan the kernels are built for:
+    its threads' positions s = tid * items + k, those < S, are exactly
+    0 ... S - 1, no warp holds only positions >= S, the fewest positions a
+    thread within the thread cap, and the deepest built ring whose shared
+    memory fits the limit (4 frames or more in the H100's)."""
+    widest = fused_ctc.PLAN_MAX_THREADS * fused_ctc.PLAN_ITEMS[-1]
+    assert widest == 4096
+    for s in range(1, widest + 1):
+        p = fused_ctc.launch_plan(s, streams, smem_limit)
+        assert p.items in fused_ctc.PLAN_ITEMS
+        assert p.ring in fused_ctc.PLAN_RINGS
+        # at least 4 frames ahead in the H100's shared memory
+        assert p.ring >= (4 if smem_limit >= 232448 else 2)
+        assert p.threads % 32 == 0 and p.threads <= fused_ctc.PLAN_MAX_THREADS
+        assert p.threads * p.items >= s > (p.threads - 32) * p.items
+        smaller = [k for k in fused_ctc.PLAN_ITEMS if k < p.items]
+        assert all(-(-s // k) > fused_ctc.PLAN_MAX_THREADS for k in smaller)
+        assert p.smem == fused_ctc.plan_smem(streams, p.items, p.threads,
+                                             p.ring) <= smem_limit
+        deeper = [r for r in fused_ctc.PLAN_RINGS if r > p.ring]
+        assert all(fused_ctc.plan_smem(streams, p.items, p.threads, r)
+                   > smem_limit for r in deeper)
+    owned = sorted(tid * p.items + k for tid in range(p.threads)
+                   for k in range(p.items) if tid * p.items + k < widest)
+    assert owned == list(range(widest))
+    for bad in (0, widest + 1):
+        with pytest.raises(ValueError, match="plan"):
+            fused_ctc.launch_plan(bad, streams, smem_limit)

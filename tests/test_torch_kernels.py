@@ -11,9 +11,9 @@ only, so on a machine with a GPU and no JAX it runs as
 the output, 2^-7 * max|want|, for the repeat block; none for the beam
 search, whose raw result (final state and backpointers) equals the plain
 version's, ties included. The CTC pair: the alpha lattice and
-the gradient within 1e-6 of the plain versions (the same fp32 formulas in
-the same order with the same expf/logf; nonzero only if an elementwise
-PyTorch kernel rounds differently).
+the gradient within 1e-6 of the plain versions and, as measured, equal bit
+for bit (the same fp32 formulas in the same order with the same expf/logf;
+the exps the kernels skip are exactly 1 or add below half an ulp).
 """
 
 import os
@@ -467,23 +467,27 @@ def test_beam_kernel_refuses_bad_inputs(tmp_path):
         fused_beam_search(lp, lens, beam_width=129, cutoff_top_n=3, **kw)
 
 
-def _ctc_lattice(bsz, t, l, seed, device):
+def _ctc_lattice(bsz, t, l, seed, device, ilens=None):
     """Seeded (B, T, S) lattice inputs over 7 classes (blank 6): ragged
-    input lengths, row 0 with repeated labels, row 1 (if any) with target
-    length 0, row 2 (if any) infeasible."""
+    input lengths (or `ilens`), row 0 with repeated labels, row 1 (if any)
+    with target length 0, row 2 (if any) infeasible; l = 0 gives every row
+    target length 0 (S = 1)."""
     rng = np.random.RandomState(seed)
     lp = torch.log_softmax(torch.from_numpy(
         (rng.randn(bsz, t, 7) * 2).astype(np.float32)), dim=-1)
     targets = torch.from_numpy(rng.randint(0, 6, size=(bsz, l)))
     ilen = torch.from_numpy(rng.randint(max(t // 2, 1), t + 1, size=bsz)
                             .astype(np.int32))
-    tlen = torch.from_numpy(rng.randint(1, l + 1, size=bsz).astype(np.int32))
+    tlen = torch.from_numpy(rng.randint(1, l + 1, size=bsz).astype(np.int32)
+                            if l else np.zeros(bsz, np.int32))
     ilen[0], tlen[0] = t, l
     targets[0, : l // 2] = 3
     if bsz > 1:
         tlen[1] = 0
     if bsz > 2:
         ilen[2], tlen[2] = max(l // 4, 1), l
+    if ilens is not None:
+        ilen = torch.tensor(ilens, dtype=torch.int32)
     ext, can, valid = lattice_masks(targets, tlen, 6)
     lp_ext = emission_lookup(lp, ext).contiguous()
     return [a.to(device) for a in (lp_ext, can, valid, ilen, tlen)]
@@ -499,23 +503,59 @@ def test_ctc_kernels_refuse_cpu_tensors():
                                 torch.ones(2))
 
 
+def _ctc_pair(lp_ext, can, valid, ilen, tlen, plan=(None, None)):
+    """(alphas, ll, grad) through the kernels and through the plain
+    versions, with ybar spread over [0.5, 1.5]."""
+    bsz = lp_ext.shape[0]
+    ybar = torch.linspace(0.5, 1.5, bsz, device=lp_ext.device)
+    alphas = fused_ctc.ctc_alpha_cuda(lp_ext, can, valid, ilen, plan=plan[0])
+    ll = fused_ctc.final_ll(alphas[:, -1], tlen)
+    grad = fused_ctc.ctc_beta_cuda(lp_ext, alphas, can, valid, ilen, tlen,
+                                   ll, ybar, plan=plan[1])
+    want_alphas = fused_ctc.ctc_alpha_plain(lp_ext, can, valid, ilen)
+    want_grad = fused_ctc.ctc_beta_plain(lp_ext, want_alphas, can, valid,
+                                         ilen, tlen, ll, ybar)
+    torch.cuda.synchronize()
+    return (alphas, ll, grad), (want_alphas, want_grad)
+
+
+CTC_CASES = {
+    # S = 2L + 1 of 19, 25, 1025 (8 positions a thread) and 201; B = 1 and
+    # ragged lengths; a repeated label run, a target length 0 and an
+    # infeasible row
+    "S19": (5, 60, 9, None), "B1-S25": (1, 40, 12, None),
+    "S1025": (3, 1100, 512, None), "S201": (4, 200, 100, None),
+    # T = 1; T = 3, below every prefetch ring's depth
+    "T1": (3, 1, 2, None), "T3": (4, 3, 5, None),
+    # input lengths 0 and 1
+    "len0-len1": (4, 50, 10, [0, 1, 2, 25]),
+    # every row of target length 0: S = 1
+    "S1": (6, 30, 0, None),
+    # S = 4095 (L = 2047), the widest lattice the kernels take
+    "S4095": (2, 4200, 2047, None),
+    # the training shape: B = 32, T = 840, S = 435
+    "train-B32-S435": (32, 840, 217, None)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bsz,t,l", [(5, 60, 9), (1, 40, 12), (3, 1100, 512),
-                                     (4, 200, 100)])
-def test_ctc_kernels_match_plain(bsz, t, l):
-    """S = 2L + 1 of 19, 25, 1025 (just above the 1024-thread block: two
-    positions per thread) and 201; B = 1 and ragged lengths; a repeated
-    label run, a target length 0 and an infeasible row."""
+@pytest.mark.parametrize("case", list(CTC_CASES))
+def test_ctc_kernels_match_plain(case):
+    """The kernels under their default launch plan against the plain
+    versions, bit for bit, at shapes that reach the schedule's edges (S is
+    2L + 1, odd, so never a multiple of the 2, 4 or 8 positions a thread
+    owns)."""
     _need_gpu()
-    lp_ext, can, valid, ilen, tlen = _ctc_lattice(bsz, t, l, bsz + t, "cuda")
+    bsz, t, l, ilens = CTC_CASES[case]
+    lp_ext, can, valid, ilen, tlen = _ctc_lattice(bsz, t, l, bsz + t, "cuda",
+                                                  ilens)
     n_alpha, n_beta = fused_ctc.fused_ctc_alpha.launches, \
         fused_ctc.fused_ctc_beta.launches
     alphas = fused_ctc.fused_ctc_alpha(lp_ext, can, valid, ilen)
-    want_alphas = fused_ctc.ctc_alpha_plain(lp_ext, can, valid, ilen)
     ll = fused_ctc.final_ll(alphas[:, -1], tlen)
     ybar = torch.linspace(0.5, 1.5, bsz, device="cuda")
     grad = fused_ctc.fused_ctc_beta(lp_ext, alphas, can, valid, ilen, tlen,
                                     ll, ybar)
+    want_alphas = fused_ctc.ctc_alpha_plain(lp_ext, can, valid, ilen)
     want_grad = fused_ctc.ctc_beta_plain(lp_ext, want_alphas, can, valid,
                                          ilen, tlen, ll, ybar)
     torch.cuda.synchronize()
@@ -524,10 +564,54 @@ def test_ctc_kernels_match_plain(bsz, t, l):
     scale = torch.clamp_min(want_alphas.abs(), 1.0)
     assert float(((alphas - want_alphas).abs() / scale).max()) <= CTC_TOL
     assert float((grad - want_grad).abs().max()) <= CTC_TOL
-    if bsz > 2:
+    assert torch.equal(alphas, want_alphas) and torch.equal(grad, want_grad)
+    if bsz > 2 and l > 0:
         assert float(ll[2]) < -1e29 and not grad[2].any()
     for row in range(bsz):
-        assert not grad[row, int(ilen[row]):].any()
+        assert not grad[row, max(int(ilen[row]), 0):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,t,l", [(3, 90, 9), (4, 120, 100), (3, 300, 217)])
+def test_ctc_kernels_every_plan_matches_plain(bsz, t, l):
+    """Every built launch plan that covers the row (positions per thread,
+    ring depth) gives the plain versions' alphas and gradient bit for bit."""
+    _need_gpu()
+    lp_ext, can, valid, ilen, tlen = _ctc_lattice(bsz, t, l, 7 * t, "cuda")
+    s = lp_ext.shape[2]
+    for items in fused_ctc.PLAN_ITEMS:
+        threads = -(-s // (32 * items)) * 32
+        if threads > fused_ctc.PLAN_MAX_THREADS:
+            continue
+        for ring in fused_ctc.PLAN_RINGS:
+            plan = (fused_ctc.CTCPlan(items, threads, ring, 0),) * 2
+            (alphas, _, grad), (want_alphas, want_grad) = _ctc_pair(
+                lp_ext, can, valid, ilen, tlen, plan)
+            assert torch.equal(alphas, want_alphas), (items, ring)
+            assert torch.equal(grad, want_grad), (items, ring)
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_math_matches_torch_on_every_float():
+    """The kernels' own exp and log (CUDA's expf and logf written out so that
+    a thread's cells interleave) equal torch.exp bit for bit on every fp32
+    bit pattern (NaN for NaN), and torch.log on every finite value >= 1
+    (the sums the kernels take the log of)."""
+    _need_gpu()
+    chunk = 1 << 28
+    covered_ge1 = 0
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64,
+                         device="cuda").to(torch.int32).view(torch.float32)
+        ex, lg = fused_ctc.kernel_math_cuda(x)
+        ge1 = (x >= 1) & torch.isfinite(x)
+        covered_ge1 += int(ge1.sum())
+        for got, want in ((ex, torch.exp(x)),
+                          (lg[ge1], torch.log(x[ge1]))):
+            same = (got.view(torch.int32) == want.view(torch.int32)) | (
+                torch.isnan(got) & torch.isnan(want))
+            assert bool(same.all()), got[~same][:8].tolist()
+    assert covered_ge1 == 0x7f800000 - 0x3f800000
 
 
 @pytest.mark.cuda

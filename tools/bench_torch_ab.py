@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one checkout of the port on one NVIDIA GPU, for A/B comparisons.
 
-    python3 tools/bench_torch_ab.py [--root DIR]
+    python3 tools/bench_torch_ab.py [--root DIR] [--only GROUPS]
 
 Imports vietasr_tpu_torch from DIR (default: this checkout), so that two
 checkouts can be timed on one card in one session; run them in turns (A, B,
@@ -25,8 +25,14 @@ B, A). The inputs come from this checkout's chip_smoke.py:
     1.5-16.5 s, audio-s/s by the host clock over 10 calls after a warm-up;
   - the greedy path on the same signals (20 calls), and its forward alone
     on one batch of 8 of them in the 16.7 s bucket (50 calls, ending in a
-    synchronise).
-Prints one JSON line with the card's name and power limit.
+    synchronise);
+  - the CTC kernels alone at phase 7's training shape (B = 32, T = 840,
+    S = 435, ragged lengths; chip_smoke.ctc_training_lengths): alpha, and
+    beta from those alphas with ybar = 1/32, each by `chip_smoke.event_ms`
+    (`ctc_alpha_ms`, `ctc_beta_ms`).
+`--only` takes a comma-separated subset of frontend, repeat, beam, paths
+and ctc (default: all). Prints one JSON line with the card's name and
+power limit.
 """
 
 import argparse
@@ -79,10 +85,89 @@ def frontend_call(np, torch, dev, bsz, seconds):
     return lambda: cf.log_mel_tiles_cuda(xp, seq_len, dft, mel, cfg=cfg)
 
 
+def ctc_calls(np, torch, dev):
+    """Closures that launch this checkout's CTC alpha and beta kernels once
+    each at phase 7's training shape."""
+    import chip_smoke
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+
+    ilen, tlen = chip_smoke.ctc_training_lengths(np)
+    c = chip_smoke.ctc_case(np, torch, dev, 8, ilen, tlen, 840)
+    lat = (c["lp_ext"], c["can"], c["valid"], c["ilen"])
+    alphas = fc.ctc_alpha_cuda(*lat)
+    ll = fc.final_ll(alphas[:, -1], c["tlen"])
+    beta = (c["lp_ext"], alphas, c["can"], c["valid"], c["ilen"], c["tlen"],
+            ll, torch.full_like(ll, 1.0 / 32))
+    return (lambda: fc.ctc_alpha_cuda(*lat)), (lambda: fc.ctc_beta_cuda(*beta))
+
+
+def beam_and_paths(np, torch, dev, only, out):
+    """The beam kernel alone ("beam") and the paths a user calls ("paths")
+    into `out`."""
+    import chip_smoke
+    from vietasr_tpu_torch.ops.device_beam import (expansion_width,
+                                                   frame_topk,
+                                                   init_packed_state,
+                                                   word_lm_to_device)
+    from vietasr_tpu_torch.ops.fused_beam import beam_search_cuda
+    from vietasr_tpu_torch.ops.lm import NGramLM, word_lm_tables
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_path = chip_smoke.train_word_lms(tmp)[3]
+        beam = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR,
+                           options=TranscriberOptions(decoder="device_beam",
+                                                      lm_path=lm_path))
+        tables, probes = word_lm_tables(NGramLM(lm_path), beam.cfg.labels)
+    greedy = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR)
+
+    if "beam" in only:
+        # the beam kernel alone
+        labels = beam.cfg.labels
+        v1 = len(labels) + 1
+        lp, lens, _ = chip_smoke.synthetic_beam_inputs(np, torch, dev, v1)
+        wl = word_lm_to_device(tables, dev)
+        kw = chip_smoke.BEAM_KW
+        top_lp, top_ci = frame_topk(lp, expansion_width(v1 - 1,
+                                                        kw["cutoff_top_n"]))
+        state = init_packed_state(lp.shape[0], 100, wl, dev)
+
+        def kernel():
+            beam_search_cuda(lp, lens, top_lp, top_ci, state, blank=v1 - 1,
+                             space=labels.index(" "), alpha=kw["alpha"],
+                             beta=kw["beta"], word_lm=wl, wlm_probes=probes)
+
+        ms = chip_smoke.event_ms(kernel)
+        out["kernel_ms"] = ms
+        out["kernel_us_per_step"] = ms / lp.shape[1] * 1e3
+    if "paths" in only:
+        # the paths a user calls
+        signals = chip_smoke.mixed_signals(np)
+        audio_s = sum(len(s) for s in signals) / 16000
+        dt = host_seconds(torch, lambda: beam.transcribe_batch(signals), 10)
+        out["beam_path_audio_s_per_s"] = audio_s / dt
+        dt = host_seconds(torch, lambda: greedy.transcribe_batch(signals), 20)
+        out["greedy_path_audio_s_per_s"] = audio_s / dt
+        full = signals[:8]
+        batch = greedy._host_batch(8, greedy.buckets[-1])
+        for row, s in enumerate(full):
+            batch[row, :len(s)] = s
+        flens = np.array([len(s) for s in full], np.int32)
+        dt = host_seconds(torch, lambda: greedy._fwd(batch, flens), 50)
+        out["greedy_forward_ms"] = dt * 1e3
+
+
+GROUPS = ("frontend", "repeat", "beam", "paths", "ctc")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--only", default=",".join(GROUPS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"--only takes a subset of {GROUPS}")
     import numpy as np
     import torch
 
@@ -93,75 +178,33 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import chip_smoke
     sys.path.insert(0, root)
-    from vietasr_tpu_torch.ops.device_beam import (expansion_width,
-                                                   frame_topk,
-                                                   init_packed_state,
-                                                   word_lm_to_device)
-    from vietasr_tpu_torch.ops.fused_beam import beam_search_cuda
-    from vietasr_tpu_torch.ops.lm import NGramLM, word_lm_tables
     from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
-    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     out = {"root": root}
-    # the frontend kernel alone
-    for bsz in (8, 32):
-        out[f"frontend_{bsz}x16.7s_ms"] = chip_smoke.event_ms(
-            frontend_call(np, torch, dev, bsz, 16.7))
-    with tempfile.TemporaryDirectory() as tmp:
-        lm_path = chip_smoke.train_word_lms(tmp)[3]
-        beam = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR,
-                           options=TranscriberOptions(decoder="device_beam",
-                                                      lm_path=lm_path))
-        tables, probes = word_lm_tables(NGramLM(lm_path), beam.cfg.labels)
-    greedy = Transcriber(chip_smoke.CONFIG, checkpoint=chip_smoke.ANCHOR)
-
-    # the repeat kernel alone: one forward's 13 launches
-    for full in (False, True):
-        total = 0.0
-        for c_in, c_out, k, r, bsz, t, per_fwd in chip_smoke.REPEAT_SHAPES:
-            if per_fwd:
-                args = chip_smoke.repeat_inputs(np, torch, dev, c_in, c_out,
-                                                k, r, t, bsz, full=full)
-                total += per_fwd * chip_smoke.event_ms(
-                    lambda: fused_repeat_block(*args, kernel=k))
-        out["repeat_full_lengths_ms" if full else "repeat_ms"] = total
-
-    # the beam kernel alone
-    labels = beam.cfg.labels
-    v1 = len(labels) + 1
-    lp, lens, _ = chip_smoke.synthetic_beam_inputs(np, torch, dev, v1)
-    wl = word_lm_to_device(tables, dev)
-    kw = chip_smoke.BEAM_KW
-    top_lp, top_ci = frame_topk(lp, expansion_width(v1 - 1,
-                                                    kw["cutoff_top_n"]))
-    state = init_packed_state(lp.shape[0], 100, wl, dev)
-
-    def kernel():
-        beam_search_cuda(lp, lens, top_lp, top_ci, state, blank=v1 - 1,
-                         space=labels.index(" "), alpha=kw["alpha"],
-                         beta=kw["beta"], word_lm=wl, wlm_probes=probes)
-
-    ms = chip_smoke.event_ms(kernel)
-    out["kernel_ms"] = ms
-    out["kernel_us_per_step"] = ms / lp.shape[1] * 1e3
-
-    # the paths a user calls
-    signals = chip_smoke.mixed_signals(np)
-    audio_s = sum(len(s) for s in signals) / 16000
-    dt = host_seconds(torch, lambda: beam.transcribe_batch(signals), 10)
-    out["beam_path_audio_s_per_s"] = audio_s / dt
-    dt = host_seconds(torch, lambda: greedy.transcribe_batch(signals), 20)
-    out["greedy_path_audio_s_per_s"] = audio_s / dt
-    full = signals[:8]
-    batch = greedy._host_batch(8, greedy.buckets[-1])
-    for row, s in enumerate(full):
-        batch[row, :len(s)] = s
-    flens = np.array([len(s) for s in full], np.int32)
-    dt = host_seconds(torch, lambda: greedy._fwd(batch, flens), 50)
-    out["greedy_forward_ms"] = dt * 1e3
+    if "frontend" in only:
+        for bsz in (8, 32):
+            out[f"frontend_{bsz}x16.7s_ms"] = chip_smoke.event_ms(
+                frontend_call(np, torch, dev, bsz, 16.7))
+    if "repeat" in only:        # one forward's 13 launches
+        for full in (False, True):
+            total = 0.0
+            for c_in, c_out, k, r, bsz, t, per_fwd in chip_smoke.REPEAT_SHAPES:
+                if per_fwd:
+                    args = chip_smoke.repeat_inputs(np, torch, dev, c_in,
+                                                    c_out, k, r, t, bsz,
+                                                    full=full)
+                    total += per_fwd * chip_smoke.event_ms(
+                        lambda: fused_repeat_block(*args, kernel=k))
+            out["repeat_full_lengths_ms" if full else "repeat_ms"] = total
+    if "ctc" in only:
+        alpha, beta = ctc_calls(np, torch, dev)
+        out["ctc_alpha_ms"] = chip_smoke.event_ms(alpha)
+        out["ctc_beta_ms"] = chip_smoke.event_ms(beta)
+    if only & {"beam", "paths"}:
+        beam_and_paths(np, torch, dev, only, out)
     out["card"] = chip_smoke.nvidia_smi_line()
     print(json.dumps(out))
     return 0

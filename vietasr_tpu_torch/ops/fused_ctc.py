@@ -20,13 +20,15 @@ S to 128 only for the TPU's tiling, and lays it out as (T, B, S)).
 `fused_ctc_alpha` / `fused_ctc_beta` launch the kernels for CUDA tensors
 (launches counted in their `.launches`) and take the plain versions
 (`ctc_alpha_plain`, `ctc_beta_plain`) only for CPU tensors;
-`ctc_alpha_cuda` / `ctc_beta_cuda` are the launches themselves.
+`ctc_alpha_cuda` / `ctc_beta_cuda` are the launches themselves, under the
+`launch_plan` for the lattice width and the card's shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -115,17 +117,83 @@ def ctc_beta_plain(lp_ext: torch.Tensor, alphas: torch.Tensor,
 # the kernels
 
 
+# launch plans: lattice positions per thread, and prefetch ring depths, that
+# csrc/ctc.cu is built for, and the most threads a block takes
+PLAN_ITEMS = (1, 2, 4)
+PLAN_RINGS = (2, 4, 8, 16)
+PLAN_MAX_THREADS = 1024
+
+
+class CTCPlan(NamedTuple):
+    """One kernel launch's shape: each of `threads` threads owns `items`
+    consecutive lattice positions and prefetches its own positions of the
+    next `ring` frames into shared memory (`smem` bytes with the warp-edge
+    exchange)."""
+    items: int
+    threads: int
+    ring: int
+    smem: int
+
+
+def plan_smem(streams: int, items: int, threads: int, ring: int) -> int:
+    """Shared memory of a launch (csrc/ctc.cu::smem_bytes): `streams` rings
+    (lp_ext, and alphas going back) of `ring` rows of threads * items
+    floats, then 2 parities x (warps + 1) slots x 2 floats of warp edges."""
+    return 4 * (streams * ring * threads * items + 2 * (threads // 32 + 1) * 2)
+
+
+def launch_plan(s: int, streams: int, smem_limit: int = _build.SMEM_LIMIT
+                ) -> CTCPlan:
+    """The plan for lattice width `s`: the fewest positions per thread
+    within PLAN_MAX_THREADS threads (ptxas runs a thread's cells one after
+    another, while the SM's four schedulers interleave warps), the fewest
+    warps that cover the row, and the deepest built ring whose `streams`
+    rings fit `smem_limit` bytes (alpha has 1 stream, beta 2)."""
+    if not 1 <= s <= PLAN_MAX_THREADS * PLAN_ITEMS[-1]:
+        raise ValueError(f"ctc kernel: no launch plan for S = {s}")
+    items = next(k for k in PLAN_ITEMS if -(-s // k) <= PLAN_MAX_THREADS)
+    threads = -(-s // (32 * items)) * 32
+    for ring in sorted(PLAN_RINGS, reverse=True):
+        smem = plan_smem(streams, items, threads, ring)
+        if smem <= smem_limit:
+            return CTCPlan(items, threads, ring, smem)
+    raise ValueError(f"ctc kernel: S = {s} needs more than {smem_limit} "
+                     "bytes of shared memory")
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ctc")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vt_ctc_alpha.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.vt_ctc_alpha.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.vt_ctc_alpha.restype = i
-    lib.vt_ctc_beta_grad.argtypes = [p] * 9 + [i] * 3 + [p]
+    lib.vt_ctc_beta_grad.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.vt_ctc_beta_grad.restype = i
     lib.vt_ctc_max_s.argtypes = []
     lib.vt_ctc_max_s.restype = i
+    lib.vt_ctc_smem_limit.argtypes = []
+    lib.vt_ctc_smem_limit.restype = i
+    lib.vt_ctc_math.argtypes = [p] * 3 + [ctypes.c_longlong, p]
+    lib.vt_ctc_math.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """Shared memory one block may use on CUDA device `index`."""
+    with torch.cuda.device(index):
+        limit = _lib().vt_ctc_smem_limit()
+    if limit <= 0:
+        raise RuntimeError("ctc kernel: cannot read the device's shared "
+                           "memory limit")
+    return limit
+
+
+def device_plan(s: int, streams: int, device: torch.device) -> CTCPlan:
+    """`launch_plan` for lattice width `s` on CUDA device `device`."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return launch_plan(s, streams, _smem_limit(index))
 
 
 def _need(name: str, tsr: torch.Tensor, device, dtype, shape) -> None:
@@ -155,21 +223,25 @@ def _lattice_shape(lp_ext: torch.Tensor):
 
 
 def ctc_alpha_cuda(lp_ext: torch.Tensor, can: torch.Tensor,
-                   valid: torch.Tensor, ilen: torch.Tensor) -> torch.Tensor:
+                   valid: torch.Tensor, ilen: torch.Tensor, *,
+                   plan: CTCPlan | None = None) -> torch.Tensor:
     """The forward kernel, one launch: lp_ext (B, T, S) fp32, can / valid
-    (B, S) bool, ilen (B,) int32, all contiguous on one GPU -> alphas."""
+    (B, S) bool, ilen (B,) int32, all contiguous on one GPU -> alphas.
+    `plan` overrides `device_plan(S, 1, device)`."""
     bsz, t_max, s = _lattice_shape(lp_ext)
     dev = lp_ext.device
     _need("lp_ext", lp_ext, dev, torch.float32, (bsz, t_max, s))
     _need("can", can, dev, torch.bool, (bsz, s))
     _need("valid", valid, dev, torch.bool, (bsz, s))
     _need("ilen", ilen, dev, torch.int32, (bsz,))
+    plan = plan or device_plan(s, 1, dev)
     alphas = torch.empty_like(lp_ext)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.vt_ctc_alpha(
             lp_ext.data_ptr(), can.data_ptr(), valid.data_ptr(),
-            ilen.data_ptr(), alphas.data_ptr(), bsz, t_max, s,
+            ilen.data_ptr(), alphas.data_ptr(), bsz, t_max, s, plan.items,
+            plan.threads, plan.ring,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ctc alpha kernel")
     fused_ctc_alpha.launches += 1
@@ -178,11 +250,12 @@ def ctc_alpha_cuda(lp_ext: torch.Tensor, can: torch.Tensor,
 
 def ctc_beta_cuda(lp_ext: torch.Tensor, alphas: torch.Tensor,
                   can: torch.Tensor, valid: torch.Tensor, ilen: torch.Tensor,
-                  tlen: torch.Tensor, ll: torch.Tensor, ybar: torch.Tensor
-                  ) -> torch.Tensor:
+                  tlen: torch.Tensor, ll: torch.Tensor, ybar: torch.Tensor, *,
+                  plan: CTCPlan | None = None) -> torch.Tensor:
     """The backward kernel, one launch: lp_ext / alphas (B, T, S) fp32,
     can / valid (B, S) bool, ilen / tlen (B,) int32, ll / ybar (B,) fp32,
-    all contiguous on one GPU -> d ll / d lp_ext (B, T, S) fp32."""
+    all contiguous on one GPU -> d ll / d lp_ext (B, T, S) fp32. `plan`
+    overrides `device_plan(S, 2, device)`."""
     bsz, t_max, s = _lattice_shape(lp_ext)
     dev = lp_ext.device
     _need("lp_ext", lp_ext, dev, torch.float32, (bsz, t_max, s))
@@ -194,17 +267,38 @@ def ctc_beta_cuda(lp_ext: torch.Tensor, alphas: torch.Tensor,
                            ("ll", ll, torch.float32),
                            ("ybar", ybar, torch.float32)):
         _need(name, x, dev, dtype, (bsz,))
+    plan = plan or device_plan(s, 2, dev)
     grad = torch.empty_like(lp_ext)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.vt_ctc_beta_grad(
             lp_ext.data_ptr(), alphas.data_ptr(), can.data_ptr(),
             valid.data_ptr(), ilen.data_ptr(), tlen.data_ptr(), ll.data_ptr(),
-            ybar.data_ptr(), grad.data_ptr(), bsz, t_max, s,
+            ybar.data_ptr(), grad.data_ptr(), bsz, t_max, s, plan.items,
+            plan.threads, plan.ring,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ctc beta kernel")
     fused_ctc_beta.launches += 1
     return grad
+
+
+def kernel_math_cuda(x: torch.Tensor) -> tuple:
+    """(exp(x), log(x)) of a contiguous fp32 CUDA tensor through the
+    kernels' own exp and log (csrc/ctc.cu::exp_n, log_n), which repeat CUDA's
+    expf and logf operation for operation (log for finite x >= 1 only): the
+    test that holds them to torch.exp and torch.log."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 \
+            or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("ctc kernel math: x must be a non-empty contiguous "
+                         "fp32 CUDA tensor")
+    ex, lg = torch.empty_like(x), torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.vt_ctc_math(x.data_ptr(), ex.data_ptr(), lg.data_ptr(),
+                              x.numel(),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "ctc kernel math")
+    return ex, lg
 
 
 def fused_ctc_alpha(lp_ext, can, valid, ilen) -> torch.Tensor:
