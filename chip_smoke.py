@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  1. build   - compile every kernel under vietasr_tpu_torch/csrc with nvcc
+  1. build   - compile every kernel under vietasr_tpu_torch/csrc with nvcc,
+     and the host beam tier's C++ library (native/ctc_beam.cc) with g++
   2. device  - the card's name and power limit (nvidia-smi)
   3. frontend kernel (an FFT per frame) vs its plain PyTorch version
      (frames @ DFT matrix) at B in {1, 8} x {2, 8, 16.7} s and B = 32 x
@@ -28,7 +29,8 @@ Phases, each of which raises on failure:
      "device_beam") at its default W = 100 with a word 3-gram trained on
      the repo's text, one beam launch per transcribe_batch call (every
      forward's rows in one decode), transcripts held against the plain
-     device_beam_search on the same log-probs
+     device_beam_search on the same log-probs, and equal when the LM comes
+     from its KenLM PROBING binary
   6. beam kernel vs its plain version (device_beam_search) on seeded
      synthetic log-probs (B = 8, T = 840, ragged) and on the anchor's
      posteriors of phase 5's signals, word 3-gram and 5-gram at W in
@@ -37,6 +39,18 @@ Phases, each of which raises on failure:
      word 3-gram; cutoff 8, alpha 0.5, beta 1.5: the raw result (final
      state and backpointers) equal bit for bit in every case; the kernel's
      time, microseconds and barriers per step at B = 8, T = 840, W = 100
+  6b. the host beam path (the reference's infer.py decoder):
+     Transcriber(decoder="beam") at W = 100, alpha 0.5, beta 1.5 with the
+     word 3-gram from its PROBING binary over phase 5's 16 signals, the
+     launch counters read around the run (1 frontend and 13 repeat-block
+     launches per forward, no beam-kernel launch); transcripts equal the
+     C++ tier's on the same log-probs from the ARPA and from the TRIE
+     binary, and on the 4 shortest signals at W = 16 the Python tier's;
+     audio-s/s, device busy and idle share, the host decode's ms per call
+     beside the forwards'; a Transcriber built from the reference's two
+     NeMo .pt files (written from the anchor) gives the anchor's
+     log-probs; transcribe_file of a PCM16 and an 8 kHz mu-law WAV gives
+     transcribe's text of the samples read_audio returns
   7. CTC alpha and beta kernels vs their plain versions: the training
      shape (B = 32, T = 840 encoder frames, ragged lengths, ~13 characters
      per second of audio: S = 435) and edge cases (target length 0, an
@@ -658,7 +672,11 @@ def end_to_end_phase(np, torch, dev, kernels):
 
 
 def train_word_lms(tmpdir):
-    """Word 3- and 5-gram ARPA files over VI_CORPUS + the manifest texts."""
+    """Word 3- and 5-gram ARPA files over VI_CORPUS + the manifest texts,
+    and the 3-gram as KenLM PROBING and TRIE binaries (keys "probing",
+    "trie"), written by the port's writers."""
+    from vietasr_tpu_torch.ops.kenlm_binary import write_kenlm_binary
+    from vietasr_tpu_torch.ops.kenlm_trie import write_kenlm_trie
     from vietasr_tpu_torch.ops.lm import train_ngram_arpa
 
     with open(MANIFEST, encoding="utf-8") as f:
@@ -667,6 +685,10 @@ def train_word_lms(tmpdir):
     for order in (3, 5):
         paths[order] = os.path.join(tmpdir, f"vi_word{order}.arpa")
         train_ngram_arpa(VI_CORPUS + refs, paths[order], order=order)
+    paths["probing"] = os.path.join(tmpdir, "vi_word3.probing.binary")
+    paths["trie"] = os.path.join(tmpdir, "vi_word3.trie.binary")
+    write_kenlm_binary(paths[3], paths["probing"])
+    write_kenlm_trie(paths[3], paths["trie"])
     return paths
 
 
@@ -748,6 +770,18 @@ def beam_path_phase(np, torch, signals, lm_paths, kernels):
           f"{same}/{len(texts)}")
     check(same == len(texts), "beam transcripts differ from the plain "
           "device_beam_search on the same log-probs")
+    # the same LM from its KenLM PROBING binary
+    from_binary = Transcriber(CONFIG, checkpoint=ANCHOR,
+                              options=TranscriberOptions(
+                                  decoder="device_beam",
+                                  lm_path=lm_paths["probing"]))
+    binary_texts = from_binary.transcribe_batch(signals)
+    same = sum(a == b for a, b in zip(binary_texts, texts))
+    print(f"device beam from the PROBING binary vs the ARPA: transcripts "
+          f"equal {same}/{len(texts)}")
+    check(same == len(texts), "device beam transcripts from the KenLM "
+          "binary differ from the ARPA's")
+    del from_binary
 
     audio_s = sum(len(s) for s in signals) / 16000
     torch.cuda.synchronize()
@@ -829,8 +863,8 @@ def beam_phase(np, torch, dev, labels, anchor_lp, anchor_lens, lm_paths):
     from vietasr_tpu_torch.ops.lm import NGramLM, word_lm_tables
 
     tables = {}
-    for order, path in lm_paths.items():
-        t, probes = word_lm_tables(NGramLM(path), labels)
+    for order in (3, 5):                 # the ARPA word 3- and 5-grams
+        t, probes = word_lm_tables(NGramLM(lm_paths[order]), labels)
         tables[order] = (word_lm_to_device(t, dev), probes)
     v1, space = len(labels) + 1, labels.index(" ")
     synth_lp, synth_lens, logits = synthetic_beam_inputs(np, torch, dev, v1)
@@ -922,6 +956,156 @@ def beam_phase(np, torch, dev, labels, anchor_lp, anchor_lens, lm_paths):
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "us_per_step": us_step, "barriers_per_step": barriers}
+
+
+def host_beam_phase(np, torch, signals, lm_paths, tmpdir):
+    """Phase 6b: the host beam path, Transcriber(decoder="beam"), with the
+    word 3-gram from its PROBING binary, counters read around the run."""
+    from scipy.io import wavfile
+
+    from vietasr_tpu_torch.audio.g711 import ulaw_encode
+    from vietasr_tpu_torch.audio.io import read_audio
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.models.convert import (load_anchor,
+                                                  state_dict_from_variables)
+    from vietasr_tpu_torch.ops.beam_search import BeamSearchDecoderLM
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    tr = Transcriber(CONFIG, checkpoint=ANCHOR, options=TranscriberOptions(
+        decoder="beam", lm_path=lm_paths["probing"]))
+    labels, width = tr.cfg.labels, tr.opts.beam_width
+    check(tr._decoder is not None and tr._decoder._native is not None,
+          "the host beam decoder did not take the C++ tier")
+    tr.transcribe_batch(signals)                       # warm-up
+    batches = forward_batches(np, torch, tr, signals)
+    forwards = len(batches)
+
+    fused_log_mel_features.launches = 0
+    fused_repeat_block.launches = 0
+    fused_beam_search.launches = 0
+    texts = tr.transcribe_batch(signals)               # the host beam path
+    launches = {"log_mel_frontend": fused_log_mel_features.launches,
+                "repeat_block": fused_repeat_block.launches,
+                "beam_search": fused_beam_search.launches}
+    print(f"host beam path (W={width}, word 3-gram, PROBING binary): "
+          f"{len(signals)} signals, {forwards} forwards, launches {launches}")
+    check(launches == {"log_mel_frontend": forwards,
+                       "repeat_block": 13 * forwards, "beam_search": 0},
+          f"host beam path launches {launches} for {forwards} forwards")
+    check(all(isinstance(t, str) for t in texts) and any(texts),
+          "host beam path: no transcript")
+
+    # the same log-probs on the host through the C++ tier, the LM from the
+    # ARPA and from the TRIE binary
+    host = [(group, lp.float().cpu().numpy(), el.cpu().numpy())
+            for group, lp, el in batches]
+    for kind, name in ((3, "ARPA"), ("trie", "TRIE binary")):
+        dec = BeamSearchDecoderLM(labels, lm_path=lm_paths[kind],
+                                  beam_width=width)
+        other = [None] * len(signals)
+        for group, lp, el in host:
+            for row, text in zip(group, dec.decode_batch(lp, el)):
+                other[row] = text
+        same = sum(a == b for a, b in zip(texts, other))
+        print(f"host beam path vs the C++ tier from the {name}: transcripts "
+              f"equal {same}/{len(texts)}")
+        check(same == len(texts), f"host beam transcripts differ from the "
+              f"C++ tier's with the {name}")
+
+    # the 4 shortest signals at W = 16: the C++ tier vs the Python tier
+    short = sorted(range(len(signals)), key=lambda i: len(signals[i]))[:4]
+    tr16 = Transcriber(CONFIG, checkpoint=ANCHOR, options=TranscriberOptions(
+        decoder="beam", lm_path=lm_paths["probing"], beam_width=16))
+    native16 = tr16.transcribe_batch([signals[i] for i in short])
+    python = BeamSearchDecoderLM(labels, lm_path=lm_paths["probing"],
+                                 beam_width=16, use_native=False)
+    t0 = time.perf_counter()
+    py16 = [python.decode_batch(*tr16.log_probs(signals[i]))[0]
+            for i in short]
+    py_s = time.perf_counter() - t0
+    same = sum(a == b for a, b in zip(native16, py16))
+    print(f"host beam W=16, 4 shortest signals: C++ tier vs Python tier "
+          f"transcripts equal {same}/4 (Python tier {py_s:.2f} s)")
+    check(same == 4, "the C++ and Python tiers differ at W = 16")
+    del tr16
+
+    # the numbers: wall per call, the host decode inside it, the card
+    decode_s = []
+    decode_batch = tr._decoder.decode_batch
+
+    def timed_decode(lp, lens):
+        t = time.perf_counter()
+        out = decode_batch(lp, lens)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    tr._decoder.decode_batch = timed_decode
+    audio_s = sum(len(s) for s in signals) / 16000
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.transcribe_batch(signals)
+    dt = (time.perf_counter() - t0) / reps
+    dec_ms = sum(decode_s) / reps * 1e3
+    tr._decoder.decode_batch = decode_batch
+    print(f"host beam path end to end: {audio_s:.1f} audio-s in "
+          f"{dt * 1e3:.2f} ms = {audio_s / dt:.1f} audio-s/s; host decode "
+          f"(decode_batch, C++ tier) {dec_ms:.2f} ms per call over "
+          f"{len(decode_s) // reps} decode_batch calls; the rest (forwards, "
+          f"copies to the host) {dt * 1e3 - dec_ms:.2f} ms")
+    rows = device_profile(lambda: tr.transcribe_batch(signals), reps=3)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"profile of the host beam path (16 signals): device busy "
+          f"{busy_ms:.4f} ms of {dt * 1e3:.4f} ms wall ("
+          f"{100 * (1 - busy_ms / (dt * 1e3)):.1f} % idle)")
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
+
+    # the reference's NeMo .pt checkpoints, written from the anchor
+    sd = state_dict_from_variables(load_anchor(ANCHOR), tr.cfg.encoder)
+    enc_pt, dec_pt = (os.path.join(tmpdir, n) for n in (
+        "JasperEncoder-STEP-0.pt", "JasperDecoderForCTC-STEP-0.pt"))
+    for path, prefix in ((enc_pt, "encoder."), (dec_pt, "decoder_layers.")):
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in sd.items() if k.startswith(prefix)}, path)
+    from_pt = Transcriber(CONFIG, encoder_checkpoint=enc_pt,
+                          decoder_checkpoint=dec_pt)
+    worst = 0.0
+    for s in signals[::4]:
+        lp, el = from_pt.log_probs(s)
+        lp_ref, el_ref = tr.log_probs(s)
+        check(np.array_equal(el, el_ref) and lp.shape == lp_ref.shape
+              and np.isfinite(lp).all(),
+              "the .pt Transcriber: lengths, shape or finiteness")
+        worst = max(worst, float(np.abs(lp - lp_ref).max()))
+    print(f"Transcriber from the NeMo .pt files vs the anchor's: "
+          f"max|d log p| {worst:.4e} (tol {E2E_LOGP_TOL})")
+    check(worst <= E2E_LOGP_TOL, f"the .pt Transcriber's log-probs: {worst}")
+    del from_pt
+
+    # transcribe_file: a PCM16 WAV at 16 kHz and a mu-law WAV at 8 kHz
+    rng = np.random.RandomState(77)
+    pcm = os.path.join(tmpdir, "clip16k.wav")
+    wavfile.write(pcm, 16000, (rng.randn(5 * 16000) * 0.1 * 32767)
+                  .astype(np.int16))
+    ulaw = os.path.join(tmpdir, "clip8k_ulaw.wav")
+    codes = ulaw_encode((rng.randn(4 * 8000) * 0.1).astype(np.float32))
+    fmt = (np.array([7, 1], "<u2").tobytes()           # mu-law, mono
+           + np.array([8000, 8000], "<u4").tobytes()   # rate, bytes/s
+           + np.array([1, 8], "<u2").tobytes())        # align, bits
+    body = (b"WAVE" + b"fmt " + np.uint32(len(fmt)).tobytes() + fmt
+            + b"data" + np.uint32(len(codes)).tobytes() + codes.tobytes())
+    with open(ulaw, "wb") as f:
+        f.write(b"RIFF" + np.uint32(len(body)).tobytes() + body)
+    for path in (pcm, ulaw):
+        samples, sr = read_audio(path, target_sr=16000)
+        got, want = tr.transcribe_file(path), tr.transcribe(samples)
+        print(f"transcribe_file({os.path.basename(path)}): {len(samples)} "
+              f"samples at {sr} Hz, equal to transcribe: {got == want}")
+        check(got == want, f"transcribe_file({path}) != transcribe")
 
 
 def ctc_case(np, torch, dev, seed, ilen, tlen, t_max, num_classes=90,
@@ -1394,9 +1578,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from vietasr_tpu_torch import _build
 
+    from vietasr_tpu_torch import native
+
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    native.build_native(force=True)
+    print(f"build: the host beam tier's C++ library (g++) in "
+          f"{time.perf_counter() - t1:.1f} s")
     smi = nvidia_smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
@@ -1410,7 +1600,8 @@ def main() -> int:
             np, torch, signals, lm_paths, kernels)
         kernels[-1].update(beam_phase(np, torch, dev, labels, anchor_lp,
                                       anchor_lens, lm_paths))
-    print(f"phases 1-6 done at {time.perf_counter() - t0:.1f} s")
+        host_beam_phase(np, torch, signals, lm_paths, tmp)
+    print(f"phases 1-6b done at {time.perf_counter() - t0:.1f} s")
     kernels += ctc_phase(np, torch, dev)
     print(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     train_phase(np, torch, dev, kernels)

@@ -122,3 +122,33 @@ def test_training_entry_points_default_to_cuda(tmp_path):
         else:
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
+
+
+NATIVE_ONLY_OWN = r"""
+import numpy as np
+from vietasr_tpu_torch.ops.beam_search import BeamSearchDecoderLM
+dec = BeamSearchDecoderLM(["a", "b", " "], beam_width=4)
+lp = np.log(np.full((5, 4), 0.25, np.float32))
+dec.decode(lp)
+maps = open("/proc/self/maps").read()
+libs = sorted({l.split()[-1] for l in maps.splitlines() if ".so" in l})
+own = [l for l in libs if "vietasr_tpu_torch/_build/ctcbeam-" in l]
+assert len(own) == 1, libs
+assert not any("libctcbeam" in l for l in libs), libs
+import sys
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "vietasr_tpu"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.skipif(not os.path.exists("/proc/self/maps"),
+                    reason="needs /proc/self/maps (Linux)")
+def test_host_beam_loads_only_its_own_native_library():
+    """The host beam tier builds and loads the port's own library from
+    vietasr_tpu_torch/native/ctc_beam.cc, never the JAX package's
+    libctcbeam.so, and pulls in no JAX."""
+    out = subprocess.run([sys.executable, "-c", NATIVE_ONLY_OWN], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr

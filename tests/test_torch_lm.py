@@ -87,11 +87,20 @@ def test_char_lm_table_identical(tmp_path):
 
 
 def test_load_lm_reads_arpa_and_refuses_kenlm_binary(tmp_path):
+    """load_lm reads an ARPA as JAX's does; a KenLM binary, which it once
+    refused, now loads and scores as its ARPA (f32 storage) and as JAX's
+    load_lm of the same binary (exactly)."""
+    from vietasr_tpu_torch.ops.kenlm_binary import is_kenlm_binary
+
     a, _ = _arpa_pair(tmp_path, WORD_CORPUS, order=3)
     assert tlm.load_lm(str(a)).ngrams == jlm.load_lm(str(a)).ngrams
     binary = tmp_path / "lm.binary"
     write_kenlm_binary(str(a), str(binary))
-    assert tlm.is_kenlm_binary(str(binary)) and not tlm.is_kenlm_binary(
-        str(a))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.load_lm(str(binary))
+    assert is_kenlm_binary(str(binary)) and not is_kenlm_binary(str(a))
+    got, ref = tlm.load_lm(str(binary)), tlm.NGramLM(str(a))
+    assert got.ngrams == jlm.load_lm(str(binary)).ngrams
+    assert set(got.ngrams) == set(ref.ngrams) and got.order == ref.order
+    for w, ctx in (("ab", ("ba",)), ("cab", ("ab", "ba")), ("zz", ("c",)),
+                   ("c", ()), ("</s>", ("ab", "ba"))):
+        assert got.log_prob(w, ctx) == pytest.approx(ref.log_prob(w, ctx),
+                                                     rel=1e-6, abs=1e-6)

@@ -259,25 +259,32 @@ def test_device_beam_caps_rows_per_decode(anchor, lm_files, monkeypatch):
 
 
 def test_options_not_ported_raise(anchor, tmp_path):
+    """What the port still refuses (`fused_frontend="fast"`, ROADMAP A.3;
+    an unknown block_impl) raises; what it now takes (the host beam
+    decoder, an LM path with the greedy decoder, a KenLM binary for the
+    device beam, no weights at all) constructs."""
     from vietasr_tpu.ops.kenlm_binary import write_kenlm_binary
     from vietasr_tpu_torch.ops.lm import train_ngram_arpa
 
     arpa, binary = str(tmp_path / "lm.arpa"), str(tmp_path / "lm.binary")
     train_ngram_arpa(VI_CORPUS, arpa, order=3)
     write_kenlm_binary(arpa, binary)
-    for opts, err in ((TranscriberOptions(decoder="beam"),
-                       NotImplementedError),
-                      (TranscriberOptions(decoder="device_beam",
-                                          lm_path=binary),
-                       NotImplementedError),
-                      (TranscriberOptions(lm_path="lm.arpa"),
-                       NotImplementedError),
-                      (TranscriberOptions(fused_frontend="fast"), ValueError),
-                      (TranscriberOptions(block_impl="pallas"), ValueError)):
+    for opts, err in ((TranscriberOptions(fused_frontend="fast"), ValueError),
+                      (TranscriberOptions(block_impl="pallas"), ValueError),
+                      (TranscriberOptions(decoder="nope"), ValueError)):
         with pytest.raises(err):
             Transcriber(CONFIG, variables=anchor, device="cpu", options=opts)
-    with pytest.raises(ValueError):
-        Transcriber(CONFIG, device="cpu")
+    for opts in (TranscriberOptions(decoder="beam"),
+                 TranscriberOptions(decoder="beam", lm_path=binary),
+                 TranscriberOptions(lm_path=arpa),
+                 TranscriberOptions(decoder="device_beam", lm_path=binary)):
+        port = Transcriber(CONFIG, variables=anchor, device="cpu",
+                           options=opts)
+        assert (port._decoder is not None) == (opts.decoder != "device_beam")
+        assert (port._device_word_lm is not None) == \
+            (opts.decoder == "device_beam")
+    assert Transcriber(CONFIG, device="cpu").variables["params"]["decoder"][
+        "w"].shape == (1024, 91)
 
 
 def test_default_device_is_cuda(anchor):

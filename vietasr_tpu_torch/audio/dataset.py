@@ -1,6 +1,6 @@
 """The static-shape batch (the port's copy of `Batch` from
 vietasr_tpu/audio/dataset.py). The dataset and the bucketing batcher wait
-for a later slice (ROADMAP A.11)."""
+for a later slice (ROADMAP A.8)."""
 
 from __future__ import annotations
 

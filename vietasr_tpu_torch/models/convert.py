@@ -9,17 +9,46 @@ so `quartznet_apply` computes what JAX's does on the same tree.
 `train_state_from_jax` builds the port's TrainState from JAX's unfolded
 tree (and a Novograd state), so a train step from the same state computes
 the same thing in both; `to_numpy` is the way back.
+
+The reference's NeMo `.pt` state_dicts (`JasperEncoder-STEP-{n}.pt` /
+`JasperDecoderForCTC-STEP-{n}.pt`, its nemo/backends/pytorch/nm.py:92-103)
+convert to the same JAX-layout numpy tree (`variables_from_checkpoints`,
+the counterpart of vietasr_tpu/models/convert.py), and back
+(`state_dict_from_variables`). Key layout (the reference's
+parts/jasper.py:172-448):
+
+  encoder.{b}.mconv.{i}.conv.weight      MaskedConv1d wraps nn.Conv1d
+  encoder.{b}.mconv.{i}.{weight,bias,running_mean,running_var,...}   BN
+  encoder.{b}.res.{p}.{0}.conv.weight    residual 1x1 conv
+  encoder.{b}.res.{p}.{1}.*              residual BN
+  decoder_layers.0.{weight,bias}         CTC head 1x1 conv
+
+mconv indices: each repeat contributes [conv, (pointwise conv), BN] then
+[activation, dropout] between repeats — activation/dropout own no params but
+DO consume indices, so the stride is 5 per repeat for separable blocks and
+4 for dense blocks.
+
+Weight layout conversion (torch OIW -> ours):
+  depthwise (C, 1, K)        -> (K, C)
+  pointwise (Cout, Cin, 1)   -> (Cin, Cout)
+  dense     (Cout, Cin/g, K) -> (K, Cin/g, Cout)
+  head      (V, C, 1)        -> (C, V)
+
+K is the block's `effective_kernel` (kernel_size_factor applied), the
+rows `init_quartznet` draws and the model convolves with; a checkpoint
+with another K raises.
 """
 
 from __future__ import annotations
 
 import gzip
 import struct
-from typing import Any
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from vietasr_tpu_torch.config import EncoderConfig
 from vietasr_tpu_torch.models.quartznet import map_tree
 from vietasr_tpu_torch.utils.device import resolve_device
 
@@ -174,3 +203,149 @@ def train_state_from_jax(variables: dict, novograd_state=None, step: int = 0,
         group["step"] = torch.tensor(int(np.asarray(field("step"))),
                                      dtype=torch.int32, device=dev)
     return state
+
+
+# -- NeMo .pt checkpoints -----------------------------------------------------
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A `.pt` state_dict as numpy arrays (tensors only, loaded on the CPU,
+    weights only: no code in the file runs)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach().numpy() for k, v in sd.items()
+            if torch.is_tensor(v)}
+
+
+def _bn_from(sd: Mapping[str, np.ndarray], prefix: str):
+    params = {"scale": np.asarray(sd[f"{prefix}.weight"]),
+              "bias": np.asarray(sd[f"{prefix}.bias"])}
+    stats = {"mean": np.asarray(sd[f"{prefix}.running_mean"]),
+             "var": np.asarray(sd[f"{prefix}.running_var"])}
+    return params, stats
+
+
+def _check_kernel(w: np.ndarray, k: int, key: str) -> None:
+    if w.shape[-1] != k:
+        raise ValueError(f"{key}: kernel {w.shape[-1]}, but the config's "
+                         f"block has effective_kernel {k}")
+
+
+def encoder_from_state_dict(sd: Mapping[str, np.ndarray],
+                            cfg: EncoderConfig) -> dict:
+    """{"params": [per block], "batch_stats": [per block]} (numpy leaves,
+    JAX layout) from a reference JasperEncoder state_dict."""
+    enc_params = []
+    enc_stats = []
+    feat_in = cfg.feat_in
+    residual_panes = []
+    for b, bcfg in enumerate(cfg.blocks):
+        if bcfg.se:
+            raise NotImplementedError(
+                "squeeze-excite checkpoints are not supported by the "
+                "converter yet")
+        bp: dict = {"sub": [], "res": [], "se": []}
+        bs: dict = {"sub": [], "res": []}
+        stride = 5 if bcfg.separable else 4
+        for r in range(bcfg.repeat):
+            base = r * stride
+            sub: dict = {}
+            key = f"encoder.{b}.mconv.{base}.conv.weight"
+            if bcfg.separable:
+                dw = sd[key]                                        # (C,1,K)
+                _check_kernel(dw, bcfg.effective_kernel, key)
+                sub["dw_w"] = np.ascontiguousarray(dw[:, 0, :].T)   # (K,C)
+                pw = sd[f"encoder.{b}.mconv.{base+1}.conv.weight"]  # (Co,Ci,1)
+                if bcfg.groups > 1:
+                    sub["pw_w"] = np.ascontiguousarray(pw.transpose(2, 1, 0))
+                else:
+                    sub["pw_w"] = np.ascontiguousarray(pw[:, :, 0].T)
+                bn_idx = base + 2
+            else:
+                w = sd[key]                                         # (Co,Ci,K)
+                _check_kernel(w, bcfg.effective_kernel, key)
+                sub["conv_w"] = np.ascontiguousarray(w.transpose(2, 1, 0))
+                bn_idx = base + 1
+            sub["bn"], bn_stats = _bn_from(sd, f"encoder.{b}.mconv.{bn_idx}")
+            bp["sub"].append(sub)
+            bs["sub"].append({"bn": bn_stats})
+        if bcfg.residual_dense:
+            residual_panes.append(feat_in)
+            n_panes = len(residual_panes)
+        elif bcfg.residual:
+            n_panes = 1
+        else:
+            n_panes = 0
+        for p in range(n_panes):
+            rw = sd[f"encoder.{b}.res.{p}.0.conv.weight"]           # (Co,Ci,1)
+            pane = {"conv_w": np.ascontiguousarray(rw[:, :, 0].T)}
+            pane["bn"], pane_stats = _bn_from(sd, f"encoder.{b}.res.{p}.1")
+            bp["res"].append(pane)
+            bs["res"].append({"bn": pane_stats})
+        enc_params.append(bp)
+        enc_stats.append(bs)
+        feat_in = bcfg.filters
+    return {"params": enc_params, "batch_stats": enc_stats}
+
+
+def decoder_from_state_dict(sd: Mapping[str, np.ndarray]) -> dict:
+    w = sd["decoder_layers.0.weight"]                               # (V, C, 1)
+    return {"w": np.ascontiguousarray(w[:, :, 0].T),
+            "b": np.asarray(sd["decoder_layers.0.bias"])}
+
+
+def variables_from_checkpoints(encoder_path: str, decoder_path: str,
+                               cfg: EncoderConfig) -> dict:
+    """The unfolded variables tree (numpy, JAX layout) from the reference's
+    two checkpoint files (the layout its infer.py:142-143 restores)."""
+    enc = encoder_from_state_dict(load_torch_state_dict(encoder_path), cfg)
+    return {
+        "params": {"encoder": enc["params"],
+                   "decoder": decoder_from_state_dict(
+                       load_torch_state_dict(decoder_path))},
+        "batch_stats": {"encoder": enc["batch_stats"]},
+    }
+
+
+def state_dict_from_variables(variables: dict, cfg: EncoderConfig
+                              ) -> Dict[str, np.ndarray]:
+    """The inverse (an unfolded tree -> the reference's key layout), for
+    exporting checkpoints the reference stack loads. Leaves may be numpy
+    arrays or tensors."""
+    variables = to_numpy(variables)
+    out: Dict[str, np.ndarray] = {}
+    enc = variables["params"]["encoder"]
+    stats = variables["batch_stats"]["encoder"]
+    for b, bcfg in enumerate(cfg.blocks):
+        stride = 5 if bcfg.separable else 4
+        for r in range(bcfg.repeat):
+            base = r * stride
+            sub = enc[b]["sub"][r]
+            sub_stats = stats[b]["sub"][r]
+            if bcfg.separable:
+                out[f"encoder.{b}.mconv.{base}.conv.weight"] = \
+                    sub["dw_w"].T[:, None, :]
+                pw = sub["pw_w"]
+                out[f"encoder.{b}.mconv.{base+1}.conv.weight"] = \
+                    pw.transpose(2, 1, 0) if pw.ndim == 3 else pw.T[:, :, None]
+                bn_idx = base + 2
+            else:
+                out[f"encoder.{b}.mconv.{base}.conv.weight"] = \
+                    sub["conv_w"].transpose(2, 1, 0)
+                bn_idx = base + 1
+            pre = f"encoder.{b}.mconv.{bn_idx}"
+            out[f"{pre}.weight"] = sub["bn"]["scale"]
+            out[f"{pre}.bias"] = sub["bn"]["bias"]
+            out[f"{pre}.running_mean"] = sub_stats["bn"]["mean"]
+            out[f"{pre}.running_var"] = sub_stats["bn"]["var"]
+        for p, pane in enumerate(enc[b]["res"]):
+            out[f"encoder.{b}.res.{p}.0.conv.weight"] = \
+                pane["conv_w"].T[:, :, None]
+            pre = f"encoder.{b}.res.{p}.1"
+            out[f"{pre}.weight"] = pane["bn"]["scale"]
+            out[f"{pre}.bias"] = pane["bn"]["bias"]
+            out[f"{pre}.running_mean"] = stats[b]["res"][p]["bn"]["mean"]
+            out[f"{pre}.running_var"] = stats[b]["res"][p]["bn"]["var"]
+    dec = variables["params"]["decoder"]
+    out["decoder_layers.0.weight"] = dec["w"].T[:, :, None]
+    out["decoder_layers.0.bias"] = dec["b"]
+    return out

@@ -12,9 +12,9 @@ numpy only. Scores are natural-log (converted from ARPA log10).
   wraparound arithmetic, done here with Python ints masked to 32 bits, and
   matches the device side bit for bit.
 
-KenLM `.binary` files are recognised by their magic and refused: reading
-them (the JAX package's ops/kenlm_binary.py and ops/kenlm_trie.py) is not
-ported yet.
+`load_lm` also reads KenLM `.binary` files (PROBING, TRIE and QUANT_TRIE:
+ops/kenlm_binary.py, ops/kenlm_trie.py), rebuilt into an `NGramLM`, so the
+device tables and the host beam tier take them as they take an ARPA.
 """
 
 from __future__ import annotations
@@ -31,9 +31,6 @@ BOS = "<s>"
 EOS = "</s>"
 SPACE_TOKEN = "<sp>"   # char-level LMs can't store a literal " " in ARPA
 
-# the first bytes of every KenLM binary (lm/binary_format.cc kMagicBytes)
-KENLM_MAGIC = b"mmap lm http://kheafield.com/code format version 5\n\x00"
-
 
 def _open(path: str):
     if path.endswith(".gz"):
@@ -41,24 +38,18 @@ def _open(path: str):
     return open(path, "r", encoding="utf-8")
 
 
-def is_kenlm_binary(path: str) -> bool:
-    try:
-        with open(path, "rb") as f:
-            head = f.read(len(KENLM_MAGIC))
-    except OSError:
-        return False
-    return head == KENLM_MAGIC
-
-
 def load_lm(path: str) -> "NGramLM":
-    """Load an n-gram LM from an ARPA text file (optionally gzipped).
-    A KenLM `.binary` (sniffed by magic, like kenlm's own loader) raises
-    NotImplementedError: the binary readers are ROADMAP A.6's "KenLM
-    .binary loading" item; convert the model to ARPA meanwhile."""
+    """Load an n-gram LM from an ARPA text file (optionally gzipped) or a
+    KenLM `.binary` (sniffed by magic, like kenlm's own loader; PROBING,
+    TRIE or QUANT_TRIE by its header), a binary rebuilt into the explicit
+    word-keyed form so that every consumer works unchanged. The scorers
+    `KenLMBinary` / `KenLMTrie` score a binary too large to rebuild."""
+    # imported here: ops/kenlm_binary.py imports this module
+    from vietasr_tpu_torch.ops.kenlm_binary import (is_kenlm_binary,
+                                                    read_kenlm_binary)
+
     if is_kenlm_binary(path):
-        raise NotImplementedError(
-            f"{path}: KenLM .binary models are not read by vietasr_tpu_torch "
-            "yet (ROADMAP A.6, KenLM .binary loading); pass the ARPA file")
+        return read_kenlm_binary(path).to_ngram_lm()
     return NGramLM(path)
 
 

@@ -1,14 +1,19 @@
-"""End-to-end inference facade (counterpart of vietasr_tpu/pipeline.py:
-the greedy and the device beam tiers).
+"""End-to-end inference facade (counterpart of vietasr_tpu/pipeline.py).
 
 waveform -> log-mel (the fused frontend kernel on the GPU) -> folded-BN
 QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16) -> CTC
-head log-softmax -> greedy collapse, or (`decoder="device_beam"`) the
-batched beam search on the device with optional char- or word-LM fusion
-(the fused beam kernel on the GPU, ops/fused_beam.py). Audio is
-zero-padded up to the next duration bucket and utterances of one bucket
-are batched together, as in the JAX package; the frontend reflects at the
-bucket end, as JAX does.
+head log-softmax -> one of three decoders:
+- greedy collapse on the device (the default);
+- `decoder="beam"` (or an `lm_path` with the greedy decoder): the host
+  prefix beam search with word-LM fusion (ops/beam_search.py, C++ tier in
+  native/), over an ARPA file or a KenLM `.binary`, as the reference's
+  infer.py decodes; the log-probs come to the host;
+- `decoder="device_beam"`: the batched beam search on the device with
+  optional char- or word-LM fusion (the fused beam kernel on the GPU,
+  ops/fused_beam.py).
+Audio is zero-padded up to the next duration bucket and utterances of one
+bucket are batched together, as in the JAX package; the frontend reflects
+at the bucket end, as JAX does.
 """
 
 from __future__ import annotations
@@ -20,15 +25,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vietasr_tpu_torch.audio.io import read_audio
 from vietasr_tpu_torch.config import ModelConfig, load_config
 from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
                                                       make_fused_featurizer)
 from vietasr_tpu_torch.frontend.features import make_featurizer
-from vietasr_tpu_torch.models.convert import load_anchor, params_from_jax
+from vietasr_tpu_torch.models.convert import (decoder_from_state_dict,
+                                              encoder_from_state_dict,
+                                              load_anchor,
+                                              load_torch_state_dict,
+                                              params_from_jax, to_numpy,
+                                              variables_from_checkpoints)
 from vietasr_tpu_torch.models.quartznet import (BLOCK_IMPLS,
                                                 cast_matmul_weights,
                                                 fold_batchnorm,
+                                                init_quartznet,
                                                 quartznet_apply)
+from vietasr_tpu_torch.ops.beam_search import BeamSearchDecoderLM
 from vietasr_tpu_torch.ops.device_beam import (device_beam_transcripts,
                                                word_lm_to_device)
 from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
@@ -45,9 +58,9 @@ _BEAM_BATCHES_PER_DECODE = 4
 
 @dataclasses.dataclass
 class TranscriberOptions:
-    """The JAX package's option names. `decoder="beam"` (the host decoder)
-    and `lm_path` with the greedy decoder are not ported yet (ROADMAP A.6)
-    and raise NotImplementedError."""
+    """The JAX package's option names and defaults. `fused_frontend="fast"`
+    (a bf16 DFT kernel of its own) is not ported yet (ROADMAP A.3) and
+    raises."""
 
     beam_width: int = 100
     lm_path: Optional[str] = None
@@ -56,8 +69,10 @@ class TranscriberOptions:
     fold_bn: bool = True
     buckets_seconds: Sequence[float] = (2.0, 4.0, 6.0, 8.0, 11.0, 16.7)
     max_batch: int = 8
-    # "greedy" | "device_beam" (batched beam on the device; char-LM table
-    # or hashed word-LM fusion, no host round trip of the log-probs)
+    # "greedy" | "beam" (host C++ prefix beam + word LM; an lm_path with
+    # "greedy" means this too) | "device_beam" (batched beam on the
+    # device; char-LM table or hashed word-LM fusion, no host round trip
+    # of the log-probs)
     decoder: str = "greedy"
     device_beam_cutoff_top_n: int = 8
     # "auto": sniff the ARPA (multi-char unigrams => word LM);
@@ -77,11 +92,19 @@ class TranscriberOptions:
 class Transcriber:
     """Config + weights -> `.transcribe(np.ndarray) -> str`.
 
-    `variables` is a JAX-layout variables tree (numpy leaves, unfolded or
-    folded); `checkpoint` a `*.msgpack.gz` file of one (models/convert.py).
-    `device=None` means CUDA, and raises when there is no GPU."""
+    The weights, first given wins: `variables`, a JAX-layout variables
+    tree (numpy leaves, unfolded or folded); `checkpoint`, a
+    `*.msgpack.gz` file of one (models/convert.py); `encoder_checkpoint`
+    and `decoder_checkpoint`, the reference's two NeMo `.pt` files. With
+    neither or one of those, the model is initialised randomly
+    (`init_quartznet` under a torch.Generator seeded 0) and the one given
+    overlays its part, as JAX does. `device=None` means CUDA, and raises
+    when there is no GPU."""
 
-    def __init__(self, config_file: str, *, variables: Optional[dict] = None,
+    def __init__(self, config_file: str, *,
+                 encoder_checkpoint: Optional[str] = None,
+                 decoder_checkpoint: Optional[str] = None,
+                 variables: Optional[dict] = None,
                  checkpoint: Optional[str] = None,
                  options: Optional[TranscriberOptions] = None, device=None):
         self.device = resolve_device(device)
@@ -92,21 +115,15 @@ class Transcriber:
         self.opts = opts = options or TranscriberOptions()
         if self.cfg.architecture != "quartznet":
             raise NotImplementedError(
-                "only QuartzNet configs are ported (Conformer: ROADMAP A.10)")
-        if opts.decoder == "beam" or (opts.lm_path
-                                      and opts.decoder != "device_beam"):
-            raise NotImplementedError(
-                f"decoder={opts.decoder!r} with lm_path={opts.lm_path!r}: "
-                "the host beam decoder is ROADMAP A.6, not ported yet; use "
-                "decoder='device_beam'")
-        if opts.decoder not in ("greedy", "device_beam"):
+                "only QuartzNet configs are ported (Conformer: ROADMAP A.6)")
+        if opts.decoder not in ("greedy", "beam", "device_beam"):
             raise ValueError(f"unknown decoder {opts.decoder!r}")
         if opts.device_beam_lm not in ("auto", "char", "word"):
             raise ValueError("device_beam_lm must be 'auto', 'char' or "
                              f"'word', got {opts.device_beam_lm!r}")
         if opts.fused_frontend not in ("auto", "on", "off"):
             raise ValueError("fused_frontend must be 'auto', 'on' or 'off' "
-                             f"('fast' is not ported), got "
+                             f"('fast' is ROADMAP A.3, not ported yet), got "
                              f"{opts.fused_frontend!r}")
         if opts.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
@@ -114,11 +131,11 @@ class Transcriber:
             raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}")
         self.compute_dtype = _DTYPES[opts.compute_dtype]
 
-        if variables is None:
-            if checkpoint is None:
-                raise ValueError("Transcriber needs `variables` or "
-                                 "`checkpoint`")
+        if variables is None and checkpoint is not None:
             variables = load_anchor(checkpoint)
+        if variables is None:
+            variables = self._variables_from_pt(encoder_checkpoint,
+                                                decoder_checkpoint)
         variables = params_from_jax(variables, device=self.device)
         first_sub = variables["params"]["encoder"][0]["sub"][0]
         if opts.fold_bn and "bn" in first_sub:
@@ -139,8 +156,36 @@ class Transcriber:
         self._device_word_lm = None
         self._device_wlm_probes = 8
         self._device_n_ctx = 2
-        if opts.decoder == "device_beam" and opts.lm_path:
-            self._load_device_lm(opts.lm_path, opts.device_beam_lm)
+        self._decoder = None
+        if opts.decoder == "device_beam":
+            if opts.lm_path:
+                self._load_device_lm(opts.lm_path, opts.device_beam_lm)
+        elif opts.lm_path is not None or opts.decoder == "beam":
+            self._decoder = BeamSearchDecoderLM(
+                self.cfg.labels, lm_path=opts.lm_path, alpha=opts.lm_alpha,
+                beta=opts.lm_beta, beam_width=opts.beam_width)
+
+    def _variables_from_pt(self, encoder_checkpoint: Optional[str],
+                           decoder_checkpoint: Optional[str]) -> dict:
+        """The unfolded numpy tree from the reference's `.pt` files: both
+        given, converted; else a random init, seed 0, overlaid with the
+        one given."""
+        ecfg = self.cfg.encoder
+        if encoder_checkpoint and decoder_checkpoint:
+            return variables_from_checkpoints(encoder_checkpoint,
+                                              decoder_checkpoint, ecfg)
+        variables = to_numpy(init_quartznet(
+            torch.Generator().manual_seed(0), ecfg, self.cfg.num_classes,
+            device="cpu"))
+        if encoder_checkpoint:
+            enc = encoder_from_state_dict(
+                load_torch_state_dict(encoder_checkpoint), ecfg)
+            variables["params"]["encoder"] = enc["params"]
+            variables["batch_stats"]["encoder"] = enc["batch_stats"]
+        if decoder_checkpoint:
+            variables["params"]["decoder"] = decoder_from_state_dict(
+                load_torch_state_dict(decoder_checkpoint))
+        return variables
 
     def _load_device_lm(self, path: str, kind: str) -> None:
         """The LM's device tables, moved to the device once."""
@@ -238,11 +283,14 @@ class Transcriber:
 
     # -- public API ----------------------------------------------------------
 
-    def log_probs(self, signal: np.ndarray, lengths=None):
-        """(B?, S) or (S,) waveform -> (log_probs, enc_lens) as numpy.
+    def log_probs(self, signal: np.ndarray, lengths=None, *,
+                  as_numpy: bool = True):
+        """(B?, S) or (S,) waveform -> (log_probs, enc_lens), numpy arrays.
 
         `lengths` gives per-row valid sample counts (default: every row is
-        full length); rows may be zero-padded beyond their length."""
+        full length); rows may be zero-padded beyond their length.
+        `as_numpy=False` keeps the log-probs on the device (enc_lens still
+        comes to the host), for callers that decode on the device."""
         signal = np.asarray(signal, np.float32)
         if signal.ndim == 1:
             signal = signal[None]
@@ -253,7 +301,9 @@ class Transcriber:
         if lengths is None:
             lengths = np.full((signal.shape[0],), n, np.int32)
         lp, el, _, _ = self._fwd(padded, np.asarray(lengths, np.int32))
-        return lp.cpu().numpy(), el.cpu().numpy()
+        if as_numpy:
+            return lp.cpu().numpy(), el.cpu().numpy()
+        return lp, el.cpu().numpy()
 
     def transcribe(self, signal: np.ndarray) -> str:
         """Single-utterance transcription."""
@@ -275,13 +325,15 @@ class Transcriber:
     def transcribe_batch(self, signals: List[np.ndarray]) -> List[str]:
         """Sort by length, then batch up to max_batch utterances of one
         bucket per forward. The greedy decoder decodes each forward's rows
-        as it comes. `decoder="device_beam"` keeps the forwards' log-probs
-        on the device and decodes up to 4 x max_batch rows of the
-        configured buckets in one beam search (one kernel launch on the GPU;
-        rows are independent, each stopping at its own length), padded to
-        the longest T among them; audio past the last bucket decodes one
-        forward at a time. So a search holds at most 4 x max_batch rows of
-        the last bucket's frames, however many signals a call has."""
+        as it comes; so does the host beam decoder, after one copy of the
+        forward's fp32 log-probs to the host. `decoder="device_beam"` keeps
+        the forwards' log-probs on the device and decodes up to 4 x
+        max_batch rows of the configured buckets in one beam search (one
+        kernel launch on the GPU; rows are independent, each stopping at
+        its own length), padded to the longest T among them; audio past
+        the last bucket decodes one forward at a time. So a search holds
+        at most 4 x max_batch rows of the last bucket's frames, however
+        many signals a call has."""
         for s in signals:
             assert_waveform(np.asarray(s), port="transcribe.signal")
         out: List[Optional[str]] = [None] * len(signals)
@@ -311,10 +363,27 @@ class Transcriber:
                 if bl not in self.buckets:
                     self._decode_beam(beam, out)
                 continue
-            texts = [ids_to_text(ids, self.cfg.labels)
-                     for ids in collapse_batch(preds, keep)]
+            if self._decoder is not None:
+                texts = self._decoder.decode_batch(
+                    lp.float().cpu().numpy(), enc_lens.cpu().numpy())
+            else:
+                texts = [ids_to_text(ids, self.cfg.labels)
+                         for ids in collapse_batch(preds, keep)]
             for row, gi in enumerate(group):
                 out[gi] = texts[row]
         if beam:
             self._decode_beam(beam, out)
         return out  # type: ignore
+
+    def transcribe_file(self, path: str) -> str:
+        """Read a WAV (PCM, float, G.711) or mp3 file, resample it to the
+        model's rate and transcribe it. Audio past the last bucket needs
+        the long-form path, which is not ported yet (ROADMAP A.4)."""
+        samples, _ = read_audio(
+            path, target_sr=self.cfg.featurizer.sample_rate)
+        if len(samples) > self.buckets[-1]:
+            raise NotImplementedError(
+                f"{path}: {len(samples)} samples, longer than the last "
+                f"bucket ({self.buckets[-1]}); transcribe_long is ROADMAP "
+                "A.4, not ported yet")
+        return self.transcribe(samples)

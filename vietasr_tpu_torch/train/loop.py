@@ -337,7 +337,7 @@ class Trainer:
 
     def evaluate(self, state: TrainState, batcher: Iterable) -> dict:
         """Greedy-decode eval with corpus WER/CER (one process; the JAX
-        package's multi-host sum waits for parallel/, ROADMAP A.12)."""
+        package's multi-host sum waits for parallel/, ROADMAP A.9)."""
         hyps, refs, losses = [], [], []
         for batch in batcher:
             h, r, loss = self._decode(state, batch)

@@ -198,7 +198,7 @@ def make_optimizer(name: str, learning_rate, *, weight_decay: float = 0.0,
     name = name.lower()
     if name == "lamb" or larc:
         raise NotImplementedError(
-            "LAMB and LARC are not ported yet (ROADMAP A.11)")
+            "LAMB and LARC are not ported yet (ROADMAP A.8)")
     kw = dict(grad_clip_norm=grad_clip_norm)
     if name == "novograd":
         return functools.partial(Novograd, lr=learning_rate,
