@@ -15,6 +15,15 @@ Phases, each of which raises on failure:
      the kernel's ms per shape, its bound (bytes vs a real FFT's
      operations), the DFT-count bound, the plain version's ms and the
      torch.stft + |X|^2 + mel + log composition's ms
+  3b. the bf16 frontend kernel (fused_frontend="fast", tensor-core
+     frames @ DFT and power @ mel) vs its plain PyTorch version at phase
+     3's 14 shapes: the log-mel in the mel-power domain within 2^-7 of each
+     frame's largest mel power, equal seq_len, partials within 1e-5 of the
+     largest of those summed from its own log-mel; p50/p99/max |d log-mel|
+     from the fp64 chain for the bf16 kernel, its plain version and the
+     fp32 kernel; ms at every shape, the bound (bf16 operations vs bytes),
+     and at B = 8 and 32 x 16.7 s the plain version's ms and a bf16
+     torch.matmul composition's ms
   4. repeat-block kernel vs its plain version at every QuartzNet12x1 block
      shape (T = 840, B = 8), at the 512-wide block shapes of phase 5's
      small forwards (B = 2 x T = 304, B = 4 x T = 408, B = 2 x T = 552)
@@ -31,6 +40,15 @@ Phases, each of which raises on failure:
      forward's rows in one decode), transcripts held against the plain
      device_beam_search on the same log-probs, and equal when the LM comes
      from its KenLM PROBING binary
+  5c. the main path's last two options over phase 5's 16 signals:
+     Transcriber(fused_frontend="fast"), 1 bf16-frontend launch per
+     forward and none of the fp64 FFT kernel, frame argmax and
+     transcripts against the default route, audio-s/s and idle share;
+     then calibrate_int8 on the same signals: 28 int8 sites, no
+     repeat-block launch (every block per-op), argmax against the bf16
+     float route, audio-s/s and idle share, and at every site's shape of
+     the B = 8 x 16.7 s forward the int8 GEMM (torch._int_mm) equal bit
+     for bit to the exact GEMM (fp32 products of the int8 values)
   6. beam kernel vs its plain version (device_beam_search) on seeded
      synthetic log-probs (B = 8, T = 840, ragged) and on the anchor's
      posteriors of phase 5's signals, word 3-gram and 5-gram at W in
@@ -110,6 +128,15 @@ FRONTEND_PARTS_RTOL = 1e-5
 # magnitude is 2^-8 * 2^ceil(log2 max); allow 2^-7 * max|want|, a quarter of
 # the JAX test's 0.03 * max|want|
 REPEAT_TOL_REL = 2.0 ** -7
+# bf16 frontend kernel vs its plain version, in the mel-power domain
+# relative to each frame's largest mel power: the two differ only in the
+# order of fp32 sums, which can flip the bf16 rounding of a power term; one
+# flip moves a mel by at most one bf16 step of that term, 2^-7 of the mel
+FAST_MEL_TOL = 2.0 ** -7
+# end to end, fused_frontend="fast" vs the default route and int8 vs the
+# bf16 float route: frame argmax agreement (the CPU tests' bar vs JAX)
+FAST_ARGMAX_MIN = 0.95
+INT8_ARGMAX_MIN = 0.95
 # end to end, kernel path vs plain path (bf16): 13 blocks each of whose bf16
 # outputs may round one step differently under another fp32 summation order
 E2E_LOGP_TOL = 0.25
@@ -381,6 +408,165 @@ def frontend_phase(np, torch, dev):
             "max_abs_err": worst["feats"], **row, "library_ms": None,
             "ms_by_shape": by_shape, "fp64_err": worst["fp64"],
             "plain_fp64_err": worst["plain_fp64"],
+            "parts_rel_err": worst["parts"]}
+
+
+def frontend_fast_bound(cfg, tables, mel, bsz, sp, t_out, n_tiles):
+    """(bound_ms, bound_by) of one bf16 kernel call: the larger of the
+    function's bytes (xp, seq_len, the log-mel and the partials, the bf16
+    DFT rows and mel matrix, each once) at PEAK_BYTES and its bf16
+    operations at PEAK_BF16, counted as frontend_bounds' dft_bound_ms
+    counts them: frames @ DFT over the window's nonzero rows (2 * rows * 2
+    * n_bins a frame), the power (3 a bin), the mel's nonzero taps (2
+    each) and the log, guard and partials (4 a mel)."""
+    from vietasr_tpu_torch.frontend.features import _window_full
+
+    n_fft, n_mels = cfg.fft_length, cfg.features
+    nb = n_fft // 2 + 1
+    frames = bsz * t_out
+    rows = int((_window_full(cfg).astype("float32") != 0).sum())
+    ops = frames * (2 * rows * 2 * nb + 3 * nb + 2 * int((mel != 0).sum())
+                    + 4 * n_mels)
+    io = 4 * (bsz * sp + bsz + frames * n_mels + bsz * n_tiles * 2 * n_mels)
+    const = 2 * (tables.dft.numel() + tables.mel.numel())
+    t_ops, t_bytes = ops / PEAK_BF16, (io + const) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def frontend_fast_composition(torch, xp, cfg, dft16, mel16):
+    """The bf16 function as library calls, a yardstick the port never
+    calls: bf16 torch.matmul of the frames and the DFT matrix (bf16 out),
+    |X|^2, bf16 mel matmul, log with the guard."""
+    nb = cfg.fft_length // 2 + 1
+    frames = xp.to(torch.bfloat16).unfold(1, cfg.fft_length, cfg.hop_length)
+    spec = torch.matmul(frames, dft16)
+    power = spec[..., :nb] ** 2 + spec[..., nb:] ** 2
+    return torch.log(torch.matmul(power, mel16).float()
+                     + cfg.log_zero_guard_value)
+
+
+def mel_power(torch, logmel, cfg):
+    """The mel power a log-mel came from, in fp64 (the inverse of the add
+    guard; the clamp guard's floor stays at the guard)."""
+    m = torch.exp(logmel.double())
+    return m - cfg.log_zero_guard_value \
+        if cfg.log_zero_guard_type == "add" else m
+
+
+def frontend_fast_phase(np, torch, dev):
+    """Phase 3b: the bf16 frontend kernel vs its plain version at phase 3's
+    shapes and signals."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import (
+        FRAMES_PER_TILE, fast_tables, fft_tables, fused_log_mel_features,
+        fused_log_mel_features_plain, log_mel_tiles_cuda,
+        log_mel_tiles_fast_cuda, log_mel_tiles_fast_plain, tile_partials)
+    from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
+                                                     _mel_matrix,
+                                                     _windowed_dft_matrix,
+                                                     feature_seq_len,
+                                                     preemphasize_and_pad)
+
+    worst = {"mel": 0.0, "logmel": 0.0, "parts": 0.0}
+    by_shape, row = {}, {}
+    for n_mels in (64, 80):
+        cfg = FeaturizerConfig(dither=0.0, features=n_mels)
+        dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
+        mel = torch.as_tensor(_mel_matrix(cfg), device=dev)
+        tables = fast_tables(cfg, dev)    # once per config, as in use
+        fp64_tables = fft_tables(cfg, dev)
+        for bsz, seconds in ((1, 2.0), (8, 2.0), (1, 8.0), (8, 8.0),
+                             (1, 16.7), (8, 16.7), (32, 16.7)):
+            what = f"bf16 frontend {n_mels} mels B={bsz} {seconds} s"
+            rng = np.random.RandomState(int(seconds * 10) + bsz + n_mels)
+            n = int(seconds * cfg.sample_rate)
+            sig = torch.from_numpy(
+                (rng.randn(bsz, n) * 0.1).astype(np.float32)).to(dev)
+            lens = rng.randint(n // 4, n + 1, size=bsz).astype(np.int32)
+            lens[0] = n
+            lens = torch.from_numpy(lens).to(dev)
+            got, got_len = fused_log_mel_features(
+                sig, lens, cfg=cfg, tables=tables, precision="default")
+            want, want_len = fused_log_mel_features_plain(
+                sig, lens, cfg=cfg, dft_matrix=dft, mel_matrix=mel,
+                precision="default")
+            xp = preemphasize_and_pad(sig, cfg).contiguous()
+            seq_len = feature_seq_len(lens, cfg.hop_length)
+            lm_k, parts_k = log_mel_tiles_fast_cuda(xp, seq_len, tables,
+                                                    cfg=cfg)
+            lm_p, _ = log_mel_tiles_fast_plain(xp, seq_len, dft, mel,
+                                               cfg=cfg)
+            lm_h, _ = log_mel_tiles_cuda(xp, seq_len, fp64_tables, cfg=cfg)
+            lm_64 = frontend_fp64_logmel(torch, xp, cfg, mel)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all())
+                  and bool(torch.isfinite(lm_k).all()), f"{what}: non-finite")
+            check(got.shape == want.shape
+                  and bool((got_len == want_len).all()),
+                  f"{what}: shape or seq_len differs from the plain version")
+            m_p = mel_power(torch, lm_p, cfg)
+            mel_err = float(((mel_power(torch, lm_k, cfg) - m_p).abs()
+                             / m_p.amax(-1, keepdim=True)).max())
+            check(mel_err <= FAST_MEL_TOL, f"{what}: mel power {mel_err} of "
+                  f"the frame's largest > {FAST_MEL_TOL}")
+            own = tile_partials(lm_k, seq_len)
+            p_err = float((parts_k - own).abs().max() / own.abs().max())
+            check(p_err <= FRONTEND_PARTS_RTOL, f"{what}: partials {p_err} "
+                  "of the largest of its own log-mel's")
+            lm_err = float((lm_k - lm_p).abs().max())
+            for key, v in (("mel", mel_err), ("logmel", lm_err),
+                           ("parts", p_err)):
+                worst[key] = max(worst[key], v)
+            d64 = {}
+            for name, lm in (("kernel", lm_k), ("plain", lm_p),
+                             ("fp32 kernel", lm_h)):
+                d = (lm.double() - lm_64).abs().flatten()
+                q = torch.quantile(d.float(),
+                                   torch.tensor([0.5, 0.99], device=dev))
+                d64[name] = (float(q[0]), float(q[1]), float(d.max()))
+
+            t_out = lm_k.shape[1]
+            n_tiles = -(-t_out // FRAMES_PER_TILE)
+            ms, seen, ev_ms = kernel_ms(lambda: log_mel_tiles_fast_cuda(
+                xp, seq_len, tables, cfg=cfg), "logmel_fast_kernel")
+            bound, bound_by = frontend_fast_bound(
+                cfg, tables, mel, bsz, xp.shape[1], t_out, n_tiles)
+            by_shape[f"{n_mels}x{bsz}x{seconds}s"] = ms
+            print(f"{what}: mel power vs plain {mel_err:.3e} of the frame's "
+                  f"largest, log-mel {lm_err:.3e}, partials {p_err:.3e}; "
+                  "|d log-mel| from fp64 p50/p99/max: " + ", ".join(
+                      f"{k} {a:.3e}/{b:.3e}/{c:.3e}"
+                      for k, (a, b, c) in d64.items())
+                  + f"; kernel {ms:.4f} ms ({seen:g} launches per call "
+                  f"traced; events {ev_ms:.4f}), bound {bound:.4f} ms by "
+                  f"{bound_by}")
+            if n_mels != 64 or (bsz, seconds) not in ((8, 16.7), (32, 16.7)):
+                continue
+            plain_ms = device_ms(lambda: log_mel_tiles_fast_plain(
+                xp, seq_len, dft, mel, cfg=cfg))
+            dft16, mel16 = dft.to(torch.bfloat16), mel.to(torch.bfloat16)
+            comp_ms = device_ms(lambda: frontend_fast_composition(
+                torch, xp, cfg, dft16, mel16))
+            print(f"  B={bsz} x {seconds} s ({bsz * t_out} frames): plain "
+                  f"{plain_ms:.4f} ms, composition_ms {comp_ms:.4f} (bf16 "
+                  "torch.matmul frames @ DFT + |X|^2 + bf16 mel matmul + "
+                  "log)")
+            if bsz == 8:
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by, composition_ms=comp_ms)
+            else:
+                row.update(ms_b32=ms, plain_ms_b32=plain_ms,
+                           bound_ms_b32=bound, composition_ms_b32=comp_ms)
+    print(f"bf16 frontend: worst mel power {worst['mel']:.3e} of the "
+          f"frame's largest (tol {FAST_MEL_TOL}), log-mel "
+          f"{worst['logmel']:.3e}, partials {worst['parts']:.3e}")
+    return {"name": "frontend_fast", "route": "cuda",
+            "source": "vietasr_tpu_torch/csrc/frontend_fast.cu",
+            "replaces": "vietasr_tpu/frontend/pallas_frontend.py:51",
+            "precision": "default", "launches": 0,
+            "max_abs_err": worst["logmel"], **row,
+            "library_ms": None, "ms_by_shape": by_shape,
+            "mel_power_rel_err": worst["mel"],
             "parts_rel_err": worst["parts"]}
 
 
@@ -669,6 +855,141 @@ def end_to_end_phase(np, torch, dev, kernels):
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
     return signals
+
+
+def agreement(a, b):
+    """Frame argmax agreement of two (B, T, V) log-prob arrays."""
+    return float((a.argmax(-1) == b.argmax(-1)).mean())
+
+
+def path_numbers(np, torch, tr, signals, what):
+    """audio-s/s of transcribe_batch(signals) (host clock, 5 calls after
+    the caller's warm-up) and the CUPTI device busy / idle share of one
+    call; printed, returned as (audio-s/s, busy ms, idle share)."""
+    audio_s = sum(len(s) for s in signals) / 16000
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.transcribe_batch(signals)
+    dt = (time.perf_counter() - t0) / reps
+    rows = device_profile(lambda: tr.transcribe_batch(signals), reps=5)
+    busy_ms = sum(r[0] for r in rows)
+    idle = 1 - busy_ms / (dt * 1e3)
+    print(f"{what}: {audio_s:.1f} audio-s in {dt * 1e3:.2f} ms = "
+          f"{audio_s / dt:.1f} audio-s/s; device busy {busy_ms:.4f} ms "
+          f"({100 * idle:.1f} % idle)")
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
+    return audio_s / dt, busy_ms, idle
+
+
+def fast_int8_phase(np, torch, dev, signals):
+    """Phase 5c: Transcriber(fused_frontend="fast") and calibrate_int8
+    over phase 5's signals, the launch counters read around each path.
+    Returns the bf16 frontend kernel's launches on its path."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import (
+        fused_log_mel_features, log_mel_tiles_fast_cuda)
+    from vietasr_tpu_torch.models.quantize import (int8_matmul,
+                                                   int8_matmul_plain,
+                                                   int8_pw_fn)
+    from vietasr_tpu_torch.models.quartznet import quartznet_apply
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    base = Transcriber(CONFIG, checkpoint=ANCHOR)
+    fast = Transcriber(CONFIG, checkpoint=ANCHOR,
+                       options=TranscriberOptions(fused_frontend="fast"))
+    base_texts = base.transcribe_batch(signals)
+    fast.transcribe_batch(signals)                     # warm-up
+    groups = {}
+    for s in signals:
+        groups.setdefault(fast._bucket_len(len(s)), []).append(s)
+    forwards = sum(-(-len(g) // fast.opts.max_batch) for g in groups.values())
+
+    def counted(tr):
+        fused_log_mel_features.launches = 0
+        log_mel_tiles_fast_cuda.launches = 0
+        fused_repeat_block.launches = 0
+        texts = tr.transcribe_batch(signals)
+        return texts, {"frontend_fp64": fused_log_mel_features.launches,
+                       "frontend_fast": log_mel_tiles_fast_cuda.launches,
+                       "repeat_block": fused_repeat_block.launches}
+
+    texts, launches = counted(fast)                    # the "fast" path
+    print(f"fast path: {len(signals)} signals, {forwards} forwards, "
+          f"launches {launches}")
+    check(launches == {"frontend_fp64": 0, "frontend_fast": forwards,
+                       "repeat_block": 13 * forwards},
+          f"fast path launches {launches} for {forwards} forwards")
+    fast_launches = launches["frontend_fast"]
+    base_lp = [base.log_probs(s)[0] for s in signals]
+    agree = [agreement(fast.log_probs(s)[0], lp)
+             for s, lp in zip(signals, base_lp)]
+    same = sum(a == b for a, b in zip(texts, base_texts))
+    print(f"fast path vs the default route: frame argmax agreement mean "
+          f"{np.mean(agree):.4f}, min {min(agree):.4f} (min "
+          f"{FAST_ARGMAX_MIN}); transcripts equal {same}/{len(texts)}")
+    check(min(agree) >= FAST_ARGMAX_MIN, "fast path: argmax agreement "
+          f"{min(agree)} < {FAST_ARGMAX_MIN}")
+    path_numbers(np, torch, fast, signals, "fast path end to end")
+    del fast
+
+    q = Transcriber(CONFIG, checkpoint=ANCHOR)
+    t0 = time.perf_counter()
+    q.calibrate_int8(signals)
+    torch.cuda.synchronize()
+    print(f"calibrate_int8 over {len(signals)} signals: "
+          f"{len(q._q_tables)} int8 sites in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(len(q._q_tables) == 28, f"int8: {len(q._q_tables)} sites, not 28")
+    q.transcribe_batch(signals)                        # warm-up
+    texts, launches = counted(q)                       # the int8 path
+    print(f"int8 path: launches {launches}")
+    check(launches == {"frontend_fp64": forwards, "frontend_fast": 0,
+                       "repeat_block": 0},
+          f"int8 path launches {launches} for {forwards} forwards")
+    agree = [agreement(q.log_probs(s)[0], lp)
+             for s, lp in zip(signals, base_lp)]
+    same = sum(a == b for a, b in zip(texts, base_texts))
+    print(f"int8 path vs the bf16 float route: frame argmax agreement mean "
+          f"{np.mean(agree):.4f}, min {min(agree):.4f} (min "
+          f"{INT8_ARGMAX_MIN}); transcripts equal {same}/{len(texts)}")
+    check(min(agree) >= INT8_ARGMAX_MIN, "int8 path: argmax agreement "
+          f"{min(agree)} < {INT8_ARGMAX_MIN}")
+    path_numbers(np, torch, q, signals, "int8 path end to end")
+
+    # the int8 GEMM at every site of the B = 8 x 16.7 s forward, on the
+    # forward's own operands, against the exact GEMM
+    full = signals[:8]
+    batch = np.zeros((8, q.buckets[-1]), np.float32)
+    for row, s in enumerate(full):
+        batch[row, :len(s)] = s
+    lens = torch.tensor([len(s) for s in full], dtype=torch.int32,
+                        device=dev)
+    sites = []
+
+    def held(x_i8, w_i8):
+        got = int8_matmul(x_i8, w_i8)
+        want = int8_matmul_plain(x_i8, w_i8)
+        sites.append((tuple(x_i8.shape), tuple(w_i8.shape),
+                      int((got != want).sum())))
+        return got
+
+    with torch.inference_mode():
+        feats, flens = q._featurize(torch.from_numpy(batch).to(dev), lens)
+        quartznet_apply(q.variables, feats, flens, cfg=q.cfg.encoder,
+                        compute_dtype=q.compute_dtype,
+                        pw_fn=int8_pw_fn(q._q_tables, matmul=held))
+    torch.cuda.synchronize()
+    shapes = sorted({(x[0], x[1], w[1]) for x, w, _ in sites})
+    bad = sum(n for _, _, n in sites)
+    print(f"int8 GEMM (torch._int_mm) vs the exact GEMM at the "
+          f"{len(sites)} sites of the B=8 x 16.7 s forward, (M, K, N) "
+          f"{shapes}: {bad} elements differ")
+    check(len(sites) == 28 and bad == 0,
+          f"int8 GEMM: {len(sites)} sites, {bad} elements differ")
+    return fast_launches
 
 
 def train_word_lms(tmpdir):
@@ -1591,8 +1912,14 @@ def main() -> int:
     print(f"device: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     dev = torch.device("cuda")
-    kernels = [frontend_phase(np, torch, dev), repeat_phase(np, torch, dev)]
+    front = frontend_phase(np, torch, dev)
+    fast = frontend_fast_phase(np, torch, dev)
+    print(f"phases 1-3b done at {time.perf_counter() - t0:.1f} s")
+    kernels = [front, repeat_phase(np, torch, dev)]
     signals = end_to_end_phase(np, torch, dev, kernels)
+    fast["launches"] = fast_int8_phase(np, torch, dev, signals)
+    kernels.insert(1, fast)
+    print(f"phases 4-5c done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         lm_paths = train_word_lms(tmp)
         kernels.append({"name": "beam_search", "launches": 0})

@@ -7,7 +7,13 @@ only, so on a machine with a GPU and no JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 (`--noconftest` skips tests/conftest.py, which sets JAX up). Tolerances:
-2e-4 for the frontend (the JAX package's own); one bf16 rounding step of
+2e-4 for the frontend (the JAX package's own); for the bf16 frontend
+kernel (fused_frontend="fast") 2^-7 of each frame's largest mel power in
+the mel-power domain (the kernel and its plain version differ only in the
+order of fp32 sums, which can flip one power term's bf16 rounding: one
+bf16 step of that term), partials within 1e-5 of the largest of those
+summed from its own log-mel; the int8 GEMM equal bit for bit to the exact
+product (fp32 products of the int8 values); one bf16 rounding step of
 the output, 2^-7 * max|want|, for the repeat block; none for the beam
 search, whose raw result (final state and backpointers) equals the plain
 version's, ties included. The CTC pair: the alpha lattice and
@@ -23,8 +29,10 @@ import pytest
 import torch
 
 from vietasr_tpu_torch.frontend.cuda_frontend import (
-    FRAMES_PER_TILE, fft_tables, fused_log_mel_features,
-    fused_log_mel_features_plain, log_mel_tiles_cuda, log_mel_tiles_plain)
+    FRAMES_PER_TILE, fast_tables, fft_tables, fused_log_mel_features,
+    fused_log_mel_features_plain, log_mel_tiles_cuda,
+    log_mel_tiles_fast_cuda, log_mel_tiles_fast_plain, log_mel_tiles_plain,
+    tile_partials)
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix, _window_full,
                                                  _windowed_dft_matrix,
@@ -45,6 +53,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRONTEND_TOL = 2e-4
+FAST_MEL_TOL = 2.0 ** -7
 REPEAT_REL_TOL = 2.0 ** -7
 CTC_TOL = 1e-6
 
@@ -170,6 +179,155 @@ def test_frontend_kernel_no_further_from_fp64_than_plain(bsz, seconds,
                      @ mel.double() + cfg.log_zero_guard_value)
     assert float((lm_k.double() - want).abs().max()) \
         <= float((lm_p.double() - want).abs().max())
+
+
+def test_frontend_fast_kernel_refuses_cpu_tensors():
+    """The bf16 kernel's entry never falls back: given CPU tensors it
+    raises, before any build."""
+    cfg = FeaturizerConfig(dither=0.0)
+    xp = torch.zeros(1, 16000 + cfg.fft_length)
+    with pytest.raises(ValueError, match="CUDA"):
+        log_mel_tiles_fast_cuda(xp, torch.tensor([100], dtype=torch.int32),
+                                fast_tables(cfg), cfg=cfg)
+    with pytest.raises(TypeError, match="fast_tables"):
+        log_mel_tiles_fast_cuda(xp, torch.tensor([100], dtype=torch.int32),
+                                fft_tables(cfg), cfg=cfg)
+
+
+# (B, seconds, mels, lengths or None for _frontend_audio's ragged ones):
+# B = 1 to 32, 64 and 80 mels, a row of length 0 and one of length 1
+FAST_CASES = [(1, 2.0, 64, None), (4, 5.3, 64, None), (2, 1.3, 80, None),
+              (8, 16.7, 64, None), (32, 16.7, 64, None),
+              (8, 16.7, 80, None), (32, 2.0, 80, None),
+              (4, 2.0, 64, [32000, 0, 1, 16001]),
+              (3, 0.7, 80, [11200, 1, 0])]
+
+
+def _fast_case(bsz, seconds, features, lens):
+    sig, ragged = _frontend_audio(bsz, seconds, features)
+    if lens is not None:
+        ragged = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return FeaturizerConfig(dither=0.0, features=features), sig, ragged
+
+
+def _mel_power(logmel, cfg):
+    return torch.exp(logmel.double()) - cfg.log_zero_guard_value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,seconds,features,lens", FAST_CASES)
+def test_frontend_fast_kernel_matches_plain(bsz, seconds, features, lens):
+    _need_gpu()
+    cfg, sig, lens = _fast_case(bsz, seconds, features, lens)
+    launches = log_mel_tiles_fast_cuda.launches
+    fp64_launches = fused_log_mel_features.launches
+    got, got_len = fused_log_mel_features(sig, lens, cfg=cfg,
+                                          precision="default")
+    want, want_len = fused_log_mel_features_plain(sig, lens, cfg=cfg,
+                                                  precision="default")
+    torch.cuda.synchronize()
+    assert log_mel_tiles_fast_cuda.launches == launches + 1
+    assert fused_log_mel_features.launches == fp64_launches
+    assert torch.equal(got_len, want_len) and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device="cuda")
+    mel = torch.as_tensor(_mel_matrix(cfg), device="cuda")
+    xp = preemphasize_and_pad(sig, cfg).contiguous()
+    seq_len = feature_seq_len(lens, cfg.hop_length)
+    lm_k, parts_k = log_mel_tiles_fast_cuda(xp, seq_len,
+                                            fast_tables(cfg, "cuda"),
+                                            cfg=cfg)
+    lm_p, parts_p = log_mel_tiles_fast_plain(xp, seq_len, dft, mel,
+                                             cfg=cfg)
+    want_mel = _mel_power(lm_p, cfg)
+    rel = (_mel_power(lm_k, cfg) - want_mel).abs() \
+        / want_mel.amax(-1, keepdim=True)
+    assert float(rel.max()) <= FAST_MEL_TOL
+    # the partials: the valid frames' sums of the kernel's own log-mel, in
+    # the plain version's layout
+    own = tile_partials(lm_k, seq_len)
+    assert parts_k.shape == parts_p.shape == own.shape == (
+        bsz, -(-lm_p.shape[1] // FRAMES_PER_TILE), 2, features)
+    assert float((parts_k - own).abs().max()) \
+        <= 1e-5 * float(own.abs().max())
+    empty = seq_len == 0
+    assert not parts_k[empty].any()
+
+
+@pytest.mark.cuda
+def test_frontend_fast_kernel_refuses_a_shape_outside_its_plan():
+    """A hop that is not a multiple of 8 (frame rows not 16-byte aligned)
+    and a 25 ms window (400 DFT rows, above the kernel's 320): refused
+    before the launch."""
+    _need_gpu()
+    for overrides in ({"window_stride": 0.0101}, {"window_size": 0.025}):
+        cfg = FeaturizerConfig(dither=0.0, **overrides)
+        xp = torch.zeros(1, 16000 + cfg.fft_length, device="cuda")
+        with pytest.raises(ValueError, match="plan"):
+            log_mel_tiles_fast_cuda(
+                xp, torch.tensor([100], dtype=torch.int32, device="cuda"),
+                fast_tables(cfg, "cuda"), cfg=cfg)
+
+
+# (M, K, N) of every int8 site of QuartzNet12x1 at B = 8 x 16.7 s (T =
+# 840 after the stride-2 block) and at a 17-row and a 1104-row batch
+INT8_SHAPES = [(6720, 64, 256), (6720, 256, 256), (6720, 256, 512),
+               (6720, 512, 512), (6720, 1024, 96), (17, 64, 256),
+               (1104, 64, 256), (5, 1024, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_gemm_matches_the_exact_gemm(m, k, n):
+    _need_gpu()
+    from vietasr_tpu_torch.models.quantize import (gemm_weight, int8_matmul,
+                                                   int8_matmul_plain)
+
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8))
+    x[0] = 127
+    w[:, 0] = 127                       # the largest partial sums
+    got = int8_matmul(x.cuda(), gemm_weight(w.cuda()))[:, :n]
+    want = x.long() @ w.long()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu().long(), want)
+    assert torch.equal(int8_matmul_plain(x, w).long(), want)
+
+
+@pytest.mark.cuda
+def test_transcriber_fast_and_int8_routes():
+    """fused_frontend="fast": one bf16-frontend launch per forward, no
+    fp64 FFT launch, 13 repeat launches. calibrate_int8: no repeat launch
+    (every block per-op, as in JAX), frame argmax within JAX's bar of the
+    bf16 float route."""
+    _need_gpu()
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    cfg_path = os.path.join(ROOT,
+                            "vietasr_tpu_torch/configs/quartznet12x1_vi.yaml")
+    ckpt = os.path.join(ROOT, "artifacts/real_speech_qn12x1_vi.msgpack.gz")
+    sig = _audio(1, 3.0, 9)[0].numpy()[0]
+    fast = Transcriber(cfg_path, checkpoint=ckpt,
+                       options=TranscriberOptions(fused_frontend="fast"))
+    counters = (fused_log_mel_features, log_mel_tiles_fast_cuda,
+                fused_repeat_block)
+    for c in counters:
+        c.launches = 0
+    lp_fast, lens = fast.log_probs(sig)
+    assert [c.launches for c in counters] == [0, 1, 13]
+    base = Transcriber(cfg_path, checkpoint=ckpt)
+    lp, _ = base.log_probs(sig)
+    assert (lp_fast.argmax(-1) == lp.argmax(-1)).mean() >= 0.95
+    base.calibrate_int8([sig])
+    assert len(base._q_tables) == 28
+    for c in counters:
+        c.launches = 0
+    lp_q, lens_q = base.log_probs(sig)
+    assert [c.launches for c in counters] == [1, 0, 0]
+    assert np.array_equal(lens, lens_q) and np.isfinite(lp_q).all()
+    assert (lp_q.argmax(-1) == lp.argmax(-1)).mean() > 0.95
 
 
 def _phase4_lens(c_in, c_out, k, r, t, bsz=8):

@@ -259,18 +259,17 @@ def test_device_beam_caps_rows_per_decode(anchor, lm_files, monkeypatch):
 
 
 def test_options_not_ported_raise(anchor, tmp_path):
-    """What the port still refuses (`fused_frontend="fast"`, ROADMAP A.3;
-    an unknown block_impl) raises; what it now takes (the host beam
-    decoder, an LM path with the greedy decoder, a KenLM binary for the
-    device beam, no weights at all) constructs."""
+    """What the port still refuses (`block_impl="pallas"`, an unknown
+    decoder) raises; what it now takes (the host beam decoder, an LM path
+    with the greedy decoder, a KenLM binary for the device beam, no
+    weights at all, `fused_frontend="fast"`) constructs."""
     from vietasr_tpu.ops.kenlm_binary import write_kenlm_binary
     from vietasr_tpu_torch.ops.lm import train_ngram_arpa
 
     arpa, binary = str(tmp_path / "lm.arpa"), str(tmp_path / "lm.binary")
     train_ngram_arpa(VI_CORPUS, arpa, order=3)
     write_kenlm_binary(arpa, binary)
-    for opts, err in ((TranscriberOptions(fused_frontend="fast"), ValueError),
-                      (TranscriberOptions(block_impl="pallas"), ValueError),
+    for opts, err in ((TranscriberOptions(block_impl="pallas"), ValueError),
                       (TranscriberOptions(decoder="nope"), ValueError)):
         with pytest.raises(err):
             Transcriber(CONFIG, variables=anchor, device="cpu", options=opts)
@@ -285,6 +284,9 @@ def test_options_not_ported_raise(anchor, tmp_path):
             (opts.decoder == "device_beam")
     assert Transcriber(CONFIG, device="cpu").variables["params"]["decoder"][
         "w"].shape == (1024, 91)
+    fast = Transcriber(CONFIG, variables=anchor, device="cpu",
+                       options=TranscriberOptions(fused_frontend="fast"))
+    assert fast._featurize.keywords["precision"] == "default"
 
 
 def test_default_device_is_cuda(anchor):

@@ -15,6 +15,10 @@ B, A). The inputs come from this checkout's chip_smoke.py:
     `chip_smoke.event_ms`, with the constants the checkout's own
     featurizer builds (the DFT kernel's packed matrix or the FFT kernel's
     tables);
+  - the bf16 frontend kernel alone (fused_frontend="fast") at B = 1 x
+    2.0 s (four 64-frame tiles, one block each), B = 8 x 16.7 s and B =
+    32 x 16.7 s, on the same inputs as the frontend kernel, by
+    `chip_smoke.event_ms` (`frontend_fast_{B}x{s}s_ms`);
   - the beam kernel alone at its phase-6 timing shape (seeded blank-heavy
     log-probs B = 8, T = 840, V+1 = 91, ragged lengths, W = 100, top-8,
     alpha 0.5, beta 1.5, the word 3-gram chip_smoke.py trains): ms per
@@ -30,8 +34,8 @@ B, A). The inputs come from this checkout's chip_smoke.py:
     S = 435, ragged lengths; chip_smoke.ctc_training_lengths): alpha, and
     beta from those alphas with ybar = 1/32, each by `chip_smoke.event_ms`
     (`ctc_alpha_ms`, `ctc_beta_ms`).
-`--only` takes a comma-separated subset of frontend, repeat, beam, paths
-and ctc (default: all). Prints one JSON line with the card's name and
+`--only` takes a comma-separated subset of frontend, fast, repeat, beam,
+paths and ctc (default: all). Prints one JSON line with the card's name and
 power limit.
 """
 
@@ -55,11 +59,11 @@ def host_seconds(torch, fn, reps):
     return (time.perf_counter() - t0) / reps
 
 
-def frontend_call(np, torch, dev, bsz, seconds):
+def frontend_call(np, torch, dev, bsz, seconds, fast=False):
     """A closure that launches this checkout's frontend kernel once on
     seeded inputs, with the constants built as its featurizer builds them:
     `fft_tables` where the checkout has it, else `pack_dft` of the DFT
-    matrix."""
+    matrix; with `fast`, the bf16 kernel with `fast_tables`."""
     from vietasr_tpu_torch.frontend import cuda_frontend as cf
     from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                      _mel_matrix,
@@ -76,6 +80,10 @@ def frontend_call(np, torch, dev, bsz, seconds):
     xp = preemphasize_and_pad(sig.to(dev), cfg).contiguous()
     seq_len = feature_seq_len(torch.from_numpy(lens).to(dev),
                               cfg.hop_length)
+    if fast:
+        tables = cf.fast_tables(cfg, dev)
+        return lambda: cf.log_mel_tiles_fast_cuda(xp, seq_len, tables,
+                                                  cfg=cfg)
     if hasattr(cf, "fft_tables"):
         tables = cf.fft_tables(cfg, dev)
         return lambda: cf.log_mel_tiles_cuda(xp, seq_len, tables, cfg=cfg)
@@ -157,7 +165,7 @@ def beam_and_paths(np, torch, dev, only, out):
         out["greedy_forward_ms"] = dt * 1e3
 
 
-GROUPS = ("frontend", "repeat", "beam", "paths", "ctc")
+GROUPS = ("frontend", "fast", "repeat", "beam", "paths", "ctc")
 
 
 def main() -> int:
@@ -188,6 +196,10 @@ def main() -> int:
         for bsz in (8, 32):
             out[f"frontend_{bsz}x16.7s_ms"] = chip_smoke.event_ms(
                 frontend_call(np, torch, dev, bsz, 16.7))
+    if "fast" in only:
+        for bsz, seconds in ((1, 2.0), (8, 16.7), (32, 16.7)):
+            out[f"frontend_fast_{bsz}x{seconds}s_ms"] = chip_smoke.event_ms(
+                frontend_call(np, torch, dev, bsz, seconds, fast=True))
     if "repeat" in only:        # one forward's 13 launches
         for full in (False, True):
             total = 0.0

@@ -1,8 +1,8 @@
-"""Fused log-mel frontend: framing + window + FFT + power + mel + log in one
-CUDA kernel (csrc/frontend.cu), with a plain PyTorch version beside it.
+"""Fused log-mel frontend: framing + window + DFT + power + mel + log in one
+CUDA kernel, with a plain PyTorch version beside it, in two precisions.
 
 Counterpart of vietasr_tpu/frontend/pallas_frontend.py::
-fused_log_mel_features (precision="highest"), with the same contract:
+fused_log_mel_features, with the same contract:
 (B, S) + lengths -> (B, T padded to pad_to, n_mels), seq_len. The kernel
 replaces the Pallas `_kernel`; it emits the log-mel frames and per-tile
 (sum, sum of squares) partials over valid frames, and the Bessel-corrected
@@ -10,13 +10,24 @@ per-feature normalization stays a small plain epilogue, as it was an XLA
 epilogue in JAX. Pre-emphasis and the reflect pad stay plain ops in front
 of it.
 
-The kernel computes the one-sided spectrum by an FFT (fp64 inside, fp32 in
-and out) from the constants of `fft_tables`; its plain version,
-`log_mel_tiles_plain`, is the TPU kernel's function as written there:
-frames @ windowed-DFT matrix in fp32. `fused_log_mel_features` launches
-the kernel for CUDA tensors and takes the plain version only for CPU
-tensors; `fused_log_mel_features_plain` is the plain version on any
-device (the reference the kernel is held to).
+precision="highest" (the default): csrc/frontend.cu computes the
+one-sided spectrum by an FFT (fp64 inside, fp32 in and out) from the
+constants of `fft_tables`; its plain version, `log_mel_tiles_plain`, is
+the TPU kernel's function as written there: frames @ windowed-DFT matrix
+in fp32.
+
+precision="default" (the pipeline's fused_frontend="fast"):
+csrc/frontend_fast.cu runs frames @ DFT and power @ mel on the tensor
+cores with the TPU kernel's single-pass bf16 rounding points (signal, DFT
+matrix, power and mel matrix rounded to bf16, fp32 accumulation) from
+the constants of `fast_tables`; its plain version is
+`log_mel_tiles_fast_plain`. This is the default-precision accuracy
+class: O(1) log-mel error on spectral-floor bins.
+
+`fused_log_mel_features` launches the kernel for CUDA tensors and takes
+the plain version only for CPU tensors; `fused_log_mel_features_plain`
+is the plain version on any device (the reference the kernel is held
+to).
 """
 
 from __future__ import annotations
@@ -45,6 +56,9 @@ MEL_RUNS = 16                 # RUNS: mel tap runs, one per half-warp
 TWIDDLE_ROWS = 16 * 16 + 8 * 16   # TW_ROWS: W256^(l k1), W512^(l + 16 k2)
 TAP_BASE = 20                 # TAP_BASE: mel_index's run starts, padded
 MAX_MELS = 128                # MAX_MELS
+FAST_BINS = 272               # BINS in csrc/frontend_fast.cu: 257 padded
+FAST_MAX_ROWS = 320           # 16 * MAX_KSTEPS: DFT rows the kernel holds
+PRECISIONS = ("highest", "default")
 
 
 def fused_supported(cfg: FeaturizerConfig) -> bool:
@@ -71,16 +85,53 @@ def log_mel_tiles_plain(xp: torch.Tensor, seq_len: torch.Tensor,
     spec = torch.matmul(frames, dft)
     re, im = spec[..., :n_bins], spec[..., n_bins:]
     logmel = log_guard(torch.matmul(re * re + im * im, mel), cfg)
+    return logmel, tile_partials(logmel, seq_len)
+
+
+def tile_partials(logmel: torch.Tensor, seq_len: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, t_out, n_mels) log-mel -> (B, n_tiles, 2, n_mels): each
+    FRAMES_PER_TILE-frame tile's (sum, sum of squares) over the frames
+    inside seq_len."""
     bsz, t_out, n_mels = logmel.shape
     n_tiles = -(-t_out // FRAMES_PER_TILE)
-    t_ids = torch.arange(n_tiles * FRAMES_PER_TILE, device=xp.device)
+    t_ids = torch.arange(n_tiles * FRAMES_PER_TILE, device=logmel.device)
     valid = (t_ids[None, :] < seq_len[:, None])[:, :, None]
     tiled = torch.nn.functional.pad(
         logmel, (0, 0, 0, n_tiles * FRAMES_PER_TILE - t_out))
     tiled = torch.where(valid, tiled, torch.zeros_like(tiled)).reshape(
         bsz, n_tiles, FRAMES_PER_TILE, n_mels)
-    parts = torch.stack([tiled.sum(2), (tiled * tiled).sum(2)], dim=2)
-    return logmel, parts
+    return torch.stack([tiled.sum(2), (tiled * tiled).sum(2)], dim=2)
+
+
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to bf16 (to nearest, ties to even), back in fp32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def fast_mel_power_plain(xp: torch.Tensor, dft: torch.Tensor,
+                         mel: torch.Tensor, *, cfg: FeaturizerConfig
+                         ) -> torch.Tensor:
+    """(B, S + n_fft) padded fp32 signal -> (B, t_out, n_mels) mel power
+    at the TPU kernel's precision="default" rounding points: the signal,
+    the fp32 windowed-DFT matrix, the power and the fp32 mel matrix each
+    rounded to bf16 once; the products (exact in fp32) summed in fp32."""
+    n_fft, hop = cfg.fft_length, cfg.hop_length
+    n_bins = n_fft // 2 + 1
+    frames = _bf16(xp).unfold(1, n_fft, hop)
+    spec = torch.matmul(frames, _bf16(dft))
+    re, im = spec[..., :n_bins], spec[..., n_bins:]
+    return torch.matmul(_bf16(re * re + im * im), _bf16(mel))
+
+
+def log_mel_tiles_fast_plain(xp: torch.Tensor, seq_len: torch.Tensor,
+                             dft: torch.Tensor, mel: torch.Tensor, *,
+                             cfg: FeaturizerConfig):
+    """Plain version of the bf16 kernel (csrc/frontend_fast.cu), with
+    log_mel_tiles_plain's arguments and outputs: the fp32 DFT and mel
+    matrices, (logmel, parts)."""
+    logmel = log_guard(fast_mel_power_plain(xp, dft, mel, cfg=cfg), cfg)
+    return logmel, tile_partials(logmel, seq_len)
 
 
 @functools.lru_cache(maxsize=1)
@@ -261,6 +312,134 @@ def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
     return logmel, parts
 
 
+class FastTables(NamedTuple):
+    """The bf16 kernel's constants for one config (fast_tables)."""
+    dft: torch.Tensor    # (2 * FAST_BINS, k_rows) bf16: DFT rows, transposed
+    mel: torch.Tensor    # (ceil(n_mels / 8) * 8, FAST_BINS) bf16
+    k_lo: int            # the first DFT row held (a multiple of 8)
+    k_rows: int          # rows held (a multiple of 16)
+
+
+def fast_rows(cfg: FeaturizerConfig):
+    """(k_lo, k_rows): the DFT rows the bf16 kernel multiplies, the
+    window's nonzero samples widened to a multiple-of-8 start and a
+    multiple-of-16 count (rows 96..415 for the 20 ms Hann window in 512),
+    kept inside the frame. The other rows of the windowed DFT matrix are
+    zero."""
+    n_fft = cfg.fft_length
+    nz = np.flatnonzero(_window_full(cfg).astype(np.float32))
+    k_lo = int(nz[0]) // 8 * 8
+    k_rows = -(-(int(nz[-1]) + 1 - k_lo) // 16) * 16
+    return min(k_lo, (n_fft - k_rows) // 8 * 8), k_rows
+
+
+def fast_tables(cfg: FeaturizerConfig, device=None) -> FastTables:
+    """The bf16 kernel's constants for cfg, on `device`: the fp32 windowed
+    DFT matrix's rows fast_rows(cfg), re and im of each bin in adjacent
+    columns, bins zero-padded to FAST_BINS, transposed and rounded to
+    bf16; the fp32 mel matrix zero-padded, transposed and rounded to
+    bf16. These are the values the plain version rounds the same matrices
+    to."""
+    n_fft = cfg.fft_length
+    n_bins = n_fft // 2 + 1
+    k_lo, k_rows = fast_rows(cfg)
+    dft = _windowed_dft_matrix(cfg)[k_lo:k_lo + k_rows]    # (k_rows, 2 nb)
+    op = np.zeros((k_rows, FAST_BINS, 2), np.float32)
+    op[:, :n_bins, 0] = dft[:, :n_bins]
+    op[:, :n_bins, 1] = dft[:, n_bins:]
+    mel = _mel_matrix(cfg)                                  # (nb, n_mels)
+    mel_t = np.zeros((-(-cfg.features // 8) * 8, FAST_BINS), np.float32)
+    mel_t[:cfg.features, :n_bins] = mel.T
+    dev = torch.device("cpu") if device is None else torch.device(device)
+
+    def bf16(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(
+            torch.bfloat16)
+
+    return FastTables(dft=bf16(op.reshape(k_rows, 2 * FAST_BINS).T),
+                      mel=bf16(mel_t), k_lo=k_lo, k_rows=k_rows)
+
+
+@functools.lru_cache(maxsize=1)
+def _fast_lib() -> ctypes.CDLL:
+    lib = _build.load("frontend_fast")
+    got = (lib.vt_logmel_fast_frames_per_tile(), lib.vt_logmel_fast_bins(),
+           lib.vt_logmel_fast_max_rows())
+    if got != (FRAMES_PER_TILE, FAST_BINS, FAST_MAX_ROWS):
+        raise RuntimeError(
+            f"csrc/frontend_fast.cu PART / BINS / 16 * MAX_KSTEPS {got} "
+            "differ from cuda_frontend.py's FRAMES_PER_TILE / FAST_BINS / "
+            "FAST_MAX_ROWS")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vt_logmel_fast_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           i, i, i, ctypes.c_float, i, p]
+    lib.vt_logmel_fast_forward.restype = i
+    lib.vt_logmel_fast_smem_bytes.argtypes = [i, i, i, i]
+    lib.vt_logmel_fast_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def log_mel_tiles_fast_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
+                            tables: FastTables, *, cfg: FeaturizerConfig):
+    """The bf16 kernel: same contract as log_mel_tiles_fast_plain, CUDA
+    tensors only, with the config's constants from fast_tables. Counts its
+    launches in `.launches`."""
+    n_fft, hop, n_mels = cfg.fft_length, cfg.hop_length, cfg.features
+    if not isinstance(tables, FastTables):
+        raise TypeError("bf16 frontend kernel: tables must be fast_tables' "
+                        "FastTables")
+    if not fused_supported(cfg):
+        raise ValueError("bf16 frontend kernel: config not covered "
+                         "(see fused_supported)")
+    bsz, sp = xp.shape
+    for name, tsr, dtype in (("xp", xp, torch.float32),
+                             ("seq_len", seq_len, torch.int32),
+                             ("dft", tables.dft, torch.bfloat16),
+                             ("mel", tables.mel, torch.bfloat16)):
+        if tsr.device.type != "cuda" or tsr.device != xp.device:
+            raise ValueError(f"bf16 frontend kernel: {name} must be on "
+                             f"{xp.device} (CUDA), got {tsr.device}")
+        if tsr.dtype != dtype or not tsr.is_contiguous():
+            raise ValueError(f"bf16 frontend kernel: {name} must be "
+                             f"contiguous {dtype}, got {tsr.dtype}")
+    k_lo, k_rows = tables.k_lo, tables.k_rows
+    if (k_lo, k_rows) != fast_rows(cfg) \
+            or tables.dft.shape != (2 * FAST_BINS, k_rows) \
+            or tables.mel.shape != (-(-n_mels // 8) * 8, FAST_BINS) \
+            or seq_len.shape != (bsz,) or sp < n_fft:
+        raise ValueError("bf16 frontend kernel: tables / seq_len / xp "
+                         "shapes do not match the config")
+    if tables.dft.data_ptr() % 16 or tables.mel.data_ptr() % 4:
+        raise ValueError("bf16 frontend kernel: the DFT rows must be "
+                         "16-byte aligned, the mel matrix 4-byte aligned")
+    lib = _fast_lib()
+    smem = lib.vt_logmel_fast_smem_bytes(n_fft, hop, n_mels, k_rows)
+    if not 0 < smem <= _build.SMEM_LIMIT:
+        raise ValueError(f"bf16 frontend kernel: n_fft={n_fft}, hop={hop}, "
+                         f"n_mels={n_mels}, {k_rows} DFT rows are outside "
+                         "the kernel's plan")
+    t_out = (sp - n_fft) // hop + 1
+    n_tiles = -(-t_out // FRAMES_PER_TILE)
+    logmel = torch.empty((bsz, t_out, n_mels), dtype=torch.float32,
+                         device=xp.device)
+    parts = torch.empty((bsz, n_tiles, 2, n_mels), dtype=torch.float32,
+                        device=xp.device)
+    with torch.cuda.device(xp.device):
+        err = lib.vt_logmel_fast_forward(
+            xp.data_ptr(), seq_len.data_ptr(), tables.dft.data_ptr(),
+            tables.mel.data_ptr(), logmel.data_ptr(), parts.data_ptr(), bsz,
+            sp, t_out, n_fft, hop, n_mels, k_lo, k_rows,
+            float(cfg.log_zero_guard_value),
+            int(cfg.log_zero_guard_type == "clamp"),
+            torch.cuda.current_stream(xp.device).cuda_stream)
+    _build.check(lib, err, "bf16 frontend kernel")
+    log_mel_tiles_fast_cuda.launches += 1
+    return logmel, parts
+
+
+log_mel_tiles_fast_cuda.launches = 0
+
+
 def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles):
     """tiles(xp, seq_len) -> (logmel, parts): the kernel or its plain
     version, with its constants bound."""
@@ -287,37 +466,55 @@ def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles):
     return mask_and_pad_time(feats, seq_len, logmel.shape[1], cfg), seq_len
 
 
-def _plain_tiles(cfg, device, dft_matrix, mel_matrix):
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+def _plain_tiles(cfg, device, dft_matrix, mel_matrix, precision):
     if dft_matrix is None:
         dft_matrix = torch.as_tensor(_windowed_dft_matrix(cfg), device=device)
     if mel_matrix is None:
         mel_matrix = torch.as_tensor(_mel_matrix(cfg), device=device)
-    return functools.partial(log_mel_tiles_plain, dft=dft_matrix,
-                             mel=mel_matrix, cfg=cfg)
+    plain = log_mel_tiles_plain if precision == "highest" \
+        else log_mel_tiles_fast_plain
+    return functools.partial(plain, dft=dft_matrix, mel=mel_matrix, cfg=cfg)
 
 
 def fused_log_mel_features(signal: torch.Tensor, lengths: torch.Tensor, *,
                            cfg: FeaturizerConfig,
-                           tables: Optional[FFTTables] = None,
+                           tables=None,
                            dft_matrix: Optional[torch.Tensor] = None,
                            mel_matrix: Optional[torch.Tensor] = None,
                            generator: Optional[torch.Generator] = None,
-                           training: bool = False):
+                           training: bool = False,
+                           precision: str = "highest"):
     """(B, S) float waveform + (B,) int lengths ->
     (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32).
 
-    CUDA tensors go through the kernel (counted in `.launches`) with
-    `tables` (fft_tables, built on the signal's device unless given); CPU
-    tensors through its plain version with the DFT / mel matrices (built
-    unless given). make_fused_featurizer builds the constants once.
-    training=True adds the dither from `generator` before the kernel, as
-    log_mel_features does before its DFT."""
+    CUDA tensors go through the kernel of `precision`: "highest", the FFT
+    kernel (counted in `.launches`) with `tables` from fft_tables;
+    "default", the bf16 kernel (counted in log_mel_tiles_fast_cuda.
+    launches) with `tables` from fast_tables; either built on the signal's
+    device unless given. CPU tensors go through the kernel's plain version
+    with the DFT / mel matrices (built unless given).
+    make_fused_featurizer builds the constants once. training=True adds
+    the dither from `generator` before the kernel, as log_mel_features
+    does before its DFT."""
+    _check_precision(precision)
     if signal.device.type == "cpu":
-        tiles = _plain_tiles(cfg, signal.device, dft_matrix, mel_matrix)
-    else:
+        tiles = _plain_tiles(cfg, signal.device, dft_matrix, mel_matrix,
+                             precision)
+    elif precision == "highest":
         if tables is None:
             tables = fft_tables(cfg, signal.device)
         tiles = functools.partial(log_mel_tiles_cuda, tables=tables,
+                                  cfg=cfg)
+    else:
+        if tables is None:
+            tables = fast_tables(cfg, signal.device)
+        tiles = functools.partial(log_mel_tiles_fast_cuda, tables=tables,
                                   cfg=cfg)
     return _featurize(add_dither(signal, cfg, generator, training), lengths,
                       cfg, tiles)
@@ -329,22 +526,29 @@ fused_log_mel_features.launches = 0
 def fused_log_mel_features_plain(signal: torch.Tensor, lengths: torch.Tensor,
                                  *, cfg: FeaturizerConfig,
                                  dft_matrix: Optional[torch.Tensor] = None,
-                                 mel_matrix: Optional[torch.Tensor] = None):
+                                 mel_matrix: Optional[torch.Tensor] = None,
+                                 precision: str = "highest"):
     """The plain version of fused_log_mel_features, on any device."""
+    _check_precision(precision)
     return _featurize(signal, lengths, cfg,
                       _plain_tiles(cfg, signal.device, dft_matrix,
-                                   mel_matrix))
+                                   mel_matrix, precision))
 
 
-def make_fused_featurizer(cfg: FeaturizerConfig, *, device=None):
-    """Same factory contract as features.make_featurizer. The constants are
-    built once here, on the device: the kernel's fft_tables on the GPU, the
-    plain version's DFT and mel matrices on the CPU."""
+def make_fused_featurizer(cfg: FeaturizerConfig, *, device=None,
+                          precision: str = "highest"):
+    """Same factory contract as features.make_featurizer, for the kernel of
+    `precision` ("highest" or "default", as in JAX). The constants are
+    built once here, on the device: the kernel's fft_tables or fast_tables
+    on the GPU, the plain version's DFT and mel matrices on the CPU."""
+    _check_precision(precision)
     dev = resolve_device(device)
     if dev.type == "cuda":
+        tables = (fft_tables if precision == "highest" else fast_tables)(
+            cfg, dev)
         return functools.partial(fused_log_mel_features, cfg=cfg,
-                                 tables=fft_tables(cfg, dev))
+                                 tables=tables, precision=precision)
     return functools.partial(
-        fused_log_mel_features, cfg=cfg,
+        fused_log_mel_features, cfg=cfg, precision=precision,
         dft_matrix=torch.as_tensor(_windowed_dft_matrix(cfg), device=dev),
         mel_matrix=torch.as_tensor(_mel_matrix(cfg), device=dev))

@@ -6,6 +6,8 @@
 turns such a tree of numpy arrays (unfolded or folded) into torch tensors
 on a device; the structure and key names stay those of the JAX package,
 so `quartznet_apply` computes what JAX's does on the same tree.
+`q_tables_from_jax` carries JAX's int8 serving tables
+(models/quantize.py) across the same way.
 `train_state_from_jax` builds the port's TrainState from JAX's unfolded
 tree (and a Novograd state), so a train step from the same state computes
 the same thing in both; `to_numpy` is the way back.
@@ -49,6 +51,8 @@ import numpy as np
 import torch
 
 from vietasr_tpu_torch.config import EncoderConfig
+from vietasr_tpu_torch.models.quantize import (QuantizedPointwise,
+                                               gemm_weight)
 from vietasr_tpu_torch.models.quartznet import map_tree
 from vietasr_tpu_torch.utils.device import resolve_device
 
@@ -153,6 +157,21 @@ def params_from_jax(variables: dict, *, device=None) -> dict:
         return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     return map_tree(leaf, variables)
+
+
+def q_tables_from_jax(tables: Mapping[str, Any], *, device=None
+                      ) -> Dict[str, QuantizedPointwise]:
+    """JAX's int8 tables ({tag: QuantizedPointwise(w_i8, w_scale,
+    x_scale)}, numpy or array-like leaves) -> the port's, on `device`
+    (None: CUDA), with the weights laid out for the device's int8 GEMM."""
+    dev = resolve_device(device)
+    out = {}
+    for tag, (w_i8, w_scale, x_scale) in tables.items():
+        out[tag] = QuantizedPointwise(
+            gemm_weight(torch.tensor(np.asarray(w_i8, np.int8), device=dev)),
+            torch.tensor(np.asarray(w_scale, np.float32), device=dev),
+            torch.tensor(np.asarray(x_scale, np.float32), device=dev))
+    return out
 
 
 def to_numpy(tree):

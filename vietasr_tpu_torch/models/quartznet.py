@@ -25,6 +25,14 @@ training too).
 bf16 semantics follow the JAX package: convolutions take bf16 operands,
 1x1 products accumulate in fp32 and return fp32, biases and BN are fp32,
 and the head's log-softmax is fp32.
+
+`pw_fn(tag, x, w)` intercepts every 1x1 product of the per-op path, at
+JAX's call sites and tags: "enc{i}.sub{r}" (separable, ungrouped
+sub-layers), "enc{i}.res{p}" (residual panes) and "dec" (the head).
+models/quantize.py calibrates and serves int8 through it. A pw_fn other
+than the default turns the fused repeat-block route off for every block,
+as in JAX. A folded bias adds in the dtype pw_fn returns (an int8 site
+returns the compute dtype), as JAX's `x + cast(b)` does.
 """
 
 from __future__ import annotations
@@ -163,9 +171,15 @@ def init_quartznet(generator: Optional[torch.Generator], cfg: EncoderConfig,
             "batch_stats": {"encoder": enc_stats}}
 
 
+def _default_pw(tag, x, w):
+    return pointwise_conv(x, w)
+
+
 def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
-               compute_dtype, training: bool = False):
-    """conv + BN (or folded bias). Returns (y fp32, new_lens, new_stats)."""
+               compute_dtype, training: bool = False, pw_fn=_default_pw,
+               tag: str = ""):
+    """conv + BN (or folded bias). Returns (y, new_lens, new_stats); y is
+    fp32 unless pw_fn returns another dtype."""
     cast = (lambda a: a.to(compute_dtype)) if compute_dtype \
         else (lambda a: a)
     if conv_mask:
@@ -178,7 +192,7 @@ def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
                                bcfg.dilation, bcfg.same_padding)
         if conv_mask:
             x = mask_padding(x, lens)
-        x = pointwise_conv(cast(x), cast(params["pw_w"]))
+        x = pw_fn(tag, cast(x), cast(params["pw_w"]))
     else:
         x = dense_conv1d(cast(x), cast(params["conv_w"]), stride=bcfg.stride,
                          dilation=bcfg.dilation, padding=bcfg.same_padding)
@@ -188,14 +202,17 @@ def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
         y, new_bn = batchnorm_apply(x, params["bn"], stats["bn"],
                                     training=training)
         return y, lens, {"bn": new_bn}
-    return x + cast(params["b"]).to(torch.float32), lens, stats
+    return x + cast(params["b"]), lens, stats
 
 
 def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
-                 cfg: EncoderConfig, compute_dtype, block_impl: str):
+                 cfg: EncoderConfig, compute_dtype, block_impl: str,
+                 pw_fn=_default_pw, block_idx: int = 0):
     """Inference JasperBlock: R sub-layers (ReLU between), + residual,
-    ReLU; an eligible bf16 block as one fused repeat block."""
+    ReLU; an eligible bf16 block as one fused repeat block unless pw_fn
+    intercepts the 1x1 products."""
     if (compute_dtype == torch.bfloat16 and cfg.conv_mask
+            and pw_fn is _default_pw
             and block_eligible(bcfg, params, False)):
         fused = fused_repeat_block_plain if block_impl == "plain" \
             else fused_repeat_block
@@ -210,13 +227,15 @@ def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
                     kernel=bcfg.effective_kernel)
         return out, lens
     return _apply_block_ops(x, lens, params, stats, bcfg, cfg,
-                            compute_dtype)[:2]
+                            compute_dtype, pw_fn=pw_fn,
+                            block_idx=block_idx)[:2]
 
 
 def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
                      cfg: EncoderConfig, compute_dtype,
                      training: bool = False,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     pw_fn=_default_pw, block_idx: int = 0):
     """The per-op JasperBlock: each sub-layer's conv and BN (or bias)
     apart; dropout (training only) after each ReLU. Returns (out, lens,
     new_block_stats)."""
@@ -226,7 +245,8 @@ def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
         out, out_lens, st = _apply_sub(out, out_lens, params["sub"][r],
                                        stats["sub"][r] if stats else None,
                                        bcfg, cfg.conv_mask, compute_dtype,
-                                       training)
+                                       training, pw_fn,
+                                       f"enc{block_idx}.sub{r}")
         new_stats["sub"].append(st)
         if r < bcfg.repeat - 1:
             out = dropout(torch.relu(out), bcfg.dropout, generator, training)
@@ -234,14 +254,15 @@ def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
         else (lambda a: a)
     for i, pane in enumerate(params["res"]):
         res = mask_padding(x, lens) if cfg.conv_mask else x
-        res = pointwise_conv(cast(res), cast(pane["conv_w"]))
+        res = pw_fn(f"enc{block_idx}.res{i}", cast(res),
+                    cast(pane["conv_w"]))
         pane_stats = stats["res"][i] if stats else {}
         if "bn" in pane:
             res, new_bn = batchnorm_apply(res, pane["bn"], pane_stats["bn"],
                                           training=training)
             pane_stats = {"bn": new_bn}
         else:
-            res = res + cast(pane["b"]).to(torch.float32)
+            res = res + cast(pane["b"])
         new_stats["res"].append(pane_stats)
         out = out + res
     out = dropout(torch.relu(out), bcfg.dropout, generator, training)
@@ -258,6 +279,7 @@ def quartznet_apply(
     block_impl: str = "auto",
     training: bool = False,
     generator: Optional[torch.Generator] = None,
+    pw_fn: Callable = _default_pw,
 ):
     """Forward pass.
 
@@ -266,7 +288,8 @@ def quartznet_apply(
     (B,) int32). With training=True (unfolded BN on batch statistics,
     dropout drawn from `generator`) it returns (log_probs, out_lens,
     new_batch_stats), as the JAX function does; the new stats carry no
-    gradient."""
+    gradient. `pw_fn(tag, x, w) -> y` intercepts every 1x1 product (see
+    the module docstring); the default is `pointwise_conv`."""
     if block_impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, "
                          f"got {block_impl!r}")
@@ -280,14 +303,15 @@ def quartznet_apply(
         if training:
             x, lens, st = _apply_block_ops(x, lens, params["encoder"][i],
                                            block_stats, bcfg, cfg,
-                                           compute_dtype, True, generator)
+                                           compute_dtype, True, generator,
+                                           pw_fn, i)
             new_enc_stats.append(st)
         else:
             x, lens = _apply_block(x, lens, params["encoder"][i],
                                    block_stats, bcfg, cfg, compute_dtype,
-                                   block_impl)
+                                   block_impl, pw_fn, i)
     dec = params["decoder"]
-    logits = pointwise_conv(x, dec["w"]) + dec["b"].to(torch.float32)
+    logits = pw_fn("dec", x, dec["w"]) + dec["b"]
     log_probs = torch.log_softmax(logits, dim=-1)
     if training:
         return log_probs, lens.to(torch.int32), {"encoder": new_enc_stats}

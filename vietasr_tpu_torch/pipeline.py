@@ -1,7 +1,9 @@
 """End-to-end inference facade (counterpart of vietasr_tpu/pipeline.py).
 
-waveform -> log-mel (the fused frontend kernel on the GPU) -> folded-BN
-QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16) -> CTC
+waveform -> log-mel (the fused frontend kernel on the GPU; with
+`fused_frontend="fast"` its bf16 tensor-core kernel) -> folded-BN
+QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16; after
+`calibrate_int8`, int8 pointwise GEMMs with every block per-op) -> CTC
 head log-softmax -> one of three decoders:
 - greedy collapse on the device (the default);
 - `decoder="beam"` (or an `lm_path` with the greedy decoder): the host
@@ -36,6 +38,9 @@ from vietasr_tpu_torch.models.convert import (decoder_from_state_dict,
                                               load_torch_state_dict,
                                               params_from_jax, to_numpy,
                                               variables_from_checkpoints)
+from vietasr_tpu_torch.models.quantize import (calibrate_activations,
+                                               int8_pw_fn,
+                                               quantize_quartznet)
 from vietasr_tpu_torch.models.quartznet import (BLOCK_IMPLS,
                                                 cast_matmul_weights,
                                                 fold_batchnorm,
@@ -58,9 +63,10 @@ _BEAM_BATCHES_PER_DECODE = 4
 
 @dataclasses.dataclass
 class TranscriberOptions:
-    """The JAX package's option names and defaults. `fused_frontend="fast"`
-    (a bf16 DFT kernel of its own) is not ported yet (ROADMAP A.3) and
-    raises."""
+    """The JAX package's option names and defaults. JAX's batch switch
+    for the fused frontend (the XLA chain above B = 64, or 96 for "fast")
+    is a TPU tuning the port drops: every batch takes the configured
+    frontend."""
 
     beam_width: int = 100
     lm_path: Optional[str] = None
@@ -81,7 +87,11 @@ class TranscriberOptions:
     # bf16 operands with fp32 accumulation; None (or "float32") for fp32
     compute_dtype: Optional[str] = "bfloat16"
     # "auto": the fused frontend kernel on the GPU when fused_supported,
-    # the plain chain on the CPU; "on" / "off" force one or the other
+    # the plain chain on the CPU; "on" / "off" force one or the other;
+    # "fast": the fused frontend at precision="default", single-pass bf16
+    # DFT and mel products (the bf16 kernel on the GPU, its plain version
+    # on the CPU), the default-precision accuracy class (O(1) log-mel
+    # error on spectral-floor bins)
     fused_frontend: str = "auto"
     # eligible encoder blocks in bf16: "auto" / "kernel" = the fused
     # repeat-block kernel, "plain" = its plain PyTorch version
@@ -121,10 +131,9 @@ class Transcriber:
         if opts.device_beam_lm not in ("auto", "char", "word"):
             raise ValueError("device_beam_lm must be 'auto', 'char' or "
                              f"'word', got {opts.device_beam_lm!r}")
-        if opts.fused_frontend not in ("auto", "on", "off"):
-            raise ValueError("fused_frontend must be 'auto', 'on' or 'off' "
-                             f"('fast' is ROADMAP A.3, not ported yet), got "
-                             f"{opts.fused_frontend!r}")
+        if opts.fused_frontend not in ("auto", "on", "off", "fast"):
+            raise ValueError("fused_frontend must be 'auto', 'on', 'off' "
+                             f"or 'fast', got {opts.fused_frontend!r}")
         if opts.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
         if opts.block_impl not in BLOCK_IMPLS:
@@ -140,14 +149,22 @@ class Transcriber:
         first_sub = variables["params"]["encoder"][0]["sub"][0]
         if opts.fold_bn and "bn" in first_sub:
             variables = fold_batchnorm(variables, self.cfg.encoder)
+        # fp32 folded weights: calibrate_int8 quantizes from them, as JAX
+        self._float_variables = variables
         self.variables = cast_matmul_weights(variables, self.compute_dtype)
+        self._q_tables: dict = {}    # int8 serving tables (calibrate_int8)
 
         fcfg = self.cfg.featurizer
-        use_fused = opts.fused_frontend == "on" or (
-            opts.fused_frontend == "auto" and self.device.type == "cuda"
-            and fused_supported(fcfg))
-        self._featurize = (make_fused_featurizer if use_fused
-                           else make_featurizer)(fcfg, device=self.device)
+        if opts.fused_frontend == "fast":
+            self._featurize = make_fused_featurizer(
+                fcfg, device=self.device, precision="default")
+        else:
+            use_fused = opts.fused_frontend == "on" or (
+                opts.fused_frontend == "auto" and self.device.type == "cuda"
+                and fused_supported(fcfg))
+            self._featurize = (make_fused_featurizer if use_fused
+                               else make_featurizer)(fcfg,
+                                                     device=self.device)
         sr = fcfg.sample_rate
         self.buckets = [int(s * sr) for s in opts.buckets_seconds]
         self._pinned: dict = {}     # bucket samples -> page-locked buffer
@@ -208,9 +225,13 @@ class Transcriber:
     @torch.inference_mode()
     def _forward(self, signal: torch.Tensor, lengths: torch.Tensor):
         feats, flens = self._featurize(signal, lengths)
+        kwargs = {}
+        if self._q_tables:
+            kwargs["pw_fn"] = int8_pw_fn(self._q_tables)
         log_probs, enc_lens = quartznet_apply(
             self.variables, feats, flens, cfg=self.cfg.encoder,
-            compute_dtype=self.compute_dtype, block_impl=self.opts.block_impl)
+            compute_dtype=self.compute_dtype, block_impl=self.opts.block_impl,
+            **kwargs)
         preds, keep = greedy_decode(log_probs, enc_lens,
                                     blank=self.cfg.num_classes)
         return log_probs, enc_lens, preds, keep
@@ -252,6 +273,35 @@ class Transcriber:
         arr = buf.numpy()[:rows]
         arr.fill(0.0)
         return arr
+
+    @torch.inference_mode()
+    def calibrate_int8(self, signals: Sequence[np.ndarray]) -> None:
+        """Switch the forward to int8 pointwise GEMMs (models/quantize.py),
+        with static activation scales calibrated on the given
+        representative waveforms: one forward over all of them, each
+        zero-padded to the largest bucket they need (padding is masked out
+        and cannot raise an abs-max), then the tables from the fp32 folded
+        weights. QuartzNet with fold_bn=True only. Blocks then run per-op
+        (no repeat-block kernel), as in JAX."""
+        if self.cfg.architecture != "quartznet" or not self.opts.fold_bn:
+            raise ValueError(
+                "int8 serving requires a QuartzNet with fold_bn=True")
+        sigs = [np.asarray(s, np.float32).reshape(-1) for s in signals]
+        bl = max(self._bucket_len(len(s)) for s in sigs)
+        padded = np.zeros((len(sigs), bl), np.float32)
+        lens = np.zeros((len(sigs),), np.int32)
+        for i, s in enumerate(sigs):
+            n = min(len(s), bl)
+            padded[i, :n] = s[:n]
+            lens[i] = n
+        feats, flens = self._featurize(
+            torch.from_numpy(padded).to(self.device),
+            torch.from_numpy(lens).to(self.device))
+        amaxes = calibrate_activations(self.variables, self.cfg.encoder,
+                                       feats, flens,
+                                       compute_dtype=self.compute_dtype)
+        self._q_tables = quantize_quartznet(self._float_variables,
+                                            self.cfg.encoder, amaxes)
 
     def _bucket_len(self, n: int) -> int:
         for b in self.buckets:
