@@ -15,9 +15,13 @@ Phases, each of which raises on failure:
      the kernel's ms per shape, its bound (bytes vs a real FFT's
      operations), the DFT-count bound, the plain version's ms and the
      torch.stft + |X|^2 + mel + log composition's ms
-  3b. the bf16 frontend kernel (fused_frontend="fast", tensor-core
-     frames @ DFT and power @ mel) vs its plain PyTorch version at phase
-     3's 14 shapes: the log-mel in the mel-power domain within 2^-7 of each
+  3b. the bf16 frontend kernel (fused_frontend="fast", frames @ DFT on
+     wgmma and power @ mel on mma.sync) vs its plain PyTorch version at
+     phase 3's 14 shapes, at the largest hop its launch plan takes with 64
+     mels (512: 64-frame blocks) and at B = 3 with rows ending inside a
+     128-frame block, each shape's plan printed (frames a block, ring
+     stages, DFT columns a stage, shared memory, blocks launched): the
+     log-mel in the mel-power domain within 2^-7 of each
      frame's largest mel power, equal seq_len, partials within 1e-5 of the
      largest of those summed from its own log-mel; p50/p99/max |d log-mel|
      from the fp64 chain for the bf16 kernel, its plain version and the
@@ -454,112 +458,153 @@ def mel_power(torch, logmel, cfg):
         if cfg.log_zero_guard_type == "add" else m
 
 
+# phase 3b's shapes beyond phase 3's 14: (mels, hop, B, seconds, lengths or
+# None for ragged ones with row 0 full). The largest hop the bf16 kernel's
+# plan takes with 64 mels (64-frame blocks), and B = 3 with rows whose
+# frames end inside a 128-frame block and inside a 16-frame partials tile
+# (434 = 3 * 128 + 50 and 230 = 128 + 102 frames)
+FAST_EXTRA_SHAPES = ((64, None, 2, 8.0, None),
+                     (64, 160, 3, 16.7, (267200, 69317, 36800)))
+
+
+def fast_widest_hop(n_mels: int) -> int:
+    """The largest hop (a multiple of 8 up to n_fft 512) that the bf16
+    kernel's launch plan takes with n_mels mels and the 20 ms window."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import fast_shape_plan
+
+    return max(h for h in range(8, 513, 8)
+               if fast_shape_plan(512, h, n_mels, 320) is not None)
+
+
 def frontend_fast_phase(np, torch, dev):
     """Phase 3b: the bf16 frontend kernel vs its plain version at phase 3's
-    shapes and signals."""
+    shapes and signals, then at FAST_EXTRA_SHAPES; each shape's launch plan
+    (frames a block, ring stages, DFT columns a stage, shared memory,
+    blocks launched)."""
     from vietasr_tpu_torch.frontend.cuda_frontend import (
-        FRAMES_PER_TILE, fast_tables, fft_tables, fused_log_mel_features,
-        fused_log_mel_features_plain, log_mel_tiles_cuda,
-        log_mel_tiles_fast_cuda, log_mel_tiles_fast_plain, tile_partials)
+        FRAMES_PER_TILE, fast_plan, fast_tables, fft_tables,
+        fused_log_mel_features, fused_log_mel_features_plain,
+        log_mel_tiles_cuda, log_mel_tiles_fast_cuda,
+        log_mel_tiles_fast_plain, tile_partials)
     from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                      _mel_matrix,
                                                      _windowed_dft_matrix,
                                                      feature_seq_len,
                                                      preemphasize_and_pad)
 
+    shapes = [(n_mels, 160, bsz, seconds, None) for n_mels in (64, 80)
+              for bsz, seconds in ((1, 2.0), (8, 2.0), (1, 8.0), (8, 8.0),
+                                   (1, 16.7), (8, 16.7), (32, 16.7))]
+    shapes += [(m, hop or fast_widest_hop(m), bsz, seconds, lens)
+               for m, hop, bsz, seconds, lens in FAST_EXTRA_SHAPES]
     worst = {"mel": 0.0, "logmel": 0.0, "parts": 0.0}
-    by_shape, row = {}, {}
-    for n_mels in (64, 80):
-        cfg = FeaturizerConfig(dither=0.0, features=n_mels)
-        dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
-        mel = torch.as_tensor(_mel_matrix(cfg), device=dev)
-        tables = fast_tables(cfg, dev)    # once per config, as in use
-        fp64_tables = fft_tables(cfg, dev)
-        for bsz, seconds in ((1, 2.0), (8, 2.0), (1, 8.0), (8, 8.0),
-                             (1, 16.7), (8, 16.7), (32, 16.7)):
-            what = f"bf16 frontend {n_mels} mels B={bsz} {seconds} s"
-            rng = np.random.RandomState(int(seconds * 10) + bsz + n_mels)
-            n = int(seconds * cfg.sample_rate)
-            sig = torch.from_numpy(
-                (rng.randn(bsz, n) * 0.1).astype(np.float32)).to(dev)
+    by_shape, row, consts = {}, {}, {}
+    for n_mels, hop, bsz, seconds, fixed in shapes:
+        cfg = FeaturizerConfig(dither=0.0, features=n_mels,
+                               window_stride=hop / 16000)
+        if (n_mels, hop) not in consts:    # once per config, as in use
+            consts[(n_mels, hop)] = (
+                torch.as_tensor(_windowed_dft_matrix(cfg), device=dev),
+                torch.as_tensor(_mel_matrix(cfg), device=dev),
+                fast_tables(cfg, dev), fft_tables(cfg, dev))
+        dft, mel, tables, fp64_tables = consts[(n_mels, hop)]
+        what = f"bf16 frontend {n_mels} mels hop {hop} B={bsz} {seconds} s"
+        rng = np.random.RandomState(int(seconds * 10) + bsz + n_mels)
+        n = int(seconds * cfg.sample_rate)
+        sig = torch.from_numpy(
+            (rng.randn(bsz, n) * 0.1).astype(np.float32)).to(dev)
+        if fixed is None:
             lens = rng.randint(n // 4, n + 1, size=bsz).astype(np.int32)
             lens[0] = n
-            lens = torch.from_numpy(lens).to(dev)
-            got, got_len = fused_log_mel_features(
-                sig, lens, cfg=cfg, tables=tables, precision="default")
-            want, want_len = fused_log_mel_features_plain(
-                sig, lens, cfg=cfg, dft_matrix=dft, mel_matrix=mel,
-                precision="default")
-            xp = preemphasize_and_pad(sig, cfg).contiguous()
-            seq_len = feature_seq_len(lens, cfg.hop_length)
-            lm_k, parts_k = log_mel_tiles_fast_cuda(xp, seq_len, tables,
-                                                    cfg=cfg)
-            lm_p, _ = log_mel_tiles_fast_plain(xp, seq_len, dft, mel,
-                                               cfg=cfg)
-            lm_h, _ = log_mel_tiles_cuda(xp, seq_len, fp64_tables, cfg=cfg)
-            lm_64 = frontend_fp64_logmel(torch, xp, cfg, mel)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all())
-                  and bool(torch.isfinite(lm_k).all()), f"{what}: non-finite")
-            check(got.shape == want.shape
-                  and bool((got_len == want_len).all()),
-                  f"{what}: shape or seq_len differs from the plain version")
-            m_p = mel_power(torch, lm_p, cfg)
-            mel_err = float(((mel_power(torch, lm_k, cfg) - m_p).abs()
-                             / m_p.amax(-1, keepdim=True)).max())
-            check(mel_err <= FAST_MEL_TOL, f"{what}: mel power {mel_err} of "
-                  f"the frame's largest > {FAST_MEL_TOL}")
-            own = tile_partials(lm_k, seq_len)
-            p_err = float((parts_k - own).abs().max() / own.abs().max())
-            check(p_err <= FRONTEND_PARTS_RTOL, f"{what}: partials {p_err} "
-                  "of the largest of its own log-mel's")
-            lm_err = float((lm_k - lm_p).abs().max())
-            for key, v in (("mel", mel_err), ("logmel", lm_err),
-                           ("parts", p_err)):
-                worst[key] = max(worst[key], v)
-            d64 = {}
-            for name, lm in (("kernel", lm_k), ("plain", lm_p),
-                             ("fp32 kernel", lm_h)):
-                d = (lm.double() - lm_64).abs().flatten()
-                q = torch.quantile(d.float(),
-                                   torch.tensor([0.5, 0.99], device=dev))
-                d64[name] = (float(q[0]), float(q[1]), float(d.max()))
+        else:
+            lens = np.asarray(fixed, np.int32)
+        lens = torch.from_numpy(lens).to(dev)
+        got, got_len = fused_log_mel_features(
+            sig, lens, cfg=cfg, tables=tables, precision="default")
+        want, want_len = fused_log_mel_features_plain(
+            sig, lens, cfg=cfg, dft_matrix=dft, mel_matrix=mel,
+            precision="default")
+        xp = preemphasize_and_pad(sig, cfg).contiguous()
+        seq_len = feature_seq_len(lens, cfg.hop_length)
+        lm_k, parts_k = log_mel_tiles_fast_cuda(xp, seq_len, tables,
+                                                cfg=cfg)
+        plan = fast_plan(cfg)
+        blocks = log_mel_tiles_fast_cuda.last_blocks
+        lm_p, _ = log_mel_tiles_fast_plain(xp, seq_len, dft, mel,
+                                           cfg=cfg)
+        lm_h, _ = log_mel_tiles_cuda(xp, seq_len, fp64_tables, cfg=cfg)
+        lm_64 = frontend_fp64_logmel(torch, xp, cfg, mel)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all())
+              and bool(torch.isfinite(lm_k).all()), f"{what}: non-finite")
+        check(got.shape == want.shape
+              and bool((got_len == want_len).all()),
+              f"{what}: shape or seq_len differs from the plain version")
+        m_p = mel_power(torch, lm_p, cfg)
+        mel_err = float(((mel_power(torch, lm_k, cfg) - m_p).abs()
+                         / m_p.amax(-1, keepdim=True)).max())
+        check(mel_err <= FAST_MEL_TOL, f"{what}: mel power {mel_err} of "
+              f"the frame's largest > {FAST_MEL_TOL}")
+        own = tile_partials(lm_k, seq_len)
+        p_err = float((parts_k - own).abs().max() / own.abs().max())
+        check(p_err <= FRONTEND_PARTS_RTOL, f"{what}: partials {p_err} "
+              "of the largest of its own log-mel's")
+        lm_err = float((lm_k - lm_p).abs().max())
+        for key, v in (("mel", mel_err), ("logmel", lm_err),
+                       ("parts", p_err)):
+            worst[key] = max(worst[key], v)
+        d64 = {}
+        for name, lm in (("kernel", lm_k), ("plain", lm_p),
+                         ("fp32 kernel", lm_h)):
+            d = (lm.double() - lm_64).abs().flatten()
+            q = torch.quantile(d.float(),
+                               torch.tensor([0.5, 0.99], device=dev))
+            d64[name] = (float(q[0]), float(q[1]), float(d.max()))
 
-            t_out = lm_k.shape[1]
-            n_tiles = -(-t_out // FRAMES_PER_TILE)
-            ms, seen, ev_ms = kernel_ms(lambda: log_mel_tiles_fast_cuda(
-                xp, seq_len, tables, cfg=cfg), "logmel_fast_kernel")
-            bound, bound_by = frontend_fast_bound(
-                cfg, tables, mel, bsz, xp.shape[1], t_out, n_tiles)
-            by_shape[f"{n_mels}x{bsz}x{seconds}s"] = ms
-            print(f"{what}: mel power vs plain {mel_err:.3e} of the frame's "
-                  f"largest, log-mel {lm_err:.3e}, partials {p_err:.3e}; "
-                  "|d log-mel| from fp64 p50/p99/max: " + ", ".join(
-                      f"{k} {a:.3e}/{b:.3e}/{c:.3e}"
-                      for k, (a, b, c) in d64.items())
-                  + f"; kernel {ms:.4f} ms ({seen:g} launches per call "
-                  f"traced; events {ev_ms:.4f}), bound {bound:.4f} ms by "
-                  f"{bound_by}")
-            if n_mels != 64 or (bsz, seconds) not in ((8, 16.7), (32, 16.7)):
-                continue
-            plain_ms = device_ms(lambda: log_mel_tiles_fast_plain(
-                xp, seq_len, dft, mel, cfg=cfg))
-            dft16, mel16 = dft.to(torch.bfloat16), mel.to(torch.bfloat16)
-            comp_ms = device_ms(lambda: frontend_fast_composition(
-                torch, xp, cfg, dft16, mel16))
-            print(f"  B={bsz} x {seconds} s ({bsz * t_out} frames): plain "
-                  f"{plain_ms:.4f} ms, composition_ms {comp_ms:.4f} (bf16 "
-                  "torch.matmul frames @ DFT + |X|^2 + bf16 mel matmul + "
-                  "log)")
-            if bsz == 8:
-                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=bound_by, composition_ms=comp_ms)
-            else:
-                row.update(ms_b32=ms, plain_ms_b32=plain_ms,
-                           bound_ms_b32=bound, composition_ms_b32=comp_ms)
+        t_out = lm_k.shape[1]
+        n_tiles = -(-t_out // FRAMES_PER_TILE)
+        ms, seen, ev_ms = kernel_ms(lambda: log_mel_tiles_fast_cuda(
+            xp, seq_len, tables, cfg=cfg), "logmel_fast_kernel")
+        bound, bound_by = frontend_fast_bound(
+            cfg, tables, mel, bsz, xp.shape[1], t_out, n_tiles)
+        by_shape[f"{n_mels}x{bsz}x{seconds}s" if hop == 160 else
+                 f"{n_mels}x{bsz}x{seconds}s_hop{hop}"] = ms
+        print(f"{what}: plan {plan.frames} frames a block, {plan.stages} "
+              f"stages of {plan.chunk_cols} DFT columns, {plan.smem} bytes "
+              f"of shared memory, {blocks} blocks; mel power vs plain "
+              f"{mel_err:.3e} of the frame's largest, log-mel {lm_err:.3e}, "
+              f"partials {p_err:.3e}; |d log-mel| from fp64 p50/p99/max: "
+              + ", ".join(f"{k} {a:.3e}/{b:.3e}/{c:.3e}"
+                          for k, (a, b, c) in d64.items())
+              + f"; kernel {ms:.4f} ms ({seen:g} launches per call "
+              f"traced; events {ev_ms:.4f}), bound {bound:.4f} ms by "
+              f"{bound_by}")
+        if n_mels != 64 or hop != 160 or fixed is not None \
+                or (bsz, seconds) not in ((8, 16.7), (32, 16.7)):
+            continue
+        plain_ms = device_ms(lambda: log_mel_tiles_fast_plain(
+            xp, seq_len, dft, mel, cfg=cfg))
+        dft16, mel16 = dft.to(torch.bfloat16), mel.to(torch.bfloat16)
+        comp_ms = device_ms(lambda: frontend_fast_composition(
+            torch, xp, cfg, dft16, mel16))
+        print(f"  B={bsz} x {seconds} s ({bsz * t_out} frames): plain "
+              f"{plain_ms:.4f} ms, composition_ms {comp_ms:.4f} (bf16 "
+              "torch.matmul frames @ DFT + |X|^2 + bf16 mel matmul + "
+              "log)")
+        if bsz == 8:
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by, composition_ms=comp_ms,
+                       plan={"frames_per_block": plan.frames,
+                             "stages": plan.stages,
+                             "chunk_cols": plan.chunk_cols,
+                             "smem_bytes": plan.smem, "blocks": blocks})
+        else:
+            row.update(ms_b32=ms, plain_ms_b32=plain_ms,
+                       bound_ms_b32=bound, composition_ms_b32=comp_ms)
     print(f"bf16 frontend: worst mel power {worst['mel']:.3e} of the "
           f"frame's largest (tol {FAST_MEL_TOL}), log-mel "
-          f"{worst['logmel']:.3e}, partials {worst['parts']:.3e}")
+          f"{worst['logmel']:.3e}, partials {worst['parts']:.3e} over "
+          f"{len(shapes)} shapes")
     return {"name": "frontend_fast", "route": "cuda",
             "source": "vietasr_tpu_torch/csrc/frontend_fast.cu",
             "replaces": "vietasr_tpu/frontend/pallas_frontend.py:51",

@@ -42,9 +42,11 @@ from vietasr_tpu.frontend.mel import mel_filterbank as jax_mel_filterbank
 from vietasr_tpu.frontend.pallas_frontend import \
     fused_log_mel_features as jax_fused
 from vietasr_tpu_torch.frontend.cuda_frontend import (
-    FAST_BINS, FRAMES_PER_TILE, fast_mel_power_plain, fast_rows,
-    fast_tables, fused_log_mel_features, fused_log_mel_features_plain,
-    log_mel_tiles_fast_plain, make_fused_featurizer, tile_partials)
+    FAST_BINS, FRAMES_PER_TILE, fast_dft_offset, fast_mel_offset,
+    fast_mel_power_plain, fast_plan, fast_plan_smem, fast_rows,
+    fast_shape_plan, fast_tables, fused_log_mel_features,
+    fused_log_mel_features_plain, log_mel_tiles_fast_plain,
+    make_fused_featurizer, tile_partials)
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix, _window_full,
                                                  _windowed_dft_matrix,
@@ -115,6 +117,25 @@ def _hold(got, want):
     return float(rel.max()), float(np.quantile(rel, 0.999))
 
 
+def _dft_operand(tables):
+    """fast_tables' DFT operand read through fast_dft_offset: (2 *
+    FAST_BINS, k_rows), column 2 b + 1 the imaginary part of bin b."""
+    cols, ks = np.meshgrid(np.arange(2 * FAST_BINS), np.arange(tables.k_rows),
+                           indexing="ij")
+    return tables.dft[torch.from_numpy(
+        fast_dft_offset(cols, ks, tables.k_rows))]
+
+
+def _mel_operand(tables, n_mels):
+    """fast_tables' mel bands read through fast_mel_offset:
+    (ceil(n_mels / 8) * 8, FAST_BINS), zeros outside the held blocks."""
+    ms, bins = np.meshgrid(np.arange(-(-n_mels // 8) * 8),
+                           np.arange(FAST_BINS), indexing="ij")
+    off = torch.from_numpy(fast_mel_offset(ms, bins, tables.mel_bands))
+    return torch.where(off >= 0, tables.mel[off.clamp_min(0)],
+                       torch.zeros((), dtype=tables.mel.dtype))
+
+
 def _cfgs(overrides):
     return (JaxFeatCfg(dither=0.0, **overrides),
             FeaturizerConfig(dither=0.0, **overrides))
@@ -149,10 +170,11 @@ def test_fast_kernel_operands_emulate_the_plain_version(overrides, bsz,
     assert k_lo % 8 == 0 and k_rows % 16 == 0 and k_rows <= 320
     rows = xp.to(torch.bfloat16).double().unfold(
         1, cfg.fft_length, cfg.hop_length)[..., k_lo:k_lo + k_rows]
-    spec = rows @ tables.dft.double().T                   # (B, T, 544)
+    spec = rows @ _dft_operand(tables).double().T         # (B, T, 544)
     re, im = spec[..., 0::2].float(), spec[..., 1::2].float()
     power = (re * re + im * im).to(torch.bfloat16).double()
-    got = (power @ tables.mel.double().T)[..., :cfg.features]
+    got = (power @ _mel_operand(tables, cfg.features).double().T
+           )[..., :cfg.features]
     want = fast_mel_power_plain(
         xp, torch.from_numpy(_windowed_dft_matrix(cfg)),
         torch.from_numpy(_mel_matrix(cfg)), cfg=cfg).double().numpy()
@@ -174,17 +196,126 @@ def test_fast_tables_hold_the_plain_operands(overrides):
     assert not dft[:k_lo].any() and not dft[k_lo + k_rows:].any()
     tables = fast_tables(cfg)
     n_bins = cfg.fft_length // 2 + 1
-    op = tables.dft.float().numpy().T.reshape(k_rows, FAST_BINS, 2)
+    assert tables.dft.shape == (2 * FAST_BINS * k_rows,)
+    op = _dft_operand(tables).float().numpy().T.reshape(k_rows, FAST_BINS,
+                                                         2)
     np.testing.assert_array_equal(op[:, :n_bins, 0],
                                   _bf16(dft[k_lo:k_lo + k_rows, :n_bins]))
     np.testing.assert_array_equal(op[:, :n_bins, 1],
                                   _bf16(dft[k_lo:k_lo + k_rows, n_bins:]))
     assert not op[:, n_bins:].any()
-    mel = tables.mel.float().numpy()
+    mel = _mel_operand(tables, cfg.features).float().numpy()
     assert mel.shape == (-(-cfg.features // 8) * 8, FAST_BINS)
     np.testing.assert_array_equal(mel[:cfg.features, :n_bins],
                                   _bf16(_mel_matrix(cfg).T))
     assert not mel[cfg.features:].any() and not mel[:, n_bins:].any()
+
+
+@pytest.mark.parametrize("k_rows", [16, 320])
+def test_fast_layouts_are_the_kernels_stages_and_fragments(k_rows):
+    """fast_dft_offset and fast_mel_offset are one-to-one onto their
+    tables. Each 32-column chunk of the DFT operand is one contiguous ring
+    stage: 8 x 8 core matrices of 128 bytes, 8 columns apart by 128 bytes
+    (the descriptor's SBO) and 8 rows of k apart by 512 (its LBO), the 16
+    rows of a k16 step 1,024 bytes on. Each (8-mel tile, 16-bin step) of
+    the mel matrix held is 256 contiguous bytes, lane l's 8 of them holding
+    mma.sync's B fragment of mel l // 4 and bins 2 (l % 4) (+1, +8, +9)."""
+    cols, ks = np.meshgrid(np.arange(2 * FAST_BINS), np.arange(k_rows),
+                           indexing="ij")
+    off = fast_dft_offset(cols, ks, k_rows)
+    assert np.array_equal(np.sort(off.ravel()),
+                          np.arange(2 * FAST_BINS * k_rows))
+    stage = 32 * k_rows
+    assert np.array_equal(off // stage, cols // 32)
+    core = 2 * (off % stage) // 128               # bytes // 128
+    assert np.array_equal(core, (ks // 8) * 4 + (cols % 32) // 8)
+    assert np.array_equal(2 * (off % 64), (cols % 8) * 16 + (ks % 8) * 2)
+    assert np.array_equal(2 * (off[:, 16:] - off[:, :-16]), np.full(
+        (2 * FAST_BINS, k_rows - 16), 1024))
+    ms, bins = np.meshgrid(np.arange(128), np.arange(FAST_BINS),
+                           indexing="ij")
+    moff = fast_mel_offset(ms, bins, ((0, FAST_BINS // 16),) * 16)
+    assert np.array_equal(np.sort(moff.ravel()), np.arange(128 * FAST_BINS))
+    run = moff // 128                             # 256-byte runs
+    assert np.array_equal(run, (ms // 8) * (FAST_BINS // 16) + bins // 16)
+    lane, word = (moff % 128) // 4, (moff % 4) // 2
+    assert np.array_equal(lane, (ms % 8) * 4 + (bins % 8) // 2)
+    assert np.array_equal(word, (bins % 16) // 8)
+    assert np.array_equal(moff % 2, bins % 2)
+
+
+@pytest.mark.parametrize("features", [1, 64, 80, 128])
+def test_fast_mel_bands_hold_every_tap(features):
+    """fast_tables holds, for each 8-mel tile of the bf16 filterbank, the
+    16-bin blocks from its first to its last with a tap, one tile after
+    another; every entry it leaves out is zero (24 of 136 blocks held at
+    64 mels)."""
+    cfg = FeaturizerConfig(dither=0.0, features=features)
+    tables = fast_tables(cfg)
+    mel8 = -(-features // 8) * 8
+    want = np.zeros((mel8, FAST_BINS), np.float32)
+    want[:features, :cfg.fft_length // 2 + 1] = _bf16(_mel_matrix(cfg).T)
+    held = want.reshape(mel8 // 8, 8, FAST_BINS // 16, 16).any((1, 3))
+    for t, (lo, n) in enumerate(tables.mel_bands):
+        steps = np.flatnonzero(held[t])
+        assert (lo, n) == (steps[0], steps[-1] - steps[0] + 1)
+    blocks = sum(n for _, n in tables.mel_bands)
+    assert tables.mel.numel() == 128 * blocks
+    assert np.array_equal(_mel_operand(tables, features).float().numpy(),
+                          want)
+    ms, bins = np.meshgrid(np.arange(mel8), np.arange(FAST_BINS),
+                           indexing="ij")
+    off = fast_mel_offset(ms, bins, tables.mel_bands)
+    assert np.array_equal(np.sort(off[off >= 0]),
+                          np.arange(tables.mel.numel()))
+    if features == 64:
+        assert blocks == 24
+
+
+# every hop the kernel takes, at the mel counts and DFT row counts at the
+# ends of its reach (k_rows 320 is the 20 ms window)
+PLAN_SHAPES = [(hop, n_mels, k_rows) for hop in range(8, 513, 8)
+               for n_mels in (1, 64, 80, 128) for k_rows in (16, 320)]
+
+
+@pytest.mark.parametrize("hop,n_mels,k_rows", PLAN_SHAPES)
+def test_fast_plan_fits_every_shape_of_its_reach(hop, n_mels, k_rows):
+    """Every shape the kernel took before its plan existed gets a plan that
+    fits an H100 block's shared memory, with whole 64-frame warpgroups and
+    a ring of at least 2 stages (the kernel holds 320 DFT rows, zero past
+    the window's); the plan's bytes are fast_plan_smem's."""
+    plan = fast_shape_plan(512, hop, n_mels, k_rows)
+    assert plan is not None
+    assert plan.frames in (64, 128) and plan.chunk_cols == 32
+    assert 2 <= plan.stages <= 8
+    assert plan.smem == fast_plan_smem(hop, plan.frames, plan.stages)
+    assert plan.smem <= 232448
+    assert fast_plan_smem(hop, plan.frames, plan.stages + 1) > 232448 \
+        or plan.stages == 8
+    if plan.frames == 64:          # 128 frames leave no room for 3 stages
+        assert fast_plan_smem(hop, 128, 3) > 232448
+
+
+@pytest.mark.parametrize("n_fft,hop,n_mels,k_rows", [
+    (1024, 160, 64, 320), (512, 0, 64, 320), (512, 4, 64, 320),
+    (512, 164, 64, 320), (512, 520, 64, 320), (512, 160, 0, 320),
+    (512, 160, 129, 320), (512, 160, 64, 0), (512, 160, 64, 24),
+    (512, 160, 64, 336), (512, 160, 64, 400)])
+def test_fast_plan_refuses_shapes_outside_its_reach(n_fft, hop, n_mels,
+                                                    k_rows):
+    assert fast_shape_plan(n_fft, hop, n_mels, k_rows) is None
+
+
+def test_fast_plan_of_the_shipped_configs():
+    """The vi config (64 mels, hop 160, the 20 ms window's 320 rows) and
+    its 80-mel twin: 128 frames a block, a 5-stage ring; a 25 ms window
+    (400 rows) and a hop that is no multiple of 8 get none."""
+    for features in (64, 80):
+        plan = fast_plan(FeaturizerConfig(dither=0.0, features=features))
+        assert (plan.frames, plan.stages) == (128, 5)
+    assert fast_plan(FeaturizerConfig(dither=0.0, window_size=0.025)) is None
+    assert fast_plan(FeaturizerConfig(dither=0.0,
+                                      window_stride=0.0101)) is None
 
 
 @pytest.mark.parametrize("overrides,bsz,seconds,seed", CASES)

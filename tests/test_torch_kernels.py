@@ -29,10 +29,10 @@ import pytest
 import torch
 
 from vietasr_tpu_torch.frontend.cuda_frontend import (
-    FRAMES_PER_TILE, fast_tables, fft_tables, fused_log_mel_features,
-    fused_log_mel_features_plain, log_mel_tiles_cuda,
-    log_mel_tiles_fast_cuda, log_mel_tiles_fast_plain, log_mel_tiles_plain,
-    tile_partials)
+    FRAMES_PER_TILE, FastPlan, fast_plan, fast_plan_smem, fast_tables,
+    fft_tables, fused_log_mel_features, fused_log_mel_features_plain,
+    log_mel_tiles_cuda, log_mel_tiles_fast_cuda, log_mel_tiles_fast_plain,
+    log_mel_tiles_plain, tile_partials)
 from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  _mel_matrix, _window_full,
                                                  _windowed_dft_matrix,
@@ -203,22 +203,25 @@ FAST_CASES = [(1, 2.0, 64, None), (4, 5.3, 64, None), (2, 1.3, 80, None),
               (3, 0.7, 80, [11200, 1, 0])]
 
 
-def _fast_case(bsz, seconds, features, lens):
+def _fast_case(bsz, seconds, features, lens, hop=160):
     sig, ragged = _frontend_audio(bsz, seconds, features)
     if lens is not None:
         ragged = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    return FeaturizerConfig(dither=0.0, features=features), sig, ragged
+    return (FeaturizerConfig(dither=0.0, features=features,
+                             window_stride=hop / 16000), sig, ragged)
 
 
 def _mel_power(logmel, cfg):
     return torch.exp(logmel.double()) - cfg.log_zero_guard_value
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bsz,seconds,features,lens", FAST_CASES)
-def test_frontend_fast_kernel_matches_plain(bsz, seconds, features, lens):
-    _need_gpu()
-    cfg, sig, lens = _fast_case(bsz, seconds, features, lens)
+def _hold_fast_kernel(cfg, sig, lens, plan=None):
+    """The bf16 kernel (under `plan`, default fast_plan) vs its plain
+    version: one launch through fused_log_mel_features and none of the
+    fp64 kernel, seq_len and shapes equal, finite features, the mel power
+    within FAST_MEL_TOL of each frame's largest, the partials those of its
+    own log-mel."""
+    bsz, features = sig.shape[0], cfg.features
     launches = log_mel_tiles_fast_cuda.launches
     fp64_launches = fused_log_mel_features.launches
     got, got_len = fused_log_mel_features(sig, lens, cfg=cfg,
@@ -236,7 +239,7 @@ def test_frontend_fast_kernel_matches_plain(bsz, seconds, features, lens):
     seq_len = feature_seq_len(lens, cfg.hop_length)
     lm_k, parts_k = log_mel_tiles_fast_cuda(xp, seq_len,
                                             fast_tables(cfg, "cuda"),
-                                            cfg=cfg)
+                                            cfg=cfg, plan=plan)
     lm_p, parts_p = log_mel_tiles_fast_plain(xp, seq_len, dft, mel,
                                              cfg=cfg)
     want_mel = _mel_power(lm_p, cfg)
@@ -252,6 +255,42 @@ def test_frontend_fast_kernel_matches_plain(bsz, seconds, features, lens):
         <= 1e-5 * float(own.abs().max())
     empty = seq_len == 0
     assert not parts_k[empty].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,seconds,features,lens", FAST_CASES)
+def test_frontend_fast_kernel_matches_plain(bsz, seconds, features, lens):
+    _need_gpu()
+    _hold_fast_kernel(*_fast_case(bsz, seconds, features, lens))
+
+
+# (hop, B, seconds, mels, lengths): the largest hop the launch plan takes
+# with 64 mels (64-frame blocks), and B = 3 with rows whose frames end
+# inside a 128-frame block and inside a 16-frame partials tile
+FAST_PLAN_CASES = [(512, 2, 8.0, 64, None),
+                   (160, 3, 16.7, 64, [267200, 69317, 36800])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop,bsz,seconds,features,lens", FAST_PLAN_CASES)
+def test_frontend_fast_kernel_matches_plain_at_the_plans_edges(
+        hop, bsz, seconds, features, lens):
+    _need_gpu()
+    cfg, sig, lens = _fast_case(bsz, seconds, features, lens, hop)
+    assert fast_plan(cfg).frames == (64 if hop == 512 else 128)
+    _hold_fast_kernel(cfg, sig, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,stages", [(64, 2), (64, 4), (64, 7)])
+def test_frontend_fast_kernel_matches_plain_under_other_plans(frames,
+                                                              stages):
+    """The vi config under plans fast_plan does not pick for it: the
+    results do not depend on the frames a block or the ring's depth."""
+    _need_gpu()
+    cfg, sig, lens = _fast_case(4, 5.3, 64, [84800, 0, 1, 40001])
+    _hold_fast_kernel(cfg, sig, lens, FastPlan(
+        frames, 32, stages, fast_plan_smem(cfg.hop_length, frames, stages)))
 
 
 @pytest.mark.cuda

@@ -16,8 +16,9 @@ B, A). The inputs come from this checkout's chip_smoke.py:
     featurizer builds (the DFT kernel's packed matrix or the FFT kernel's
     tables);
   - the bf16 frontend kernel alone (fused_frontend="fast") at B = 1 x
-    2.0 s (four 64-frame tiles, one block each), B = 8 x 16.7 s and B =
-    32 x 16.7 s, on the same inputs as the frontend kernel, by
+    2.0 s (one block per tile: two 128-frame tiles of the wgmma kernel,
+    four 64-frame ones of the mma.sync kernel it replaced), B = 8 x 16.7 s
+    and B = 32 x 16.7 s, on the same inputs as the frontend kernel, by
     `chip_smoke.event_ms` (`frontend_fast_{B}x{s}s_ms`);
   - the beam kernel alone at its phase-6 timing shape (seeded blank-heavy
     log-probs B = 8, T = 840, V+1 = 91, ragged lengths, W = 100, top-8,

@@ -3,8 +3,8 @@ ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers) and is
 compiled on its own into `_build/<name>-<hash>.so`, where the hash covers
-the source and the flags, so an edited source builds anew and an
-unchanged one is reused. Sources build in parallel, one nvcc each.
+the source, the headers beside it (`csrc/*.cuh`) and the flags, so an
+edited source or header builds anew and an unchanged one is reused. Sources build in parallel, one nvcc each.
 Pointers and the CUDA stream cross the boundary as `c_void_p`; every C
 entry returns `cudaGetLastError()` after its launch.
 
@@ -51,9 +51,16 @@ def source_path(name: str) -> str:
 
 
 def lib_path(name: str) -> str:
+    """The library of csrc/<name>.cu, named by a hash of the source, every
+    header beside it (csrc/*.cuh, which a source may include) and the
+    flags: an edited header builds anew too."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f)
+                                       for f in headers]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

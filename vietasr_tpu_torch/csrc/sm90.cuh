@@ -1,0 +1,116 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// bulk asynchronous copies that complete on them, and wgmma with its
+// shared-memory descriptor. Each wraps one PTX instruction (or a wait loop
+// around one); a kernel includes this header and keeps its own layouts.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// spin until the phase of parity `parity` has completed; a wait longer
+// than 2^34 SM cycles (~9 s) traps, so that a copy that never lands fails
+// the launch with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+// one bulk copy global -> shared that completes on mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the wgmma shared-memory descriptor of a K-major operand without swizzle
+// at `addr`: core matrices of 8 rows x 16 bytes (128 contiguous bytes),
+// `lbo` bytes apart along k and `sbo` bytes apart along the rows
+__device__ __forceinline__ unsigned long long gmma_desc_k(unsigned addr,
+                                                          unsigned lbo,
+                                                          unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         ((unsigned long long)(lbo >> 4) << 16) |
+         ((unsigned long long)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the accumulators' reads and writes on their side of a wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a (64 x 16 bf16, registers: the m16k16 fragment of each warp's 16
+// rows) * b (16 x 32 bf16, shared memory by descriptor), fp32; scale_d 0
+// overwrites d
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const unsigned* a,
+                                          unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(SCALE_D));
+}
+
+}  // namespace

@@ -57,7 +57,15 @@ TWIDDLE_ROWS = 16 * 16 + 8 * 16   # TW_ROWS: W256^(l k1), W512^(l + 16 k2)
 TAP_BASE = 20                 # TAP_BASE: mel_index's run starts, padded
 MAX_MELS = 128                # MAX_MELS
 FAST_BINS = 272               # BINS in csrc/frontend_fast.cu: 257 padded
-FAST_MAX_ROWS = 320           # 16 * MAX_KSTEPS: DFT rows the kernel holds
+FAST_MAX_ROWS = 320           # KROWS: DFT rows the kernel holds
+FAST_CHUNK_COLS = 32          # CHUNK_COLS: DFT columns a ring stage holds
+FAST_MAX_STAGES = 8           # MAX_STAGES
+FAST_WG_FRAMES = 64           # WG_FRAMES: frames a consumer warpgroup takes
+FAST_MEL_KSTEPS = FAST_BINS // 16   # MEL_KSTEPS: k16 steps of power @ mel
+# MAX_MEL_BLOCKS: the filterbank's bands' 256-byte blocks ride one ring stage
+FAST_MAX_MEL_BLOCKS = FAST_CHUNK_COLS * FAST_MAX_ROWS * 2 // 256
+_FAST_BAR_BYTES = 256         # BAR_BYTES: the ring's and samples' mbarriers
+_FAST_POWER_PITCH = FAST_BINS + 8   # PP: the power tile's row pitch (bf16)
 PRECISIONS = ("highest", "default")
 
 
@@ -314,32 +322,88 @@ def log_mel_tiles_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
 
 class FastTables(NamedTuple):
     """The bf16 kernel's constants for one config (fast_tables)."""
-    dft: torch.Tensor    # (2 * FAST_BINS, k_rows) bf16: DFT rows, transposed
-    mel: torch.Tensor    # (ceil(n_mels / 8) * 8, FAST_BINS) bf16
+    dft: torch.Tensor    # (2 * FAST_BINS * k_rows,) bf16: fast_dft_offset
+    mel: torch.Tensor    # (128 * blocks,) bf16: the filterbank's bands'
+    #                      blocks, fast_mel_offset
+    mel_bands: tuple     # per 8-mel tile (first k16 step, steps)
     k_lo: int            # the first DFT row held (a multiple of 8)
     k_rows: int          # rows held (a multiple of 16)
 
 
 def fast_rows(cfg: FeaturizerConfig):
-    """(k_lo, k_rows): the DFT rows the bf16 kernel multiplies, the
-    window's nonzero samples widened to a multiple-of-8 start and a
-    multiple-of-16 count (rows 96..415 for the 20 ms Hann window in 512),
-    kept inside the frame. The other rows of the windowed DFT matrix are
-    zero."""
+    """(k_lo, k_rows): the DFT rows the bf16 kernel multiplies, from a
+    multiple-of-8 start: the window's nonzero samples widened to the
+    FAST_MAX_ROWS rows the kernel always holds (rows 96..415 for the 20 ms
+    Hann window in 512), kept inside the frame, or, for a window longer
+    than that, its nonzero rows widened to a multiple of 16 (more than the
+    kernel takes). The other rows of the windowed DFT matrix are zero."""
     n_fft = cfg.fft_length
     nz = np.flatnonzero(_window_full(cfg).astype(np.float32))
     k_lo = int(nz[0]) // 8 * 8
-    k_rows = -(-(int(nz[-1]) + 1 - k_lo) // 16) * 16
+    k_rows = max(FAST_MAX_ROWS, -(-(int(nz[-1]) + 1 - k_lo) // 16) * 16)
     return min(k_lo, (n_fft - k_rows) // 8 * 8), k_rows
+
+
+def fast_dft_offset(col, k, k_rows: int):
+    """Offset in fast_tables' `dft` of the DFT operand's entry (column col,
+    held row k), elementwise over numpy arrays. Column 2 b is the real part
+    of bin b, 2 b + 1 its imaginary part; row k is DFT row k_lo + k. The
+    table is the kernel's ring stages one after another, as each is copied
+    whole: chunk col // FAST_CHUNK_COLS, then within it the wgmma B operand
+    K-major without swizzle, core matrices of 8 columns x 8 rows (8 x 16
+    bytes, a column's 8 rows contiguous) with the column groups of one
+    8-row slice of k side by side."""
+    col, k = np.asarray(col), np.asarray(k)
+    chunk, n = col // FAST_CHUNK_COLS, col % FAST_CHUNK_COLS
+    core = (k // 8) * (FAST_CHUNK_COLS // 8) + n // 8
+    return chunk * FAST_CHUNK_COLS * k_rows + core * 64 + (n % 8) * 8 + k % 8
+
+
+def fast_mel_bands(mel_t: np.ndarray) -> tuple:
+    """(ceil(n_mels / 8) * 8, FAST_BINS) transposed filterbank -> per 8-mel
+    tile, the band (first k16 step, steps) of the 16-bin steps from its
+    first to its last that hold a nonzero of it: the blocks the kernel
+    multiplies ((0, 0) for a tile of zeros). A banded filterbank leaves
+    most blocks out (24 of 136 at 64 mels)."""
+    tiles = mel_t.shape[0] // 8
+    nz = (mel_t.reshape(tiles, 8, FAST_MEL_KSTEPS, 16) != 0).any((1, 3))
+    bands = []
+    for t in range(tiles):
+        steps = np.flatnonzero(nz[t])
+        bands.append((int(steps[0]), int(steps[-1] - steps[0] + 1))
+                     if steps.size else (0, 0))
+    return tuple(bands)
+
+
+def fast_mel_offset(m, k, bands):
+    """Offset in fast_tables' `mel` of the filterbank's entry (mel m, bin
+    k), elementwise over numpy arrays; -1 outside its 8-mel tile's band
+    (all zeros). The bands' 16-bin x 8-mel blocks lie by tile and then
+    16-bin step, 256 bytes each: mma.sync m16n8k16's B fragments as the
+    kernel loads them, lane n * 4 + (k % 8) // 2 holding bins k % 16 and
+    k % 16 + 1 of mel n in its first 4 bytes for k % 16 < 8, in its second
+    4 bytes for the bins 8 further on."""
+    m, k = np.asarray(m), np.asarray(k)
+    lo = np.array([b[0] for b in bands])
+    n = np.array([b[1] for b in bands])
+    first = np.concatenate([[0], np.cumsum(n)[:-1]])
+    t, step = m // 8, k // 16
+    inside = (step >= lo[t]) & (step < lo[t] + n[t])
+    block = first[t] + step - lo[t]
+    kk = k % 16
+    lane = (m % 8) * 4 + (kk % 8) // 2
+    off = ((block * 32 + lane) * 2 + kk // 8) * 2 + kk % 2
+    return np.where(inside, off, -1)
 
 
 def fast_tables(cfg: FeaturizerConfig, device=None) -> FastTables:
     """The bf16 kernel's constants for cfg, on `device`: the fp32 windowed
     DFT matrix's rows fast_rows(cfg), re and im of each bin in adjacent
-    columns, bins zero-padded to FAST_BINS, transposed and rounded to
-    bf16; the fp32 mel matrix zero-padded, transposed and rounded to
-    bf16. These are the values the plain version rounds the same matrices
-    to."""
+    columns, bins zero-padded to FAST_BINS, rounded to bf16 and laid out by
+    fast_dft_offset; the fp32 mel matrix zero-padded to whole 8-mel tiles
+    and FAST_BINS bins, rounded to bf16, the blocks of its bands
+    (fast_mel_bands) laid out by fast_mel_offset.
+    These are the values the plain version rounds the same matrices to."""
     n_fft = cfg.fft_length
     n_bins = n_fft // 2 + 1
     k_lo, k_rows = fast_rows(cfg)
@@ -347,43 +411,112 @@ def fast_tables(cfg: FeaturizerConfig, device=None) -> FastTables:
     op = np.zeros((k_rows, FAST_BINS, 2), np.float32)
     op[:, :n_bins, 0] = dft[:, :n_bins]
     op[:, :n_bins, 1] = dft[:, n_bins:]
-    mel = _mel_matrix(cfg)                                  # (nb, n_mels)
-    mel_t = np.zeros((-(-cfg.features // 8) * 8, FAST_BINS), np.float32)
-    mel_t[:cfg.features, :n_bins] = mel.T
+    cols, ks = np.meshgrid(np.arange(2 * FAST_BINS), np.arange(k_rows),
+                           indexing="ij")
+    dft_flat = np.zeros(2 * FAST_BINS * k_rows, np.float32)
+    dft_flat[fast_dft_offset(cols, ks, k_rows)] = op.reshape(
+        k_rows, 2 * FAST_BINS).T
+    mel8 = -(-cfg.features // 8) * 8
+    mel_t = np.zeros((mel8, FAST_BINS), np.float32)
+    mel_t[:cfg.features, :n_bins] = _mel_matrix(cfg).T
+    bands = fast_mel_bands(mel_t)
+    ms, bins = np.meshgrid(np.arange(mel8), np.arange(FAST_BINS),
+                           indexing="ij")
+    off = fast_mel_offset(ms, bins, bands)
+    mel_flat = np.zeros(128 * sum(n for _, n in bands), np.float32)
+    mel_flat[off[off >= 0]] = mel_t[off >= 0]
     dev = torch.device("cpu") if device is None else torch.device(device)
 
     def bf16(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(
-            torch.bfloat16)
+        return torch.as_tensor(a, device=dev).to(torch.bfloat16)
 
-    return FastTables(dft=bf16(op.reshape(k_rows, 2 * FAST_BINS).T),
-                      mel=bf16(mel_t), k_lo=k_lo, k_rows=k_rows)
+    return FastTables(dft=bf16(dft_flat), mel=bf16(mel_flat),
+                      mel_bands=bands, k_lo=k_lo, k_rows=k_rows)
+
+
+class FastPlan(NamedTuple):
+    """One launch of the bf16 kernel: blocks of `frames` frames (one
+    consumer warpgroup per 64), a ring of `stages` DFT chunks of
+    `chunk_cols` columns, `smem` bytes of dynamic shared memory."""
+    frames: int
+    chunk_cols: int
+    stages: int
+    smem: int
+
+
+def fast_plan_smem(hop: int, frames: int, stages: int) -> int:
+    """Shared memory of a launch (csrc/frontend_fast.cu::layout): the
+    mbarriers, `stages` chunks of FAST_CHUNK_COLS x FAST_MAX_ROWS bf16, a
+    tile's (frames - 1) * hop + FAST_MAX_ROWS bf16 samples with 8 bf16 of
+    pad after every hop of them when hop / 8 is even, and the bf16 power
+    tile of frames x (FAST_BINS + 8)."""
+    span = (frames - 1) * hop + FAST_MAX_ROWS
+    pad = 8 if (hop // 8) % 2 == 0 else 0
+    return (_FAST_BAR_BYTES + stages * FAST_CHUNK_COLS * FAST_MAX_ROWS * 2
+            + 2 * (span + (span - 1) // hop * pad)
+            + frames * _FAST_POWER_PITCH * 2)
+
+
+def fast_shape_plan(n_fft: int, hop: int, n_mels: int, k_rows: int
+                    ) -> Optional[FastPlan]:
+    """The launch plan for one shape, or None outside the kernel's reach
+    (n_fft 512, a hop from 8 to 512 that is a multiple of 8, 1 to 128 mels,
+    k_rows, the DFT rows the window needs, a multiple of 16 from 16 to
+    FAST_MAX_ROWS; the kernel holds FAST_MAX_ROWS, zero past the window's):
+    128 frames a block (two consumer warpgroups share each DFT chunk) while
+    a ring of at least 3 stages fits beside the tile's samples, else 64
+    frames with at least 2; the deepest ring up to FAST_MAX_STAGES that
+    fits an H100 block's shared memory."""
+    if not (n_fft == FFT_LENGTH and 8 <= hop <= FFT_LENGTH and hop % 8 == 0
+            and 1 <= n_mels <= MAX_MELS and 16 <= k_rows <= FAST_MAX_ROWS
+            and k_rows % 16 == 0):
+        return None
+    stage = FAST_CHUNK_COLS * FAST_MAX_ROWS * 2
+    for frames, least in ((2 * FAST_WG_FRAMES, 3), (FAST_WG_FRAMES, 2)):
+        room = _build.SMEM_LIMIT - fast_plan_smem(hop, frames, 0)
+        stages = min(FAST_MAX_STAGES, room // stage)
+        if stages >= least:
+            return FastPlan(frames, FAST_CHUNK_COLS, stages,
+                            fast_plan_smem(hop, frames, stages))
+    return None
+
+
+def fast_plan(cfg: FeaturizerConfig) -> Optional[FastPlan]:
+    """fast_shape_plan for cfg's DFT rows (fast_rows), or None."""
+    return fast_shape_plan(cfg.fft_length, cfg.hop_length, cfg.features,
+                           fast_rows(cfg)[1])
 
 
 @functools.lru_cache(maxsize=1)
 def _fast_lib() -> ctypes.CDLL:
     lib = _build.load("frontend_fast")
     got = (lib.vt_logmel_fast_frames_per_tile(), lib.vt_logmel_fast_bins(),
-           lib.vt_logmel_fast_max_rows())
-    if got != (FRAMES_PER_TILE, FAST_BINS, FAST_MAX_ROWS):
+           lib.vt_logmel_fast_max_rows(), lib.vt_logmel_fast_chunk_cols(),
+           lib.vt_logmel_fast_max_stages())
+    if got != (FRAMES_PER_TILE, FAST_BINS, FAST_MAX_ROWS, FAST_CHUNK_COLS,
+               FAST_MAX_STAGES):
         raise RuntimeError(
-            f"csrc/frontend_fast.cu PART / BINS / 16 * MAX_KSTEPS {got} "
-            "differ from cuda_frontend.py's FRAMES_PER_TILE / FAST_BINS / "
-            "FAST_MAX_ROWS")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vt_logmel_fast_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           i, i, i, ctypes.c_float, i, p]
+            f"csrc/frontend_fast.cu PART / BINS / 16 * MAX_KSTEPS / "
+            f"CHUNK_COLS / MAX_STAGES {got} differ from cuda_frontend.py's "
+            "FRAMES_PER_TILE / FAST_BINS / FAST_MAX_ROWS / FAST_CHUNK_COLS / "
+            "FAST_MAX_STAGES")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.vt_logmel_fast_forward.argtypes = [
+        p, p, p, p, ctypes.POINTER(i), i, p, p, i, i, i, i, i, i, i, i, i, i,
+        i, ll, ctypes.c_float, i, ctypes.POINTER(i), p]
     lib.vt_logmel_fast_forward.restype = i
-    lib.vt_logmel_fast_smem_bytes.argtypes = [i, i, i, i]
-    lib.vt_logmel_fast_smem_bytes.restype = ctypes.c_longlong
+    lib.vt_logmel_fast_plan_smem.argtypes = [i] * 6
+    lib.vt_logmel_fast_plan_smem.restype = ll
     return lib
 
 
 def log_mel_tiles_fast_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
-                            tables: FastTables, *, cfg: FeaturizerConfig):
+                            tables: FastTables, *, cfg: FeaturizerConfig,
+                            plan: Optional[FastPlan] = None):
     """The bf16 kernel: same contract as log_mel_tiles_fast_plain, CUDA
-    tensors only, with the config's constants from fast_tables. Counts its
-    launches in `.launches`."""
+    tensors only, with the config's constants from fast_tables, launched
+    by `plan` (default fast_plan(cfg)). Counts its launches in
+    `.launches`; `.last_blocks` is the last launch's grid."""
     n_fft, hop, n_mels = cfg.fft_length, cfg.hop_length, cfg.features
     if not isinstance(tables, FastTables):
         raise TypeError("bf16 frontend kernel: tables must be fast_tables' "
@@ -403,41 +536,55 @@ def log_mel_tiles_fast_cuda(xp: torch.Tensor, seq_len: torch.Tensor,
             raise ValueError(f"bf16 frontend kernel: {name} must be "
                              f"contiguous {dtype}, got {tsr.dtype}")
     k_lo, k_rows = tables.k_lo, tables.k_rows
+    mel_blocks = sum(n for _, n in tables.mel_bands)
     if (k_lo, k_rows) != fast_rows(cfg) \
-            or tables.dft.shape != (2 * FAST_BINS, k_rows) \
-            or tables.mel.shape != (-(-n_mels // 8) * 8, FAST_BINS) \
+            or tables.dft.shape != (2 * FAST_BINS * k_rows,) \
+            or len(tables.mel_bands) != -(-n_mels // 8) \
+            or tables.mel.shape != (128 * mel_blocks,) \
             or seq_len.shape != (bsz,) or sp < n_fft:
         raise ValueError("bf16 frontend kernel: tables / seq_len / xp "
                          "shapes do not match the config")
-    if tables.dft.data_ptr() % 16 or tables.mel.data_ptr() % 4:
-        raise ValueError("bf16 frontend kernel: the DFT rows must be "
-                         "16-byte aligned, the mel matrix 4-byte aligned")
-    lib = _fast_lib()
-    smem = lib.vt_logmel_fast_smem_bytes(n_fft, hop, n_mels, k_rows)
-    if not 0 < smem <= _build.SMEM_LIMIT:
+    if xp.data_ptr() % 16 or tables.dft.data_ptr() % 16 \
+            or tables.mel.data_ptr() % 8:
+        raise ValueError("bf16 frontend kernel: xp and the DFT operand must "
+                         "be 16-byte aligned, the mel fragments 8-byte")
+    plan = plan or fast_plan(cfg)
+    if plan is None or not 1 <= mel_blocks <= FAST_MAX_MEL_BLOCKS:
         raise ValueError(f"bf16 frontend kernel: n_fft={n_fft}, hop={hop}, "
                          f"n_mels={n_mels}, {k_rows} DFT rows are outside "
                          "the kernel's plan")
+    lib = _fast_lib()
+    if lib.vt_logmel_fast_plan_smem(n_fft, hop, n_mels, k_rows, plan.frames,
+                                    plan.stages) != plan.smem:
+        raise ValueError(f"bf16 frontend kernel: {plan} is not a plan of "
+                         "csrc/frontend_fast.cu for this shape")
     t_out = (sp - n_fft) // hop + 1
     n_tiles = -(-t_out // FRAMES_PER_TILE)
     logmel = torch.empty((bsz, t_out, n_mels), dtype=torch.float32,
                          device=xp.device)
     parts = torch.empty((bsz, n_tiles, 2, n_mels), dtype=torch.float32,
                         device=xp.device)
+    blocks = ctypes.c_int(0)
+    bands = (ctypes.c_int * (2 * MAX_MELS // 8))(
+        *[v for band in tables.mel_bands for v in band])
     with torch.cuda.device(xp.device):
         err = lib.vt_logmel_fast_forward(
             xp.data_ptr(), seq_len.data_ptr(), tables.dft.data_ptr(),
-            tables.mel.data_ptr(), logmel.data_ptr(), parts.data_ptr(), bsz,
-            sp, t_out, n_fft, hop, n_mels, k_lo, k_rows,
+            tables.mel.data_ptr(), bands, mel_blocks, logmel.data_ptr(),
+            parts.data_ptr(), bsz,
+            sp, t_out, n_fft, hop, n_mels, k_lo, k_rows, plan.frames,
+            plan.chunk_cols, plan.stages, plan.smem,
             float(cfg.log_zero_guard_value),
-            int(cfg.log_zero_guard_type == "clamp"),
+            int(cfg.log_zero_guard_type == "clamp"), ctypes.byref(blocks),
             torch.cuda.current_stream(xp.device).cuda_stream)
     _build.check(lib, err, "bf16 frontend kernel")
     log_mel_tiles_fast_cuda.launches += 1
+    log_mel_tiles_fast_cuda.last_blocks = blocks.value
     return logmel, parts
 
 
 log_mel_tiles_fast_cuda.launches = 0
+log_mel_tiles_fast_cuda.last_blocks = 0
 
 
 def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles):
