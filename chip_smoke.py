@@ -88,6 +88,34 @@ Phases, each of which raises on failure:
      transcripts; one CTC kernel launch each way per step, 0 skipped
      steps, the loss below 0.7x its first value after 30 steps on one
      batch, and 3 steps through the kernels == 3 through the plain CTC
+  9. long-form (after 6b): Transcriber.transcribe_long_batch (greedy,
+     bf16) over seeded noise of 45, 90, 180 and 300 s at 16 kHz float32,
+     300 s of 8 kHz int16 and 120 s of 8 kHz mu-law, uploaded in their
+     wire dtype and decoded and resampled on the card (93 chunks of 15 s;
+     1 frontend and 13 repeat launches per utterance, counted); the
+     stitched log-probs against the plain route (frontend and repeat
+     plain) on the card, frame argmax agreement >= 0.99 and max|d log p|
+     within E2E_LOGP_TOL; the device int16 / G.711 decode and 8 -> 16 kHz
+     resampler against the host path within 1e-5, with cuDNN's TF32 flag
+     off and at PyTorch's default; the repeat kernel at the 300 s batch
+     (B = 27 x T = 752) against its plain version; audio-s/s and idle
+     share; transcribe_long with decoder="device_beam" (W = 100, the word
+     3-gram; 1 beam launch) on 90 s, and the beam kernel against the plain
+     search on the 45 s signal's stitched log-probs, raw result bit for
+     bit; the host beam (decoder="beam", PROBING) on 90 s
+  10. streaming serving: OnlineTranscriber on the causal anchor
+     (quartznet12x1_vi_causal.yaml) in fp32 over 20 s in 3200-sample
+     chunks with a mid-chunk end, against an fp64 offline forward on the
+     card (no further, in p and log p, than 2x the fp32 offline forward
+     on the same input), and on a narrow model with no
+     normalization against the fp32 offline forward (1e-4 in log p); two
+     StreamPool(slots=8, decoder="beam", W = 16, cutoff 8, word 3-gram)
+     over 8 staggered mu-law streams of 5-20 s in lockstep, one on the
+     beam kernel with the carried state and one on the plain search:
+     their carried beam states equal bit for bit after every step, their
+     pieces and final texts equal, 1 beam launch per tick; ms per tick;
+     then AsrServer on an ephemeral port: /upload of a 3 s and a 40 s WAV
+     equal to Transcriber.transcribe / transcribe_long of the samples
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -1739,6 +1767,583 @@ def ctc_phase(np, torch, dev):
                  library_ms=lib_both - lib_fwd, sequential_floor_ms=floor_b)]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: long-form; phase 10: streaming serving
+
+CAUSAL_CONFIG = os.path.join(HERE, "vietasr_tpu_torch", "configs",
+                             "quartznet12x1_vi_causal.yaml")
+CAUSAL_ANCHOR = os.path.join(HERE, "artifacts",
+                             "real_speech_qn12x1_vi_causal.msgpack.gz")
+# long-form signals at 16 kHz float32, seconds
+LONGFORM_SECONDS = (45, 90, 180, 300)
+# long-form kernel route vs plain route (bf16): frame argmax agreement of
+# the stitched log-probs, phase 5's kind of bound (E2E_LOGP_TOL beside it)
+LONGFORM_ARGMAX_MIN = 0.99
+# device int16 / G.711 conversion + polyphase resampling vs the host path
+# (audio/g711.py, scipy's resample_poly): the same fp32 taps summed in
+# another order, on signals of |x| <= ~0.5
+RESAMPLE_TOL = 1e-5
+# phase 10's streamer vs the offline forward: on a narrow model with no
+# normalization, the JAX package's streaming contract, 1e-4 in log p
+STREAM_TOL = 1e-4
+# on the trained causal anchor at full width no fp32 forward meets that:
+# the causal stats of the first frames divide by the std of a few frames
+# (+ 1e-2), so how far an fp32 forward lies from an exact one depends on
+# the signal. So the stream is held against an fp64 offline forward on
+# the card, no further from it, in p and in log p, than this factor times
+# the fp32 offline forward on the same input (both distances printed)
+STREAM_ANCHOR_FACTOR = 2.0
+POOL_CHUNK = 3200
+
+
+def longform_signals(np):
+    """Seeded noise x 0.1: 45, 90, 180 and 300 s at 16 kHz float32, 300 s
+    of 8 kHz int16 PCM and 120 s of 8 kHz mu-law bytes."""
+    from vietasr_tpu_torch.audio.g711 import ulaw_encode
+
+    rng = np.random.RandomState(909)
+    sigs = [(rng.randn(s * 16000) * 0.1).astype(np.float32)
+            for s in LONGFORM_SECONDS]
+    pcm8 = (rng.randn(300 * 8000) * 0.1 * 32767).astype(np.int16)
+    ulaw8 = ulaw_encode((rng.randn(120 * 8000) * 0.1).astype(np.float32))
+    return sigs, pcm8, ulaw8
+
+
+def reset_launches():
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+
+    for f in (fused_log_mel_features, fused_repeat_block, fused_beam_search):
+        f.launches = 0
+
+
+def read_launches() -> dict:
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+
+    return {"log_mel_frontend": fused_log_mel_features.launches,
+            "repeat_block": fused_repeat_block.launches,
+            "beam_search": fused_beam_search.launches}
+
+
+def add_path_launches(kernels, path: str, launches: dict) -> None:
+    for k in kernels:
+        if k["name"] in launches:
+            k.setdefault("path_launches", {})[path] = launches[k["name"]]
+
+
+def conversion_checks(np, torch, dev, pcm8, ulaw8):
+    """Device G.711 / int16 decode and resampling vs the host path, TF32 off
+    (this script's setting) and at PyTorch's defaults (cuDNN TF32 on)."""
+    from vietasr_tpu_torch.audio import g711 as host_g711
+    from vietasr_tpu_torch.audio.io import resample
+    from vietasr_tpu_torch.ops.g711 import decode_wire
+    from vietasr_tpu_torch.ops.resample import make_device_resampler
+
+    codes = np.arange(256, dtype=np.uint8)
+    for law in ("ulaw", "alaw"):
+        got = decode_wire(torch.from_numpy(codes).to(dev), law).cpu().numpy()
+        want = getattr(host_g711, f"{law}_decode")(codes).astype(
+            np.float32) / 32768.0
+        check(np.array_equal(got, want), f"device {law} decode differs from "
+              "the host codec")
+    res = make_device_resampler(8000, 16000, device=dev)
+    cases = {"int16 8 kHz 300 s": (pcm8, pcm8.astype(np.float32) / 32768.0),
+             "mu-law 8 kHz 120 s": (ulaw8, host_g711.ulaw_decode(ulaw8)
+                                    .astype(np.float32) / 32768.0)}
+    worst = 0.0
+    for tf32 in (False, True):
+        old = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            for what, (wire, host) in cases.items():
+                want = resample(host, 8000, 16000)
+                got = res(decode_wire(torch.from_numpy(wire).to(dev),
+                                      "ulaw")).cpu().numpy()
+                err = float(np.abs(got - want).max())
+                worst = max(worst, err)
+                print(f"long-form {what}: device decode + resample vs host "
+                      f"max|d| {err:.3e} (tol {RESAMPLE_TOL}; cuDNN TF32 "
+                      f"flag {'on, PyTorch default' if tf32 else 'off'})")
+                check(got.shape == want.shape and err <= RESAMPLE_TOL,
+                      f"{what}: device conversion vs host {err}")
+        finally:
+            torch.backends.cudnn.allow_tf32 = old
+    wire = torch.from_numpy(pcm8).to(dev)
+    ms = device_ms(lambda: res(decode_wire(wire)), reps=5)
+    print(f"device int16 decode + 8 -> 16 kHz resample of 300 s: {ms:.4f} "
+          f"ms (CUPTI)")
+    return worst
+
+
+def longform_phase(np, torch, dev, lm_paths, kernels):
+    """Phase 9: transcribe_long_batch (greedy) over 6 long signals, the
+    device beam and host beam on one, each kernel against its plain
+    version at the long-form shapes."""
+    import vietasr_tpu_torch.models.quartznet as qn
+    from vietasr_tpu_torch import streaming as lf
+    from vietasr_tpu_torch.models.convert import load_anchor
+    from vietasr_tpu_torch.ops.device_beam import device_beam_search
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block_plain
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    sigs, pcm8, ulaw8 = longform_signals(np)
+    audio_s = sum(len(s) for s in sigs) / 16000 + (len(pcm8)
+                                                   + len(ulaw8)) / 8000
+    tr = Transcriber(CONFIG, checkpoint=ANCHOR)
+    ref = Transcriber(CONFIG, variables=load_anchor(ANCHOR),
+                      options=TranscriberOptions(fused_frontend="off",
+                                                 block_impl="plain"))
+    inputs = [(s, None, None) for s in sigs] + [(pcm8, 8000, None),
+                                                (ulaw8, 8000, "ulaw")]
+
+    def run(t):
+        return (t.transcribe_long_batch(sigs)
+                + t.transcribe_long_batch([pcm8], signal_sr=8000)
+                + t.transcribe_long_batch([ulaw8], signal_sr=8000,
+                                          signal_encoding="ulaw"))
+
+    chunk, overlap, _ = lf._longform_grid(tr, 15.0, 2.0)
+    preps = [lf._prep_longform(tr, x, sr, chunk, overlap, enc)
+             for x, sr, enc in inputs]
+    spans = [p[0] for p in preps]
+    run(tr)                                            # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    texts = run(tr)                                    # the long-form path
+    launches = read_launches()
+    n = len(inputs)
+    secs = [round(len(x) / (sr or 16000)) for x, sr, _ in inputs]
+    print(f"long-form path: {n} utterances of {secs} s ({spans} spans of "
+          f"15 s), launches "
+          f"{launches}: per call {launches['log_mel_frontend'] / n:g} "
+          f"frontend, {launches['repeat_block'] / n:g} repeat, "
+          f"{launches['beam_search'] / n:g} beam")
+    check(launches == {"log_mel_frontend": n, "repeat_block": 13 * n,
+                       "beam_search": 0},
+          f"long-form launches {launches} for {n} utterances")
+    add_path_launches(kernels, "longform_greedy", launches)
+
+    # the kernel route vs the plain route on the card: stitched log-probs
+    ref_texts = run(ref)
+    agree, worst_lp = [], 0.0
+    for prep in preps:
+        lp, total = lf._run_fused(tr, prep, chunk, overlap, True)
+        lp_ref, total_ref = lf._run_fused(ref, prep, chunk, overlap, True)
+        check(int(total) == int(total_ref) and lp.shape == lp_ref.shape,
+              "long-form: stitched lengths differ from the plain route")
+        t = int(total)
+        check(bool(torch.isfinite(lp[:t]).all()), "long-form: non-finite")
+        agree.append(float((lp[:t].argmax(-1) == lp_ref[:t].argmax(-1))
+                           .float().mean()))
+        worst_lp = max(worst_lp, float((lp[:t] - lp_ref[:t]).abs().max()))
+    same = sum(a == b for a, b in zip(texts, ref_texts))
+    print(f"long-form kernel route vs plain route: frame argmax agreement "
+          f"min {min(agree):.4f} (bound {LONGFORM_ARGMAX_MIN}), max|d log p| "
+          f"{worst_lp:.4e} (tol {E2E_LOGP_TOL}); transcripts equal "
+          f"{same}/{n}")
+    check(min(agree) >= LONGFORM_ARGMAX_MIN and worst_lp <= E2E_LOGP_TOL,
+          f"long-form kernel vs plain route: agreement {agree}, "
+          f"max|d| {worst_lp}")
+    conversion_checks(np, torch, dev, pcm8, ulaw8)
+
+    # the repeat kernel at the long-form batch (B = 27 rows of 15 s) vs
+    # its plain version, inputs captured from the forward
+    calls = []
+    real = qn.fused_repeat_block
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    qn.fused_repeat_block = record
+    try:
+        lf._run_fused(tr, preps[3], chunk, overlap, True)
+    finally:
+        qn.fused_repeat_block = real
+    worst_rep = 0.0
+    for args, kw, got in calls:
+        want = fused_repeat_block_plain(*args, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        shape = tuple(args[0].shape)
+        check(err <= REPEAT_TOL_REL * scale, f"long-form repeat {shape}: "
+              f"max|d| {err} > {REPEAT_TOL_REL} * {scale}")
+        worst_rep = max(worst_rep, err / scale)
+    rep_ms, seen, _ = kernel_ms(
+        lambda: lf._run_fused(tr, preps[3], chunk, overlap, True),
+        "repeat_kernel", reps=5, launches=13)
+    print(f"long-form repeat kernel, 13 launches at B={spans[3]} x "
+          f"T={tuple(calls[0][0][0].shape)[1]} (300 s): max|d| / max|want| "
+          f"{worst_rep:.3e} (tol {REPEAT_TOL_REL:.3e}), {rep_ms:.4f} ms "
+          f"({seen:g} traced per call)")
+    check(len(calls) == 13, f"long-form forward made {len(calls)} repeat "
+          "launches, not 13")
+
+    torch.cuda.synchronize()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run(tr)
+    dt = (time.perf_counter() - t0) / reps
+    rows = device_profile(lambda: run(tr), reps=1)
+    busy = sum(r[0] for r in rows)
+    idle = 1 - busy / (dt * 1e3)
+    print(f"long-form end to end: {audio_s:.1f} audio-s in {dt * 1e3:.2f} ms "
+          f"= {audio_s / dt:.1f} audio-s/s; device busy {busy:.4f} ms "
+          f"({100 * idle:.1f} % idle)")
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
+
+    # device beam (W = 100, word 3-gram) on the 90 s signal
+    bt = Transcriber(CONFIG, checkpoint=ANCHOR, options=TranscriberOptions(
+        decoder="device_beam", lm_path=lm_paths[3]))
+    bt.transcribe_long(sigs[1])                        # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    beam_text = bt.transcribe_long(sigs[1])            # the device beam path
+    dt_b = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"long-form device beam (W={bt.opts.beam_width}, word 3-gram), "
+          f"90 s: {dt_b * 1e3:.2f} ms = {90 / dt_b:.1f} audio-s/s, launches "
+          f"{launches}, {len(beam_text)} characters")
+    check(launches == {"log_mel_frontend": 1, "repeat_block": 13,
+                       "beam_search": 1},
+          f"long-form device beam launches {launches}")
+    add_path_launches(kernels, "longform_device_beam", launches)
+    # the beam kernel at a long-form shape (B = 1, 45 s: T = 2,250) vs
+    # the plain search, raw result bit for bit
+    lp, total = lf._run_fused(bt, preps[0], chunk, overlap, True)
+    labels = bt.cfg.labels
+    kw = dict(blank=len(labels), beam_width=bt.opts.beam_width,
+              word_lm=bt._device_word_lm, wlm_probes=bt._device_wlm_probes,
+              space=labels.index(" "), return_raw=True, **BEAM_KW)
+    lens = total.reshape(1).to(torch.int32)
+    got = fused_beam_search(lp[None].contiguous(), lens, **kw)
+    t0 = time.perf_counter()
+    want = device_beam_search(lp[None].contiguous(), lens, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"long-form beam kernel B=1 T={int(total)} (45 s) vs plain "
+          f"device_beam_search: raw result equal bit for bit: {same} "
+          f"(plain {plain_s:.1f} s wall)")
+    check(same, "long-form beam kernel differs from the plain search")
+
+    # the host beam on the 90 s signal
+    hb = Transcriber(CONFIG, checkpoint=ANCHOR, options=TranscriberOptions(
+        decoder="beam", lm_path=lm_paths["probing"]))
+    hb.transcribe_long(sigs[1])                        # warm-up, C++ build
+    reset_launches()
+    t0 = time.perf_counter()
+    host_text = hb.transcribe_long(sigs[1])
+    dt_h = time.perf_counter() - t0
+    launches = read_launches()
+    lp_h, total_h = lf._run_fused(hb, preps[1], chunk, overlap, True)
+    check(host_text == hb._decoder.decode(
+        lp_h[:int(total_h)].float().cpu().numpy()),
+        "long-form host beam: not the decode of the stitched log-probs")
+    print(f"long-form host beam (W={hb.opts.beam_width}, PROBING), 90 s: "
+          f"{dt_h * 1e3:.2f} ms = {90 / dt_h:.1f} audio-s/s, launches "
+          f"{launches}")
+    check(launches == {"log_mel_frontend": 1, "repeat_block": 13,
+                       "beam_search": 0},
+          f"long-form host beam launches {launches}")
+
+
+def pool_schedule(np):
+    """8 streams of 5-20 s opening 3 ticks apart: (start tick, mu-law
+    chunks of POOL_CHUNK samples, true length)."""
+    from vietasr_tpu_torch.audio.g711 import ulaw_encode
+
+    rng = np.random.RandomState(1010)
+    out = []
+    for i in range(8):
+        n = int(rng.uniform(5.0, 20.0) * 16000)
+        codes = ulaw_encode((rng.randn(n) * 0.1).astype(np.float32))
+        pad = np.concatenate([codes, np.full((-n) % POOL_CHUNK, 0xFF,
+                                             np.uint8)])
+        out.append((3 * i, [pad[j:j + POOL_CHUNK]
+                            for j in range(0, len(pad), POOL_CHUNK)], n))
+    return out
+
+
+def drive_pools(pools, schedule, on_tick=None):
+    """Feed `schedule` to every pool in lockstep (a stream's last chunk as
+    the tail step at its true end, then its flush); on_tick() after each
+    step of all pools. Returns each pool's (pieces, final texts)."""
+    logs = [([], []) for _ in pools]
+    slots = [{} for _ in pools]
+    n_ticks = max(s + len(c) for s, c, _ in schedule)
+
+    def step(fn):
+        for p, (pool, log) in enumerate(zip(pools, logs)):
+            log[0].append(fn(p, pool))
+        if on_tick:
+            on_tick()
+
+    for tick in range(n_ticks):
+        for i, (start, _, _) in enumerate(schedule):
+            if tick == start:
+                for p, pool in enumerate(pools):
+                    slots[p][i] = pool.open()
+        feed, tails, treal = {}, [], {}
+        for i, (start, chunks, n) in enumerate(schedule):
+            j = tick - start
+            if 0 <= j < len(chunks):
+                feed[i] = chunks[j]
+                if j == len(chunks) - 1 and n % POOL_CHUNK:
+                    tails.append(i)
+                    treal[i] = n - j * POOL_CHUNK
+        step(lambda p, pool: pool.feed(
+            {slots[p][i]: c for i, c in feed.items()},
+            tail_slots=tuple(slots[p][i] for i in tails),
+            tail_real={slots[p][i]: r for i, r in treal.items()}))
+        for i, (start, chunks, n) in enumerate(schedule):
+            if tick - start == len(chunks) - 1:
+                step(lambda p, pool: pool.flush(
+                    slots[p][i], return_pieces=True,
+                    tail_done=bool(n % POOL_CHUNK)))
+                for p, pool in enumerate(pools):
+                    logs[p][1].append(pool.close(slots[p][i]))
+    return logs
+
+
+def narrow_streaming_config():
+    """The JAX package's streaming-test model: 4 narrow blocks over 16
+    mels, no normalization, 3 labels."""
+    from vietasr_tpu_torch.config import (BlockConfig, EncoderConfig,
+                                          ModelConfig, SpecAugmentConfig)
+    from vietasr_tpu_torch.frontend.features import FeaturizerConfig
+
+    blocks = (BlockConfig(filters=16, repeat=1, kernel=9, stride=2,
+                          residual=False, separable=True),
+              BlockConfig(filters=16, repeat=1, kernel=7, residual=True,
+                          separable=True),
+              BlockConfig(filters=24, repeat=1, kernel=5, residual=True,
+                          separable=True),
+              BlockConfig(filters=32, repeat=1, kernel=1, residual=False))
+    return ModelConfig(
+        name="narrow", labels=["a", "b", "c"],
+        featurizer=FeaturizerConfig(features=16, dither=0.0, normalize="",
+                                    pad_to=1),
+        encoder=EncoderConfig(blocks=blocks, feat_in=16),
+        spec_augment=SpecAugmentConfig())
+
+
+def stream_chunks(np, sig):
+    """`sig` zero-padded to whole POOL_CHUNK chunks."""
+    pad = np.concatenate([sig, np.zeros((-len(sig)) % POOL_CHUNK,
+                                        np.float32)])
+    return [pad[i:i + POOL_CHUNK] for i in range(0, len(pad), POOL_CHUNK)]
+
+
+def offline_log_probs(torch, dev, cfg, folded, sig, dtype):
+    """The offline forward of one signal on the card, every op in `dtype`
+    (the plain featurizer's steps, then the per-op encoder)."""
+    from vietasr_tpu_torch.frontend import features as F
+    from vietasr_tpu_torch.models.quartznet import map_tree, quartznet_apply
+
+    fc = cfg.featurizer
+    dft = torch.from_numpy(F._windowed_dft_matrix(fc)).to(dev, dtype)
+    mel = torch.from_numpy(F._mel_matrix(fc)).to(dev, dtype)
+    with torch.inference_mode():
+        xp = F.preemphasize_and_pad(
+            torch.from_numpy(sig[None]).to(dev, dtype), fc)
+        spec = xp.unfold(1, fc.fft_length, fc.hop_length) @ dft
+        nb = fc.fft_length // 2 + 1
+        logmel = F.log_guard((spec[..., :nb] ** 2 + spec[..., nb:] ** 2)
+                             @ mel, fc)
+        flens = F.feature_seq_len(torch.tensor([len(sig)], device=dev),
+                                  fc.hop_length)
+        feats = F.mask_and_pad_time(F._normalize(logmel, flens, fc.normalize),
+                                    flens, logmel.shape[1], fc)
+        lp, el = quartznet_apply(map_tree(lambda a: a.to(dtype), folded),
+                                 feats, flens, cfg=cfg.encoder)
+    return lp[0, :int(el[0])].double().cpu().numpy()
+
+
+def wav_bytes(np, samples, sr=16000) -> bytes:
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2")
+                      .tobytes())
+    return buf.getvalue()
+
+
+def streaming_phase(np, torch, dev, lm_paths, kernels):
+    """Phase 10: the online streamer on the causal anchor in fp32, the
+    StreamPool beam tier (the beam kernel on a carried state) against the
+    same pool on the plain search, and AsrServer over HTTP."""
+    import urllib.request
+
+    from vietasr_tpu_torch.audio.io import read_wav
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.models.convert import load_anchor, params_from_jax
+    from vietasr_tpu_torch.models.quartznet import (fold_batchnorm,
+                                                    init_quartznet)
+    from vietasr_tpu_torch.pipeline import Transcriber
+    from vietasr_tpu_torch.serve import AsrServer
+    from vietasr_tpu_torch.serve.streams import StreamPool
+    from vietasr_tpu_torch.streaming_online import OnlineTranscriber
+
+    rng = np.random.RandomState(1001)
+    # a narrow model, random init, no normalization: stream == offline
+    ncfg = narrow_streaming_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    nvars = fold_batchnorm(init_quartznet(gen, ncfg.encoder, ncfg.num_classes,
+                                          device=dev), ncfg.encoder)
+    sig = (rng.randn(3 * 16000 + 1111) * 0.1).astype(np.float32)
+    got = OnlineTranscriber(ncfg, nvars, causal_norm=False).stream(
+        stream_chunks(np, sig), true_samples=len(sig))
+    want = offline_log_probs(torch, dev, ncfg, nvars, sig, torch.float32)
+    m = min(len(got), len(want))
+    err = float(np.abs(got[:m] - want[:m]).max())
+    print(f"online streamer, narrow model (4 blocks, no normalization), "
+          f"3 s: {m} of {len(want)} offline frames, max|d log p| {err:.3e} "
+          f"(tol {STREAM_TOL})")
+    check(m >= len(want) - 1 and err <= STREAM_TOL,
+          f"narrow streamer vs offline: max|d log p| {err}")
+
+    # the trained causal anchor, fp32, 20 s with a mid-chunk end
+    cfg = load_config(CAUSAL_CONFIG)
+    folded = fold_batchnorm(params_from_jax(load_anchor(CAUSAL_ANCHOR),
+                                            device=dev), cfg.encoder)
+    ot = OnlineTranscriber(cfg, folded)
+    check(ot.device.type == "cuda", "OnlineTranscriber did not default to "
+          "CUDA")
+    n = 20 * 16000 + 1111
+    sig = (rng.randn(n) * 0.1).astype(np.float32)
+    chunks = stream_chunks(np, sig)
+    ot.stream(chunks[:4])                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ot.stream(chunks, true_samples=n)
+    dt = time.perf_counter() - t0
+    want64 = offline_log_probs(torch, dev, cfg, folded, sig, torch.float64)
+    want32 = offline_log_probs(torch, dev, cfg, folded, sig, torch.float32)
+    m = min(len(got), len(want64))
+    errs = {}
+    for what, want in (("fp64", want64), ("fp32", want32)):
+        errs[what] = (float(np.abs(np.exp(got[:m]) - np.exp(want[:m])).max()),
+                      float(np.abs(got[:m] - want[:m]).max()))
+    off32 = (float(np.abs(np.exp(want32[:m]) - np.exp(want64[:m])).max()),
+             float(np.abs(want32[:m] - want64[:m]).max()))
+    steps = len(chunks) + -(-ot.prefix_frames // ot.out_frames(POOL_CHUNK))
+    print(f"online streamer (causal anchor, fp32), 20 s in {len(chunks)} "
+          f"chunks of {POOL_CHUNK}: {m} of {len(want64)} offline frames; "
+          f"(max|d p|, max|d log p|) vs the fp64 offline forward "
+          f"{errs['fp64']} (bound {STREAM_ANCHOR_FACTOR:g} x the fp32 "
+          f"offline forward's {off32}), vs the fp32 one {errs['fp32']}; "
+          f"{dt * 1e3:.1f} ms for {steps} steps = "
+          f"{dt / steps * 1e3:.2f} ms a step")
+    check(m >= len(want64) - 1 and np.isfinite(got).all(),
+          "streamer: frame count or finiteness")
+    check(all(e <= STREAM_ANCHOR_FACTOR * o
+              for e, o in zip(errs["fp64"], off32)),
+          f"streamer vs the fp64 offline forward: {errs['fp64']}, the fp32 "
+          f"offline forward {off32}")
+
+    # StreamPool(slots=8, decoder="beam"): the kernel pool and the plain
+    # pool in lockstep, their carried beam states compared every tick
+    kw = dict(slots=8, chunk_samples=POOL_CHUNK, decoder="beam",
+              lm_path=lm_paths[3], beam_width=16)
+    pool_k = StreamPool(ot, **kw)
+    pool_p = StreamPool(ot, beam_impl="plain", **kw)
+    sched = pool_schedule(np)
+    ticks = [0]
+
+    def same_carry():
+        ticks[0] += 1
+        for a, b in zip(pool_k.beam_carry, pool_p.beam_carry):
+            check(torch.equal(a, b), f"stream pool: the kernel's carried "
+                  f"beam state differs from the plain search's at step "
+                  f"{ticks[0]}")
+
+    feeds = [0]
+    feed_k = pool_k.feed
+
+    def counted_feed(*args, **kwargs):
+        feeds[0] += 1
+        return feed_k(*args, **kwargs)
+
+    pool_k.feed = counted_feed
+    reset_launches()
+    (pieces_k, finals_k), (pieces_p, finals_p) = drive_pools(
+        [pool_k, pool_p], sched, same_carry)
+    launches = read_launches()
+    print(f"stream pool (8 slots, beam W=16 cutoff 8, word 3-gram, mu-law "
+          f"wire), 8 streams of {[round(s[2] / 16000, 1) for s in sched]} "
+          f"s: {feeds[0]} ticks, carried state equal to the plain pool's "
+          f"after each, launches {launches}; final texts equal "
+          f"{sum(a == b for a, b in zip(finals_k, finals_p))}/{len(sched)}, "
+          f"{sum(map(len, finals_k))} characters")
+    check(finals_k == finals_p and pieces_k == pieces_p,
+          "stream pool texts differ from the plain pool's")
+    check(launches == {"log_mel_frontend": 0, "repeat_block": 0,
+                       "beam_search": feeds[0]},
+          f"stream pool launches {launches} for {feeds[0]} ticks")
+    add_path_launches(kernels, "stream_pool_beam", launches)
+
+    # the kernel pool alone: ms per tick (each feed ends in the copy of
+    # the slots' best hypotheses to the host)
+    pool_t = StreamPool(ot, **kw)
+    times = []
+    feed_t = pool_t.feed
+
+    def timed_feed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = feed_t(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    pool_t.feed = timed_feed
+    drive_pools([pool_t], sched)
+    dts = np.array(times) * 1e3
+    med = float(np.median(dts))
+    print(f"stream pool tick: median {med:.2f} ms, p90 "
+          f"{float(np.percentile(dts, 90)):.2f} ms over {len(dts)} ticks = "
+          f"{POOL_CHUNK / 16000 / (med / 1e3):.1f} audio-s/s per slot, "
+          f"{8 * POOL_CHUNK / 16000 / (med / 1e3):.1f} for 8 slots")
+
+    # the reference's web entry point, HTTP only (no websockets here)
+    tr = Transcriber(CONFIG, checkpoint=ANCHOR)
+    srv = AsrServer(tr, host="127.0.0.1", port=0).start(background=True)
+    try:
+        for seconds in (3.0, 40.0):
+            data = wav_bytes(np, (rng.randn(int(seconds * 16000)) * 0.1)
+                             .astype(np.float32))
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/upload", data=data,
+                method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req) as r:
+                out = json.load(r)
+            dt = time.perf_counter() - t0
+            samples, _ = read_wav(data)
+            want = tr.transcribe(samples) if len(samples) <= tr.buckets[-1] \
+                else tr.transcribe_long(samples)
+            print(f"AsrServer /upload {seconds:g} s WAV: {dt * 1e3:.1f} ms, "
+                  f"transcript equal to the Transcriber's: "
+                  f"{out['transcript'] == want}")
+            check(out["transcript"] == want, f"AsrServer /upload of "
+                  f"{seconds} s differs from the Transcriber")
+    finally:
+        srv.stop()
+
+
 KERNEL_GROUPS = {
     "ctc alpha kernel": ("alpha_kernel",),
     "ctc beta kernel": ("beta_kernel",),
@@ -1973,7 +2578,11 @@ def main() -> int:
         kernels[-1].update(beam_phase(np, torch, dev, labels, anchor_lp,
                                       anchor_lens, lm_paths))
         host_beam_phase(np, torch, signals, lm_paths, tmp)
-    print(f"phases 1-6b done at {time.perf_counter() - t0:.1f} s")
+        print(f"phases 1-6b done at {time.perf_counter() - t0:.1f} s")
+        longform_phase(np, torch, dev, lm_paths, kernels)
+        print(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
+        streaming_phase(np, torch, dev, lm_paths, kernels)
+    print(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
     kernels += ctc_phase(np, torch, dev)
     print(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     train_phase(np, torch, dev, kernels)

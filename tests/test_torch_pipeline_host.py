@@ -12,7 +12,9 @@ on the CPU in fp32:
 - no weights: a random init under a generator seeded 0, overlaid with the
   one `.pt` file given;
 - `transcribe_file` of a PCM16 and an 8 kHz mu-law WAV equals `transcribe`
-  of the samples `read_audio` returns, and JAX's `transcribe_file`;
+  of the samples `read_audio` returns, and JAX's `transcribe_file`; of a
+  17 s WAV (past the last bucket) the port's `transcribe_long`, and JAX's
+  `transcribe_file`;
 - `decoder="device_beam"` from the PROBING binary equals the ARPA route.
 """
 
@@ -196,10 +198,14 @@ def test_transcribe_file_equals_transcribe(anchor, lms, jax_beam, tmp_path):
         text = port.transcribe_file(path)
         assert text == port.transcribe(samples)
         assert text == jax_beam.transcribe_file(path)
+    # past the last bucket: the long-form path, as in JAX
     long = str(tmp_path / "long.wav")
-    wavfile.write(long, 16000, np.zeros(17 * 16000, np.int16))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        port.transcribe_file(long)
+    wavfile.write(long, 16000, (rng.randn(17 * 16000) * 0.1 * 32767)
+                  .astype(np.int16))
+    samples, _ = read_audio(long, target_sr=16000)
+    text = port.transcribe_file(long)
+    assert text == port.transcribe_long(samples)
+    assert text == jax_beam.transcribe_file(long)
 
 
 def test_device_beam_from_binary_equals_arpa(anchor, clips, lms):

@@ -4,8 +4,10 @@ vietasr_tpu/frontend/features.py::log_mel_features).
   dither (training only) -> preemphasis (0.97) -> reflect pad n_fft//2 ->
   framing (hop 160) -> windowed real-DFT matmul in IEEE fp32 -> |X|^2 ->
   mel matmul (Slaney 64 bins) -> log(x + 2^-24) -> per-feature masked
-  mean/std normalization (two-pass, Bessel, +1e-5 on the std) -> zero
-  beyond seq_len -> pad time to a multiple of pad_to.
+  mean/std normalization (two-pass, Bessel, +1e-5 on the std; or
+  "causal_per_feature" running stats, or "all_features") -> zero beyond
+  seq_len -> pad time to a multiple of pad_to. Frame splicing > 1 stacks
+  shifted frames before the normalization.
 
 The DFT runs as a matmul against the same fp32 windowed DFT matrix the JAX
 package builds (numpy float64, cast to fp32). It must stay full fp32: the
@@ -14,8 +16,6 @@ feature error, so callers on the GPU keep
 `torch.backends.cuda.matmul.allow_tf32` False (PyTorch's default).
 
 Layout is (B, T, n_mels), channels last, as the encoder consumes it.
-`causal_per_feature`/`all_features` normalization and frame splicing wait
-for the slices that need them.
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ from vietasr_tpu_torch.utils.typing import assert_audio_batch
 
 LOG_ZERO_GUARD = 2.0 ** -24
 STD_GUARD = 1e-5
+# causal running stats take a larger guard: near-constant (silent) mel bins
+# have ~zero variance, and a 1e-5 guard would amplify the different fp32
+# summation orders of the offline cumsum and the streamer's carried sums
+# (streaming_online.py) ~1e5x into disagreeing features
+CAUSAL_STD_GUARD = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,23 +145,51 @@ def log_guard(mel: torch.Tensor, cfg: FeaturizerConfig) -> torch.Tensor:
     raise ValueError(f"bad log_zero_guard_type {cfg.log_zero_guard_type!r}")
 
 
+def _splice_frames(x: torch.Tensor, splicing: int) -> torch.Tensor:
+    """(B, T, D) -> (B, T, D * splicing): out[t] stacks frames t .. t +
+    splicing - 1, the last frame repeated past the end (the JAX package's
+    intended splicing; the reference's is a no-op)."""
+    seq = [x]
+    for n in range(1, splicing):
+        seq.append(torch.cat([x[:, n:], x[:, -1:].expand(-1, n, -1)], dim=1))
+    return torch.cat(seq, dim=2)
+
+
 def _normalize(x: torch.Tensor, seq_len: torch.Tensor,
                normalize_type: str) -> torch.Tensor:
-    """Masked per-feature normalization over valid frames: two-pass mean
-    and unbiased (n-1) variance with n = max(seq_len, 2), +1e-5 std guard."""
+    """Masked normalization over valid frames, as the JAX package's:
+    "per_feature" (two-pass mean and unbiased variance with n = max(seq_len,
+    2), +1e-5 std guard), "causal_per_feature" (frame t over frames 0..t,
+    running sums, +1e-2 guard) or "all_features" (one mean and std over all
+    valid frames and features)."""
     if not normalize_type:
         return x
-    if normalize_type != "per_feature":
-        raise NotImplementedError(
-            f"normalize={normalize_type!r} is not ported yet")
     t = x.shape[1]
     mask = (torch.arange(t, device=x.device)[None, :]
             < seq_len[:, None]).to(x.dtype)[:, :, None]         # (B, T, 1)
     n = torch.clamp_min(seq_len, 2).to(x.dtype)[:, None]        # (B, 1)
-    mean = torch.sum(x * mask, dim=1) / n                       # (B, D)
-    var = torch.sum(((x - mean[:, None, :]) * mask) ** 2, dim=1) / (n - 1.0)
-    std = torch.sqrt(var) + STD_GUARD
-    return (x - mean[:, None, :]) / std[:, None, :]
+    if normalize_type == "per_feature":
+        mean = torch.sum(x * mask, dim=1) / n                   # (B, D)
+        var = torch.sum(((x - mean[:, None, :]) * mask) ** 2,
+                        dim=1) / (n - 1.0)
+        std = torch.sqrt(var) + STD_GUARD
+        return (x - mean[:, None, :]) / std[:, None, :]
+    if normalize_type == "causal_per_feature":
+        xm = x * mask
+        cnt = torch.clamp_min(torch.cumsum(mask, dim=1), 1.0)   # (B, T, 1)
+        mean = torch.cumsum(xm, dim=1) / cnt
+        var = torch.clamp_min(torch.cumsum(xm * xm, dim=1) / cnt
+                              - mean * mean, 0.0) \
+            * (cnt / torch.clamp_min(cnt - 1.0, 1.0))
+        return (x - mean) / (torch.sqrt(var) + CAUSAL_STD_GUARD)
+    if normalize_type == "all_features":
+        cnt = n[:, 0] * x.shape[2]                              # (B,)
+        mean = torch.sum(x * mask, dim=(1, 2)) / cnt
+        var = torch.sum(((x - mean[:, None, None]) * mask) ** 2,
+                        dim=(1, 2)) / (cnt - 1.0)
+        std = torch.sqrt(var) + STD_GUARD
+        return (x - mean[:, None, None]) / std[:, None, None]
+    raise ValueError(f"unsupported normalize: {normalize_type!r}")
 
 
 def mask_and_pad_time(feats: torch.Tensor, seq_len: torch.Tensor, t_out: int,
@@ -200,8 +233,6 @@ def log_mel_features(
     (feats (B, T_padded, n_mels) fp32, seq_len (B,) int32). training=True
     dithers from `generator`."""
     assert_audio_batch(signal, lengths, port="featurizer.input_signal")
-    if cfg.frame_splicing != 1:
-        raise NotImplementedError("frame_splicing > 1 is not ported yet")
     hop = cfg.hop_length
     n_fft = cfg.fft_length
     seq_len = feature_seq_len(lengths, hop)
@@ -220,6 +251,8 @@ def log_mel_features(
     mel = torch.matmul(power, mel_matrix)                       # (B, T, n_mels)
     if cfg.log:
         mel = log_guard(mel, cfg)
+    if cfg.frame_splicing > 1:
+        mel = _splice_frames(mel, cfg.frame_splicing)
     mel = _normalize(mel, seq_len, cfg.normalize)
     return mask_and_pad_time(mel, seq_len, mel.shape[1], cfg), seq_len
 

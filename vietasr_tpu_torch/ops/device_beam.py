@@ -555,6 +555,21 @@ def best_path_from_raw(st, parents, chars, *, word_lm=None, alpha=0.5,
                                  t_max=t_max, l_max=l_max or t_max)
 
 
+def suffix_maps(parents: torch.Tensor) -> torch.Tensor:
+    """(T, B, W) int64 S with S[t] = parents[t] o parents[t+1] o ... o
+    parents[T-1]: S[t][b, j] is the index before step t of the beam that
+    is j after the last step. ceil(log2 T) doubling passes of one gather
+    each, in place of the JAX package's step-by-step reverse scan."""
+    t_max = parents.shape[0]
+    s = parents.long()
+    span = 1
+    while span < t_max:
+        head = torch.gather(s[:t_max - span], 2, s[span:])
+        s = torch.cat([head, s[t_max - span:]])
+        span *= 2
+    return s
+
+
 def reconstruct_best_path(parents, chars, best, *, w: int, bsz: int,
                           t_max: int, l_max: int):
     """The best beam's label ids from (T, B, W) backpointers.
@@ -570,12 +585,7 @@ def reconstruct_best_path(parents, chars, best, *, w: int, bsz: int,
     if t_max == 0:
         return (torch.zeros((bsz, l_max), dtype=torch.int32, device=dev),
                 torch.zeros((bsz,), dtype=torch.int32, device=dev))
-    s = parents.long()
-    span = 1
-    while span < t_max:
-        head = torch.gather(s[:t_max - span], 2, s[span:])
-        s = torch.cat([head, s[t_max - span:]])
-        span *= 2
+    s = suffix_maps(parents)
     best = best.long().to(dev)
     j_next = torch.gather(s[1:], 2, best[None, :, None].expand(
         t_max - 1, bsz, 1))[..., 0]                           # (T-1, B)

@@ -147,11 +147,14 @@ def fused_beam_search(log_probs: torch.Tensor, lengths: torch.Tensor, *,
                       word_lm: Optional[WordLMTables] = None,
                       wlm_probes: int = 8, alpha: float = 0.5,
                       beta: float = 0.0, space: int = -1, max_len: int = 0,
+                      carry_state: Optional[torch.Tensor] = None,
                       return_raw: bool = False):
     """(B, T, V+1) log-probs -> (prefixes (B, L), lens (B,)) int32.
 
     CUDA tensors go through the kernel; CPU tensors through its plain
-    version, device_beam_search. `return_raw=True` returns the raw
+    version, device_beam_search. `carry_state` resumes every row from a
+    packed (B, W, n_cols) state (a streaming search carried across
+    chunks) in place of the fresh one. `return_raw=True` returns the raw
     (final_state, parents, chars) instead, for comparing the two."""
     if space < 0:
         raise ValueError("fused_beam_search requires the space label id")
@@ -166,11 +169,12 @@ def fused_beam_search(log_probs: torch.Tensor, lengths: torch.Tensor, *,
             log_probs, lengths, beam_width=beam_width, blank=blank,
             alpha=alpha, beta=beta, cutoff_top_n=cutoff_top_n,
             word_lm=word_lm, wlm_probes=wlm_probes, space=space,
-            return_raw=True)
+            carry_state=carry_state, return_raw=True)
     else:
         top_lp, top_ci = frame_topk(log_probs,
                                     expansion_width(v1 - 1, cutoff_top_n))
-        state = init_packed_state(bsz, beam_width, word_lm, log_probs.device)
+        state = init_packed_state(bsz, beam_width, word_lm, log_probs.device) \
+            if carry_state is None else carry_state.contiguous()
         raw = beam_search_cuda(
             log_probs, lengths.to(torch.int32).contiguous(),
             top_lp.contiguous(), top_ci.contiguous(), state, blank=blank,

@@ -15,7 +15,9 @@ head log-softmax -> one of three decoders:
   ops/fused_beam.py).
 Audio is zero-padded up to the next duration bucket and utterances of one
 bucket are batched together, as in the JAX package; the frontend reflects
-at the bucket end, as JAX does.
+at the bucket end, as JAX does. Audio of any length goes through
+`transcribe_long` (streaming.py), which `transcribe_file` takes past the
+last bucket.
 """
 
 from __future__ import annotations
@@ -425,15 +427,43 @@ class Transcriber:
             self._decode_beam(beam, out)
         return out  # type: ignore
 
+    def transcribe_long(self, signal: np.ndarray, *,
+                        chunk_seconds: float = 15.0,
+                        overlap_seconds: float = 2.0,
+                        signal_sr: Optional[int] = None,
+                        signal_encoding: Optional[str] = None) -> str:
+        """Audio of any length, in overlapping chunks (streaming.py). int16
+        PCM, uint8 G.711 (signal_encoding 'ulaw' / 'alaw') and native-rate
+        input (signal_sr) are converted and resampled on the device."""
+        from vietasr_tpu_torch.streaming import transcribe_long
+
+        return transcribe_long(self, signal, chunk_seconds=chunk_seconds,
+                               overlap_seconds=overlap_seconds,
+                               signal_sr=signal_sr,
+                               signal_encoding=signal_encoding)
+
+    def transcribe_long_batch(self, signals: Sequence[np.ndarray], *,
+                              chunk_seconds: float = 15.0,
+                              overlap_seconds: float = 2.0,
+                              signal_sr: Optional[int] = None,
+                              signal_encoding: Optional[str] = None
+                              ) -> List[str]:
+        """Several long utterances, every one queued on the device before
+        any result is read (streaming.transcribe_long_batch)."""
+        from vietasr_tpu_torch.streaming import transcribe_long_batch
+
+        return transcribe_long_batch(self, signals,
+                                     chunk_seconds=chunk_seconds,
+                                     overlap_seconds=overlap_seconds,
+                                     signal_sr=signal_sr,
+                                     signal_encoding=signal_encoding)
+
     def transcribe_file(self, path: str) -> str:
         """Read a WAV (PCM, float, G.711) or mp3 file, resample it to the
-        model's rate and transcribe it. Audio past the last bucket needs
-        the long-form path, which is not ported yet (ROADMAP A.4)."""
+        model's rate and transcribe it; audio past the last bucket goes
+        through transcribe_long."""
         samples, _ = read_audio(
             path, target_sr=self.cfg.featurizer.sample_rate)
         if len(samples) > self.buckets[-1]:
-            raise NotImplementedError(
-                f"{path}: {len(samples)} samples, longer than the last "
-                f"bucket ({self.buckets[-1]}); transcribe_long is ROADMAP "
-                "A.4, not ported yet")
+            return self.transcribe_long(samples)
         return self.transcribe(samples)

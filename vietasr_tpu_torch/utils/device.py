@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -19,3 +20,22 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def strict_fp32():
+    """Run the enclosed cuDNN convolutions and cuBLAS matmuls in IEEE fp32
+    whatever the global flags say: cuDNN defaults to TF32 on Ampere and
+    later (`torch.backends.cudnn.allow_tf32` is True), which rounds the
+    operands to 10 mantissa bits. The flags are restored on exit."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = old
