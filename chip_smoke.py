@@ -116,6 +116,30 @@ Phases, each of which raises on failure:
      pieces and final texts equal, 1 beam launch per tick; ms per tick;
      then AsrServer on an ephemeral port: /upload of a 3 s and a 40 s WAV
      equal to Transcriber.transcribe / transcribe_long of the samples
+  11. the Conformer-CTC family. (a) Transcriber on conformer_ctc_vi.yaml
+     at full width (16 blocks, d 256, 27,346,779 parameters, seeded
+     init_conformer), bf16, over phase 5's 16 signals: 1 frontend kernel
+     launch per forward and no repeat, beam or CTC launch; log-probs
+     against the plain frontend on the card (frame argmax >= 0.99, max
+     |d log p| printed) and against the fp32 forward (argmax printed);
+     audio-s/s and idle share; the B = 8 x 16.7 s forward's device time
+     by group (GEMMs, attention elementwise + softmax, depthwise conv,
+     conv2d subsampling, LayerNorm / GLU / swish elementwise, frontend,
+     uploads); decoder="device_beam" at W = 100 with the word 3-gram: 1
+     beam launch per transcribe_batch call, the raw result bit for bit
+     with the plain device_beam_search on the same log-probs, texts
+     equal; decoder="beam" from the PROBING binary on the 4 shortest
+     signals, texts equal to the C++ tier over the ARPA; transcribe_long
+     refused. (b) conformer_ctc_vi_streaming.yaml at full width
+     (25,525,339 parameters), fp32: ConformerOnlineTranscriber over
+     20.48 s of noise against the offline chunked forward of the frames
+     it saw (2e-4 in log p); two StreamPool(slots=8, decoder="beam",
+     W = 16, word 3-gram) over 8 staggered mu-law streams of 5-20 s in
+     0.64 s chunks, one on the beam kernel and one on the plain search:
+     carried states bit for bit after every tick, texts equal, 1 beam
+     launch a tick; ms per tick. The kernel lines' path_launches gain
+     conformer_greedy, conformer_device_beam and
+     conformer_stream_pool_beam
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -2056,9 +2080,9 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
           f"long-form host beam launches {launches}")
 
 
-def pool_schedule(np):
+def pool_schedule(np, chunk=POOL_CHUNK):
     """8 streams of 5-20 s opening 3 ticks apart: (start tick, mu-law
-    chunks of POOL_CHUNK samples, true length)."""
+    chunks of `chunk` samples, true length)."""
     from vietasr_tpu_torch.audio.g711 import ulaw_encode
 
     rng = np.random.RandomState(1010)
@@ -2066,14 +2090,14 @@ def pool_schedule(np):
     for i in range(8):
         n = int(rng.uniform(5.0, 20.0) * 16000)
         codes = ulaw_encode((rng.randn(n) * 0.1).astype(np.float32))
-        pad = np.concatenate([codes, np.full((-n) % POOL_CHUNK, 0xFF,
+        pad = np.concatenate([codes, np.full((-n) % chunk, 0xFF,
                                              np.uint8)])
-        out.append((3 * i, [pad[j:j + POOL_CHUNK]
-                            for j in range(0, len(pad), POOL_CHUNK)], n))
+        out.append((3 * i, [pad[j:j + chunk]
+                            for j in range(0, len(pad), chunk)], n))
     return out
 
 
-def drive_pools(pools, schedule, on_tick=None):
+def drive_pools(pools, schedule, on_tick=None, chunk=POOL_CHUNK):
     """Feed `schedule` to every pool in lockstep (a stream's last chunk as
     the tail step at its true end, then its flush); on_tick() after each
     step of all pools. Returns each pool's (pieces, final texts)."""
@@ -2097,9 +2121,9 @@ def drive_pools(pools, schedule, on_tick=None):
             j = tick - start
             if 0 <= j < len(chunks):
                 feed[i] = chunks[j]
-                if j == len(chunks) - 1 and n % POOL_CHUNK:
+                if j == len(chunks) - 1 and n % chunk:
                     tails.append(i)
-                    treal[i] = n - j * POOL_CHUNK
+                    treal[i] = n - j * chunk
         step(lambda p, pool: pool.feed(
             {slots[p][i]: c for i, c in feed.items()},
             tail_slots=tuple(slots[p][i] for i in tails),
@@ -2108,7 +2132,7 @@ def drive_pools(pools, schedule, on_tick=None):
             if tick - start == len(chunks) - 1:
                 step(lambda p, pool: pool.flush(
                     slots[p][i], return_pieces=True,
-                    tail_done=bool(n % POOL_CHUNK)))
+                    tail_done=bool(n % chunk)))
                 for p, pool in enumerate(pools):
                     logs[p][1].append(pool.close(slots[p][i]))
     return logs
@@ -2342,6 +2366,480 @@ def streaming_phase(np, torch, dev, lm_paths, kernels):
                   f"{seconds} s differs from the Transcriber")
     finally:
         srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the Conformer-CTC family
+
+CONFORMER_CONFIG = os.path.join(HERE, "vietasr_tpu_torch", "configs",
+                                "conformer_ctc_vi.yaml")
+CONFORMER_STREAM_CONFIG = os.path.join(HERE, "vietasr_tpu_torch", "configs",
+                                       "conformer_ctc_vi_streaming.yaml")
+# the Conformer on the frontend kernel vs on the plain frontend, both on
+# the card. The weights are a random init, whose posteriors on noise are
+# nearly flat (phase 11 prints the median top-1 / top-2 margin), while
+# the two routes' features differ in the last bits and a bf16 rounding
+# that flips in one of 16 blocks moves the rest of the stack. So in bf16
+# the routes are held to phase 5's E2E_LOGP_TOL in log p (the frame
+# argmax printed), and in fp32, where the feature difference stays in
+# the last bits of log p, to this frame argmax agreement
+CONFORMER_ARGMAX_MIN = 0.99
+# the chunked streamer vs the offline chunked forward of the same frames,
+# fp32: the JAX package's streaming contract for the Conformer
+CONFORMER_STREAM_TOL = 2e-4
+# one attention chunk of conformer_ctc_vi_streaming: 4 x 16 frames x hop
+CONFORMER_CHUNK = 10240
+# a GEMM of bf16-valued fp32 operands on TF32 tensor cores vs IEEE fp32,
+# relative to the largest |result|: fp32 sums of 1,024 exact products in
+# another order (TF32 rounding of the operands would show as ~1e-3)
+TF32_EXACT_TOL = 1e-5
+# device time of a Conformer forward by group: the profiler range around a
+# kernel (models/conformer.py::_range) first, then its name
+CONFORMER_GROUPS = ("GEMMs", "attention elementwise + softmax",
+                    "depthwise conv", "conv2d subsampling",
+                    "LayerNorm / GLU / swish / residual elementwise",
+                    "frontend kernel", "uploads")
+
+
+def reset_conformer_counts():
+    from vietasr_tpu_torch.ops.fused_ctc import fused_ctc_alpha, fused_ctc_beta
+
+    reset_launches()
+    fused_ctc_alpha.launches = 0
+    fused_ctc_beta.launches = 0
+
+
+def conformer_counts() -> dict:
+    from vietasr_tpu_torch.ops.fused_ctc import fused_ctc_alpha, fused_ctc_beta
+
+    return dict(read_launches(), ctc_alpha=fused_ctc_alpha.launches,
+                ctc_beta=fused_ctc_beta.launches)
+
+
+def n_forwards(tr, signals) -> int:
+    groups = {}
+    for s in signals:
+        groups.setdefault(tr._bucket_len(len(s)), []).append(s)
+    return sum(-(-len(g) // tr.opts.max_batch) for g in groups.values())
+
+
+def conformer_device_groups(torch, fn, reps: int = 5):
+    """({group: device ms per fn() call}, traced kernel ms per call): the
+    kernels and copies of a trace of fn(), each attributed to the
+    conformer profiler range it ran in, else by its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(CONFORMER_GROUPS, 0.0)
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        tag, p = None, e
+        while p is not None:
+            if p.name.startswith("conformer."):
+                tag = p.name
+                break
+            p = p.cpu_parent
+        for k in e.kernels:
+            low = k.name.lower()
+            if "logmel" in low:
+                group = "frontend kernel"
+            elif "memcpy" in low and "htod" in low:
+                group = "uploads"
+            elif tag == "conformer.subsample":
+                group = "conv2d subsampling"
+            elif tag == "conformer.depthwise":
+                group = "depthwise conv"
+            elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")):
+                group = "GEMMs"
+            elif tag == "conformer.mhsa":
+                group = "attention elementwise + softmax"
+            else:
+                group = "LayerNorm / GLU / swish / residual elementwise"
+            out[group] += k.duration / reps / 1e3
+    return out
+
+
+def tf32_exactness(torch, dev):
+    """The bf16 Conformer's products run as fp32 GEMMs of bf16 values with
+    TF32 tensor cores allowed (utils/device.py::exact_tensor_cores): such a
+    value is exact in TF32, so the result may differ from IEEE fp32 only
+    by the order of the fp32 sums. At an FFN GEMM's shape (B = 8 x T' =
+    418 rows, 1024 x 256), against operands that are not bf16 values."""
+    from vietasr_tpu_torch.utils.device import exact_tensor_cores, strict_fp32
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    a = torch.randn(3344, 1024, device=dev, generator=g)
+    b = torch.randn(1024, 256, device=dev, generator=g)
+    errs = {}
+    for what, (x, y) in (("bf16 values", (a.bfloat16().float(),
+                                          b.bfloat16().float())),
+                         ("fp32 values", (a, b))):
+        with strict_fp32():
+            ref = x @ y
+        with exact_tensor_cores():
+            got = x @ y
+        errs[what] = float((got - ref).abs().max() / ref.abs().max())
+    print(f"TF32 tensor cores vs IEEE fp32 GEMM (3344 x 1024 x 256), max "
+          f"|d| / max|ref|: {errs['bf16 values']:.3e} on bf16 values "
+          f"(bound {TF32_EXACT_TOL:g}), {errs['fp32 values']:.3e} on fp32 "
+          f"values")
+    check(errs["bf16 values"] <= TF32_EXACT_TOL, "TF32 tensor cores round "
+          "bf16-valued operands")
+
+
+def conformer_offline_phase(np, torch, dev, signals, lm_paths, kernels):
+    """Phase 11a: Transcriber on conformer_ctc_vi (full width, seeded
+    init_conformer, bf16) over phase 5's signals: greedy, device beam and
+    host beam, counters read around each path."""
+    import torch.nn.functional as F
+
+    from vietasr_tpu_torch.frontend.cuda_frontend import \
+        log_mel_tiles_fast_cuda
+    from vietasr_tpu_torch.models.conformer import num_params
+    from vietasr_tpu_torch.ops.beam_search import BeamSearchDecoderLM
+    from vietasr_tpu_torch.ops.device_beam import (best_path_from_raw,
+                                                   device_beam_search)
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    tr = Transcriber(CONFORMER_CONFIG)     # init_conformer, seed 0, bf16
+    n_par = num_params(tr._float_variables)
+    check(tr.device.type == "cuda" and tr.cfg.architecture == "conformer",
+          "the Conformer Transcriber is not a Conformer on CUDA")
+    check(n_par == 27_346_779, f"conformer_ctc_vi has {n_par} parameters")
+    plain = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        fused_frontend="off"))
+    fp32 = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        compute_dtype=None))
+    fp32_plain = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        compute_dtype=None, fused_frontend="off"))
+    forwards = n_forwards(tr, signals)
+    tr.transcribe_batch(signals)                       # warm-up
+    reset_conformer_counts()
+    texts = tr.transcribe_batch(signals)
+    launches = conformer_counts()
+    print(f"conformer greedy path ({n_par} parameters, bf16): "
+          f"{len(signals)} signals, {forwards} forwards, launches "
+          f"{launches}")
+    check(launches == {"log_mel_frontend": forwards, "repeat_block": 0,
+                       "beam_search": 0, "ctc_alpha": 0, "ctc_beta": 0},
+          f"conformer greedy launches {launches} for {forwards} forwards")
+    add_path_launches(kernels, "conformer_greedy", launches)
+
+    pairs = {"bf16 kernel vs plain frontend": (tr, plain),
+             "fp32 kernel vs plain frontend": (fp32, fp32_plain),
+             "bf16 vs fp32 (kernel frontend)": (tr, fp32)}
+    stats = {k: ([], 0.0) for k in pairs}
+    margins = []
+    for s in signals:
+        out = {t: t.log_probs(s) for t in (tr, plain, fp32, fp32_plain)}
+        el = out[tr][1]
+        n = int(el[0])
+        check(all(np.array_equal(el, e) for _, e in out.values()),
+              "conformer enc_lens differ between routes")
+        for lp, _ in out.values():
+            check(np.isfinite(lp[0, :n]).all()
+                  and np.allclose(np.exp(lp[0, :n]).sum(-1), 1.0,
+                                  atol=1e-3),
+                  "conformer log-probs: finiteness or normalisation")
+        for k, (a, b) in pairs.items():
+            la, lb = out[a][0][0, :n], out[b][0][0, :n]
+            agree, worst = stats[k]
+            agree.append(la.argmax(-1) == lb.argmax(-1))
+            stats[k] = (agree, max(worst, float(np.abs(la - lb).max())))
+        top2 = np.sort(out[fp32][0][0, :n], -1)[:, -2:]
+        margins.append(top2[:, 1] - top2[:, 0])
+    frames = sum(map(len, stats["bf16 vs fp32 (kernel frontend)"][0]))
+    same = sum(a == b for a, b in zip(texts, plain.transcribe_batch(signals)))
+    margin = float(np.median(np.concatenate(margins)))
+    print(f"conformer routes over {frames} frames (the fp32 forward's "
+          f"median top-1 / top-2 margin {margin:.4f} in log p): " + "; ".join(
+              f"{k}: frame argmax {np.mean(np.concatenate(a)):.4f}, max|d "
+              f"log p| {w:.4e}" for k, (a, w) in stats.items())
+          + f"; bf16 transcripts equal to the plain frontend's "
+          f"{same}/{len(texts)}")
+    worst_bf16 = stats["bf16 kernel vs plain frontend"][1]
+    agree_fp32 = float(np.mean(np.concatenate(
+        stats["fp32 kernel vs plain frontend"][0])))
+    check(worst_bf16 <= E2E_LOGP_TOL, f"conformer bf16 kernel vs plain "
+          f"frontend: max|d log p| {worst_bf16} > {E2E_LOGP_TOL}")
+    check(agree_fp32 >= CONFORMER_ARGMAX_MIN, f"conformer fp32 kernel vs "
+          f"plain frontend: frame argmax {agree_fp32}")
+    path_numbers(np, torch, tr, signals, "conformer greedy path")
+    del plain, fp32, fp32_plain
+    tf32_exactness(torch, dev)
+
+    # fused_frontend="fast": the bf16 frontend kernel on the same path
+    fast = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        fused_frontend="fast"))
+    fast.transcribe_batch(signals[:1])                 # warm-up
+    reset_conformer_counts()
+    log_mel_tiles_fast_cuda.launches = 0
+    fast.transcribe_batch(signals)
+    launches = dict(conformer_counts(),
+                    frontend_fast=log_mel_tiles_fast_cuda.launches)
+    print(f"conformer fast path: launches {launches}")
+    check(launches == {"log_mel_frontend": 0, "repeat_block": 0,
+                       "beam_search": 0, "ctc_alpha": 0, "ctc_beta": 0,
+                       "frontend_fast": forwards},
+          f"conformer fast path launches {launches}")
+    add_path_launches(kernels, "conformer_fast", launches)
+    del fast
+
+    # the forward alone at B = 8 x 16.7 s, and where its device time goes
+    full = signals[:8]
+    batch = tr._host_batch(8, tr.buckets[-1])
+    lens = np.array([len(s) for s in full], np.int32)
+    for row, s in enumerate(full):
+        batch[row, :len(s)] = s
+    tr._fwd(batch, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        tr._fwd(batch, lens)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 20
+    rows = device_profile(lambda: tr._fwd(batch, lens), reps=5)
+    busy = sum(r[0] for r in rows)
+    launches_per = sum(r[1] for r in rows)
+    groups = conformer_device_groups(torch, lambda: tr._fwd(batch, lens))
+    # the frontend kernel launches from ctypes, outside any traced op
+    groups["frontend kernel"] = sum(r[0] for r in rows if "logmel" in r[2])
+    full_s = sum(len(s) for s in full) / 16000
+    print(f"conformer forward B=8 x 16.7 s: {dt * 1e3:.3f} ms = "
+          f"{full_s / dt:.1f} audio-s/s; device busy {busy:.4f} ms "
+          f"({100 * (1 - busy / (dt * 1e3)):.1f} % idle), {launches_per:g} "
+          f"device ops a forward; by group (ms): "
+          + ", ".join(f"{g} {ms:.4f}" for g, ms in groups.items())
+          + f" (sum {sum(groups.values()):.4f})")
+    for ms, count, key in rows[:10]:
+        print(f"  {ms:8.4f} ms  x{count:<4g} {key[:100]}")
+
+    # device beam, W = 100, the word 3-gram: one launch per call
+    trb = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        decoder="device_beam", lm_path=lm_paths[3]))
+    check(trb._device_word_lm is not None, "the word LM was not sniffed")
+    labels = trb.cfg.labels
+    trb.transcribe_batch(signals)                      # warm-up
+    batches = forward_batches(np, torch, trb, signals)
+    reset_conformer_counts()
+    btexts = trb.transcribe_batch(signals)
+    launches = conformer_counts()
+    print(f"conformer device beam path (W={trb.opts.beam_width}, word "
+          f"3-gram): launches {launches}")
+    check(launches == {"log_mel_frontend": forwards, "repeat_block": 0,
+                       "beam_search": 1, "ctc_alpha": 0, "ctc_beta": 0},
+          f"conformer device beam launches {launches}")
+    add_path_launches(kernels, "conformer_device_beam", launches)
+    t_max = max(lp.shape[1] for _, lp, _ in batches)
+    lp = torch.cat([F.pad(lp, (0, 0, 0, t_max - lp.shape[1]))
+                    for _, lp, _ in batches])
+    el = torch.cat([e for _, _, e in batches])
+    order = [g for group, _, _ in batches for g in group]
+    kw = dict(beam_width=trb.opts.beam_width, space=labels.index(" "),
+              word_lm=trb._device_word_lm, wlm_probes=trb._device_wlm_probes,
+              **BEAM_KW)
+    raw_k = fused_beam_search(lp, el, blank=len(labels), return_raw=True,
+                              **kw)
+    raw_p = device_beam_search(lp, el, blank=len(labels), return_raw=True,
+                               **kw)
+    torch.cuda.synchronize()
+    raw_equal = all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+    ids, n = best_path_from_raw(*raw_p, word_lm=kw["word_lm"],
+                                alpha=BEAM_KW["alpha"], beta=BEAM_KW["beta"],
+                                wlm_probes=kw["wlm_probes"])
+    plain_texts = [None] * len(signals)
+    for g, text in zip(order, render(labels, ids, n)):
+        plain_texts[g] = text
+    same = sum(a == b for a, b in zip(btexts, plain_texts))
+    print(f"conformer device beam: B={lp.shape[0]} T={t_max} raw state / "
+          f"backpointers equal to the plain search {raw_equal}; transcripts "
+          f"equal {same}/{len(btexts)}")
+    check(raw_equal, "conformer device beam: the kernel's raw result "
+          "differs from the plain search")
+    check(same == len(btexts), "conformer device beam transcripts differ "
+          "from the plain search's")
+    path_numbers(np, torch, trb, signals, "conformer device beam path")
+    del trb
+
+    # host beam from the PROBING binary on the 4 shortest signals
+    four = sorted(signals, key=len)[:4]
+    trh = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        decoder="beam", lm_path=lm_paths["probing"]))
+    check(trh._decoder is not None and trh._decoder._native is not None,
+          "the host beam decoder did not take the C++ tier")
+    reset_conformer_counts()
+    t0 = time.perf_counter()
+    htexts = trh.transcribe_batch(four)
+    dt = time.perf_counter() - t0
+    launches = conformer_counts()
+    # the C++ tier on the same log-probs (the call's own forwards: another
+    # batch would round bf16 otherwise), over the same binary and the ARPA
+    same = {}
+    for kind in ("probing", 3):
+        ref = BeamSearchDecoderLM(labels, lm_path=lm_paths[kind],
+                                  alpha=BEAM_KW["alpha"],
+                                  beta=BEAM_KW["beta"],
+                                  beam_width=trh.opts.beam_width)
+        check(ref._native is not None, "the reference decoder is not C++")
+        want = [None] * len(four)
+        for group, lp, el in forward_batches(np, torch, trh, four):
+            texts_k = ref.decode_batch(lp.float().cpu().numpy(),
+                                       el.cpu().numpy())
+            for g, text in zip(group, texts_k):
+                want[g] = text
+        same[kind] = sum(a == b for a, b in zip(htexts, want))
+    print(f"conformer host beam (W={trh.opts.beam_width}, PROBING): 4 "
+          f"signals in {dt * 1e3:.1f} ms, launches {launches}; transcripts "
+          f"equal to the C++ tier on the same log-probs over the PROBING "
+          f"binary {same['probing']}/4, over the ARPA {same[3]}/4")
+    check(launches["beam_search"] == 0 and launches["repeat_block"] == 0
+          and launches["log_mel_frontend"] == n_forwards(trh, four),
+          f"conformer host beam launches {launches}")
+    check(same["probing"] == 4 and same[3] == 4,
+          "conformer host beam transcripts differ")
+    del trh
+
+    try:
+        tr.transcribe_long(np.zeros(20 * 16000, np.float32))
+    except NotImplementedError as e:
+        print(f"conformer transcribe_long refused: {str(e)[:90]}...")
+    else:
+        check(False, "transcribe_long on a Conformer did not raise")
+
+
+def conformer_streaming_phase(np, torch, dev, lm_paths, kernels):
+    """Phase 11b: the chunked streamer on conformer_ctc_vi_streaming
+    (full width, fp32, seeded init_conformer) against the offline chunked
+    forward of the frames it saw, and two Conformer StreamPools in
+    lockstep, the beam kernel's carried state against the plain search."""
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.models import model_init
+    from vietasr_tpu_torch.models.conformer import (conformer_apply,
+                                                    num_params)
+    from vietasr_tpu_torch.serve.streams import StreamPool
+    from vietasr_tpu_torch.streaming_conformer import \
+        ConformerOnlineTranscriber
+    from vietasr_tpu_torch.streaming_online import StreamingFeaturizer
+
+    cfg = load_config(CONFORMER_STREAM_CONFIG)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    variables = model_init(gen, cfg, device=dev)
+    n_par = num_params(variables)
+    check(n_par == 25_525_339, f"conformer_ctc_vi_streaming has {n_par} "
+          "parameters")
+    ot = ConformerOnlineTranscriber(cfg, variables, causal_norm=False)
+    check(ot.device.type == "cuda" and ot.skip_first_step
+          and ot.required_chunk_samples == CONFORMER_CHUNK,
+          "conformer streamer: device, skip_first_step or chunk")
+    rng = np.random.RandomState(1101)
+    cs = CONFORMER_CHUNK
+    n_chunks = 32                                       # 20.48 s
+    sig = (rng.randn(n_chunks * cs) * 0.1).astype(np.float32)
+    chunks = [sig[i * cs:(i + 1) * cs] for i in range(n_chunks)]
+    ot.stream(chunks[:3])                               # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ot.stream(chunks)
+    dt = time.perf_counter() - t0
+    sf = StreamingFeaturizer(cfg.featurizer, causal_norm=False,
+                             junk_align=ot._sf.junk_frames, device=dev)
+    fields = sf.init_fields(1)
+    first = torch.from_numpy(chunks[0]).to(dev)[None]
+    fields = (sf.reflect_carry(first),) + fields[1:]
+    frames = []
+    with torch.inference_mode():
+        for c in chunks:
+            fields, out = sf.step(fields, torch.from_numpy(c).to(dev)[None])
+            frames.append(out[0])
+        window = torch.cat(frames, 0)[ot._sf.junk_frames:]
+        want, _ = conformer_apply(variables, window[None],
+                                  torch.tensor([window.shape[0]], device=dev),
+                                  cfg=cfg.conformer)
+    want = want[0].cpu().numpy()
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    print(f"conformer streamer (conformer_ctc_vi_streaming, {n_par} "
+          f"parameters, fp32, chunk 16 left 4), {n_chunks * cs / 16000:.2f} s "
+          f"in {n_chunks} chunks of {cs}: {got.shape[0]} frames, max|d log "
+          f"p| vs the offline chunked forward {err:.3e} (tol "
+          f"{CONFORMER_STREAM_TOL}); {dt / n_chunks * 1e3:.2f} ms a step")
+    check(err <= CONFORMER_STREAM_TOL, f"conformer streamer vs offline: "
+          f"{err}")
+
+    # StreamPool(slots=8, decoder="beam") on the beam kernel and on the
+    # plain search in lockstep, their carried states compared every tick
+    ot = ConformerOnlineTranscriber(cfg, variables)     # causal stats
+    kw = dict(slots=8, decoder="beam", lm_path=lm_paths[3], beam_width=16)
+    pool_k = StreamPool(ot, **kw)
+    pool_p = StreamPool(ot, beam_impl="plain", **kw)
+    check(pool_k.chunk_samples == cs, f"conformer pool chunk "
+          f"{pool_k.chunk_samples}")
+    check(pool_k._dsb.skip_frames == ot.prefix_frames == 16,
+          "conformer pool: the device beam does not skip one chunk")
+    sched = pool_schedule(np, cs)
+    ticks, feeds = [0], [0]
+
+    def same_carry():
+        ticks[0] += 1
+        for a, b in zip(pool_k.beam_carry, pool_p.beam_carry):
+            check(torch.equal(a, b), f"conformer pool: the kernel's carried "
+                  f"beam state differs from the plain search's at step "
+                  f"{ticks[0]}")
+
+    feed_k = pool_k.feed
+
+    def counted_feed(*args, **kwargs):
+        feeds[0] += 1
+        return feed_k(*args, **kwargs)
+
+    pool_k.feed = counted_feed
+    reset_conformer_counts()
+    (pieces_k, finals_k), (pieces_p, finals_p) = drive_pools(
+        [pool_k, pool_p], sched, same_carry, chunk=cs)
+    launches = conformer_counts()
+    print(f"conformer stream pool (8 slots, beam W=16 cutoff 8, word "
+          f"3-gram, mu-law wire, chunk {cs}), 8 streams of "
+          f"{[round(s[2] / 16000, 1) for s in sched]} s: {feeds[0]} ticks, "
+          f"carried state equal to the plain pool's after each, launches "
+          f"{launches}; final texts equal "
+          f"{sum(a == b for a, b in zip(finals_k, finals_p))}/{len(sched)}, "
+          f"{sum(map(len, finals_k))} characters")
+    check(finals_k == finals_p and pieces_k == pieces_p,
+          "conformer pool texts differ from the plain pool's")
+    check(launches == {"log_mel_frontend": 0, "repeat_block": 0,
+                       "beam_search": feeds[0], "ctc_alpha": 0,
+                       "ctc_beta": 0},
+          f"conformer pool launches {launches} for {feeds[0]} ticks")
+    add_path_launches(kernels, "conformer_stream_pool_beam", launches)
+
+    pool_t = StreamPool(ot, **kw)
+    times = []
+    feed_t = pool_t.feed
+
+    def timed_feed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = feed_t(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    pool_t.feed = timed_feed
+    drive_pools([pool_t], sched, chunk=cs)
+    dts = np.array(times) * 1e3
+    med = float(np.median(dts))
+    print(f"conformer stream pool tick: median {med:.2f} ms, p90 "
+          f"{float(np.percentile(dts, 90)):.2f} ms over {len(dts)} ticks = "
+          f"{cs / 16000 / (med / 1e3):.1f} audio-s/s per slot, "
+          f"{8 * cs / 16000 / (med / 1e3):.1f} for 8 slots")
 
 
 KERNEL_GROUPS = {
@@ -2582,7 +3080,10 @@ def main() -> int:
         longform_phase(np, torch, dev, lm_paths, kernels)
         print(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
         streaming_phase(np, torch, dev, lm_paths, kernels)
-    print(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
+        print(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
+        conformer_offline_phase(np, torch, dev, signals, lm_paths, kernels)
+        conformer_streaming_phase(np, torch, dev, lm_paths, kernels)
+    print(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
     kernels += ctc_phase(np, torch, dev)
     print(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     train_phase(np, torch, dev, kernels)

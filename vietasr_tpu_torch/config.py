@@ -1,10 +1,11 @@
 """Config system: typed dataclasses + NeMo-sectioned YAML ingestion
-(counterpart of vietasr_tpu/config.py, restricted to what a QuartzNet
-config needs).
+(counterpart of vietasr_tpu/config.py, restricted to what a QuartzNet or a
+Conformer config needs).
 
 Reads the section-per-component YAML shape (`AudioToMelSpectrogram
-Preprocessor`, `SpectrogramAugmentation`, `JasperEncoder`, `labels`), so
-the same file loads here and in the JAX package.
+Preprocessor`, `SpectrogramAugmentation`, `JasperEncoder` or
+`ConformerEncoder`, `labels`), so the same file loads here and in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -77,6 +78,38 @@ class EncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ConformerConfig:
+    """Conformer encoder (models/conformer.py; YAML section
+    `ConformerEncoder`)."""
+
+    num_blocks: int = 16
+    d_model: int = 176
+    num_heads: int = 4
+    ff_expansion: int = 4
+    conv_kernel: int = 31
+    dropout: float = 0.1
+    subsampling_factor: int = 4       # conv2d subsampling, stride 2 per stage
+    subsampling_channels: int = 176
+    # "conv2d": two k3 s2 conv stages; "stack": frame stacking, (B, T, F)
+    # -> (B, T/4, 4F) into the d_model projection (causal by construction)
+    subsampling_mode: str = "conv2d"
+    # 0: full-context attention; > 0: chunked-causal (WeNet/U2 style), a
+    # query sees its own chunk of `chunk_size` subsampled frames and
+    # `left_chunks` chunks before it, and the depthwise conv and conv2d
+    # subsampling pad on the left only (streaming_conformer.py)
+    chunk_size: int = 0
+    left_chunks: int = 1
+    # the JAX package's lax.scan over the block stack; the same math, so
+    # the port runs the same loop either way
+    scan_blocks: bool = False
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ConformerConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass(frozen=True)
 class SpecAugmentConfig:
     """SpectrogramAugmentation kwargs (parsed and kept; training only)."""
 
@@ -101,10 +134,8 @@ class ModelConfig:
     featurizer: FeaturizerConfig
     encoder: EncoderConfig
     spec_augment: SpecAugmentConfig
-    architecture: str = "quartznet"
-    # the raw `ConformerEncoder` section, kept unparsed until the Conformer
-    # is ported
-    conformer: Optional[dict] = None
+    architecture: str = "quartznet"            # "quartznet" | "conformer"
+    conformer: Optional[ConformerConfig] = None
 
     @property
     def num_classes(self) -> int:
@@ -134,7 +165,9 @@ def config_from_dict(raw: dict) -> ModelConfig:
         normalization_mode=enc_raw.get("normalization_mode", "batch"),
         init_mode=enc_raw.get("init_mode", "xavier_uniform"),
     )
-    conformer = raw.get("ConformerEncoder")
+    conformer = None
+    if "ConformerEncoder" in raw:
+        conformer = ConformerConfig.from_dict(raw["ConformerEncoder"])
     return ModelConfig(
         name=raw.get("model", "model"),
         labels=list(raw.get("labels", [])),

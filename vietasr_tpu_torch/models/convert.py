@@ -249,10 +249,19 @@ def _check_kernel(w: np.ndarray, k: int, key: str) -> None:
                          f"block has effective_kernel {k}")
 
 
+def _check_jasper(cfg: EncoderConfig) -> None:
+    if not cfg.blocks:
+        raise ValueError(
+            "the NeMo .pt converters hold a QuartzNet (JasperEncoder "
+            "blocks); this config has none (a Conformer's weights travel as "
+            "a msgpack variables tree)")
+
+
 def encoder_from_state_dict(sd: Mapping[str, np.ndarray],
                             cfg: EncoderConfig) -> dict:
     """{"params": [per block], "batch_stats": [per block]} (numpy leaves,
     JAX layout) from a reference JasperEncoder state_dict."""
+    _check_jasper(cfg)
     enc_params = []
     enc_stats = []
     feat_in = cfg.feat_in
@@ -330,6 +339,7 @@ def state_dict_from_variables(variables: dict, cfg: EncoderConfig
     """The inverse (an unfolded tree -> the reference's key layout), for
     exporting checkpoints the reference stack loads. Leaves may be numpy
     arrays or tensors."""
+    _check_jasper(cfg)
     variables = to_numpy(variables)
     out: Dict[str, np.ndarray] = {}
     enc = variables["params"]["encoder"]

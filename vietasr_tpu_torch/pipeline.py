@@ -1,9 +1,10 @@
 """End-to-end inference facade (counterpart of vietasr_tpu/pipeline.py).
 
 waveform -> log-mel (the fused frontend kernel on the GPU; with
-`fused_frontend="fast"` its bf16 tensor-core kernel) -> folded-BN
-QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16; after
-`calibrate_int8`, int8 pointwise GEMMs with every block per-op) -> CTC
+`fused_frontend="fast"` its bf16 tensor-core kernel) -> the encoder:
+folded-BN QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16;
+after `calibrate_int8`, int8 pointwise GEMMs with every block per-op) or
+the Conformer (models/conformer.py, per op, BN unfolded as in JAX) -> CTC
 head log-softmax -> one of three decoders:
 - greedy collapse on the device (the default);
 - `decoder="beam"` (or an `lm_path` with the greedy decoder): the host
@@ -34,6 +35,9 @@ from vietasr_tpu_torch.config import ModelConfig, load_config
 from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
                                                       make_fused_featurizer)
 from vietasr_tpu_torch.frontend.features import make_featurizer
+from vietasr_tpu_torch.models import model_apply, model_init
+from vietasr_tpu_torch.models.conformer import \
+    cast_matmul_weights as conformer_cast_weights
 from vietasr_tpu_torch.models.convert import (decoder_from_state_dict,
                                               encoder_from_state_dict,
                                               load_anchor,
@@ -45,9 +49,7 @@ from vietasr_tpu_torch.models.quantize import (calibrate_activations,
                                                quantize_quartznet)
 from vietasr_tpu_torch.models.quartznet import (BLOCK_IMPLS,
                                                 cast_matmul_weights,
-                                                fold_batchnorm,
-                                                init_quartznet,
-                                                quartznet_apply)
+                                                fold_batchnorm)
 from vietasr_tpu_torch.ops.beam_search import BeamSearchDecoderLM
 from vietasr_tpu_torch.ops.device_beam import (device_beam_transcripts,
                                                word_lm_to_device)
@@ -109,9 +111,11 @@ class Transcriber:
     `*.msgpack.gz` file of one (models/convert.py); `encoder_checkpoint`
     and `decoder_checkpoint`, the reference's two NeMo `.pt` files. With
     neither or one of those, the model is initialised randomly
-    (`init_quartznet` under a torch.Generator seeded 0) and the one given
-    overlays its part, as JAX does. `device=None` means CUDA, and raises
-    when there is no GPU."""
+    (`model_init` under a torch.Generator seeded 0) and the one given
+    overlays its part, as JAX does. A Conformer config (`ConformerEncoder`
+    section) takes `variables` / `checkpoint` or the random init; the `.pt`
+    files are QuartzNet's. `device=None` means CUDA, and raises when there
+    is no GPU."""
 
     def __init__(self, config_file: str, *,
                  encoder_checkpoint: Optional[str] = None,
@@ -125,9 +129,6 @@ class Transcriber:
         self.cfg = dataclasses.replace(
             cfg, featurizer=dataclasses.replace(cfg.featurizer, dither=0.0))
         self.opts = opts = options or TranscriberOptions()
-        if self.cfg.architecture != "quartznet":
-            raise NotImplementedError(
-                "only QuartzNet configs are ported (Conformer: ROADMAP A.6)")
         if opts.decoder not in ("greedy", "beam", "device_beam"):
             raise ValueError(f"unknown decoder {opts.decoder!r}")
         if opts.device_beam_lm not in ("auto", "char", "word"):
@@ -148,12 +149,20 @@ class Transcriber:
             variables = self._variables_from_pt(encoder_checkpoint,
                                                 decoder_checkpoint)
         variables = params_from_jax(variables, device=self.device)
-        first_sub = variables["params"]["encoder"][0]["sub"][0]
-        if opts.fold_bn and "bn" in first_sub:
-            variables = fold_batchnorm(variables, self.cfg.encoder)
-        # fp32 folded weights: calibrate_int8 quantizes from them, as JAX
-        self._float_variables = variables
-        self.variables = cast_matmul_weights(variables, self.compute_dtype)
+        if self.cfg.architecture == "conformer":
+            # no BN fold (JAX folds QuartzNet only); the matmul weights
+            # stored in the compute dtype, the values the forward rounds to
+            self._float_variables = variables
+            self.variables = conformer_cast_weights(variables,
+                                                    self.compute_dtype)
+        else:
+            first_sub = variables["params"]["encoder"][0]["sub"][0]
+            if opts.fold_bn and "bn" in first_sub:
+                variables = fold_batchnorm(variables, self.cfg.encoder)
+            # fp32 folded weights: calibrate_int8 quantizes from them, as JAX
+            self._float_variables = variables
+            self.variables = cast_matmul_weights(variables,
+                                                 self.compute_dtype)
         self._q_tables: dict = {}    # int8 serving tables (calibrate_int8)
 
         fcfg = self.cfg.featurizer
@@ -190,12 +199,17 @@ class Transcriber:
         given, converted; else a random init, seed 0, overlaid with the
         one given."""
         ecfg = self.cfg.encoder
+        if self.cfg.architecture != "quartznet" and (encoder_checkpoint
+                                                     or decoder_checkpoint):
+            raise NotImplementedError(
+                "NeMo .pt checkpoints hold a QuartzNet (JasperEncoder / "
+                "JasperDecoderForCTC); a Conformer takes variables= or "
+                "checkpoint= (a msgpack variables file)")
         if encoder_checkpoint and decoder_checkpoint:
             return variables_from_checkpoints(encoder_checkpoint,
                                               decoder_checkpoint, ecfg)
-        variables = to_numpy(init_quartznet(
-            torch.Generator().manual_seed(0), ecfg, self.cfg.num_classes,
-            device="cpu"))
+        variables = to_numpy(model_init(torch.Generator().manual_seed(0),
+                                        self.cfg, device="cpu"))
         if encoder_checkpoint:
             enc = encoder_from_state_dict(
                 load_torch_state_dict(encoder_checkpoint), ecfg)
@@ -228,12 +242,13 @@ class Transcriber:
     def _forward(self, signal: torch.Tensor, lengths: torch.Tensor):
         feats, flens = self._featurize(signal, lengths)
         kwargs = {}
-        if self._q_tables:
-            kwargs["pw_fn"] = int8_pw_fn(self._q_tables)
-        log_probs, enc_lens = quartznet_apply(
-            self.variables, feats, flens, cfg=self.cfg.encoder,
-            compute_dtype=self.compute_dtype, block_impl=self.opts.block_impl,
-            **kwargs)
+        if self.cfg.architecture == "quartznet":
+            kwargs["block_impl"] = self.opts.block_impl
+            if self._q_tables:
+                kwargs["pw_fn"] = int8_pw_fn(self._q_tables)
+        log_probs, enc_lens = model_apply(
+            self.variables, feats, flens, cfg=self.cfg,
+            compute_dtype=self.compute_dtype, **kwargs)
         preds, keep = greedy_decode(log_probs, enc_lens,
                                     blank=self.cfg.num_classes)
         return log_probs, enc_lens, preds, keep

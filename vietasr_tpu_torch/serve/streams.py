@@ -1,11 +1,15 @@
 """Multi-stream online serving: many concurrent real-time streams on one
 GPU (counterpart of vietasr_tpu/serve/streams.py).
 
-`OnlineTranscriber.step` is batched, so the pool's slots are the batch
-dimension of one step: one call advances every slot by one chunk. Idle
-slots are fed silence so shapes stay fixed, and only the fed slots'
-state rows are committed (`torch.where`), so sessions never push phantom
-audio through each other's state. Chunks arrive as float32, int16 PCM or
+The transcriber is streaming_online.OnlineTranscriber (QuartzNet) or
+streaming_conformer.ConformerOnlineTranscriber (a chunked-causal
+Conformer, which fixes chunk_samples to its attention chunk and runs each
+stream's all-junk first step with the encoder frozen). Its `step` is
+batched, so the pool's slots are the batch dimension of one step: one
+call advances every slot by one chunk. Idle slots are fed silence so
+shapes stay fixed, and only the fed slots' state rows are committed
+(`torch.where`), so sessions never push phantom audio through each
+other's state. Chunks arrive as float32, int16 PCM or
 uint8 G.711 (`wire_encoding`), go to the device in that dtype and are
 decoded there (ops/g711.py).
 
@@ -106,7 +110,12 @@ class StreamPool:
         self.ot = transcriber
         self.device = transcriber.device
         self.slots = slots
-        self.chunk_samples = chunk_samples
+        # a chunked-causal encoder consumes a fixed attention chunk
+        self.chunk_samples = getattr(transcriber, "required_chunk_samples",
+                                     None) or chunk_samples
+        # rows on their first chunk run with the encoder frozen
+        self._skip_first = bool(getattr(transcriber, "skip_first_step",
+                                        False))
         labels = transcriber.cfg.labels
         if decoder == "beam" and lm_path and " " not in labels:
             # word-LM fusion needs a separator label; without one only the
@@ -249,7 +258,8 @@ class StreamPool:
         # the offline featurizer
         states = self.ot.seed_carry(self.states, x).where(virgin,
                                                           self.states)
-        new_states, lp = self.ot.step(states, x, pad, tail, treal)
+        kw = {"enc_skip": virgin} if self._skip_first else {}
+        new_states, lp = self.ot.step(states, x, pad, tail, treal, **kw)
         self.states = new_states.where(fed, states)
         return lp
 

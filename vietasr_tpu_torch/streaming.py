@@ -21,6 +21,13 @@ caches its compiled programs. Signals of one chunk or of more than
 FUSED_MAX_SPANS chunks take the grouped path (`long_form_log_probs`):
 host-side conversion, then max_batch chunks per forward through
 `Transcriber.log_probs`.
+
+A Conformer config is refused: the JAX package's long-form reads the
+encoder stride from the Jasper blocks (`encoder_stride`), which a
+Conformer config has none of, so its grid and keep ranges are in mel
+frames where its encoder subsamples 4x, and its stitched output has the
+wrong length. The port copies neither the fault nor a fix the JAX package
+lacks.
 """
 
 from __future__ import annotations
@@ -59,6 +66,16 @@ def encoder_stride(cfg: EncoderConfig) -> int:
     for b in cfg.blocks:
         s *= b.stride ** b.repeat
     return s
+
+
+def _refuse_conformer(transcriber) -> None:
+    if transcriber.cfg.architecture != "quartznet":
+        raise NotImplementedError(
+            "long-form transcription of a Conformer is not ported: the JAX "
+            "package's long-form (vietasr_tpu/streaming.py:42-46, 80-88, "
+            "139-148) takes the encoder stride from the Jasper blocks, 1 "
+            "for a Conformer whose subsampling is 4x, so its stitch grid "
+            "is wrong; use audio up to the last bucket, or StreamPool")
 
 
 def chunk_spans(n_samples: int, chunk: int, overlap: int
@@ -248,6 +265,7 @@ def transcribe_long_batch(
     model's (resampled on the device). int16 arrays are PCM, uint8 arrays
     G.711 wire bytes (signal_encoding 'ulaw' or 'alaw'); both are uploaded
     as they are and converted on the device."""
+    _refuse_conformer(transcriber)
     chunk, overlap, _ = _longform_grid(transcriber, chunk_seconds,
                                        overlap_seconds)
     decoder = transcriber.opts.decoder
@@ -284,6 +302,7 @@ def transcribe_long(
     log-probs (the beam kernel on the GPU), or the host `beam`. Input
     formats as in transcribe_long_batch (converted on the device on the
     fused path, on the host on the grouped one)."""
+    _refuse_conformer(transcriber)
     chunk, overlap, _ = _longform_grid(transcriber, chunk_seconds,
                                        overlap_seconds)
     decoder = transcriber.opts.decoder
@@ -340,6 +359,7 @@ def long_form_log_probs(transcriber, signal: np.ndarray, *,
     go through the encoder max_batch at a time (rows past the last chunk
     have length 0). device=True keeps the posterior on the device (a
     tensor); else numpy. Returns (log_probs, T_total)."""
+    _refuse_conformer(transcriber)
     hop = transcriber.cfg.featurizer.hop_length
     enc_stride = encoder_stride(transcriber.cfg.encoder)
     chunk, overlap, _ = _longform_grid(transcriber, chunk_seconds,

@@ -47,6 +47,12 @@ def _per_row(v, bsz: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device).expand(bsz)
 
 
+def where_rows(rows: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+               ) -> torch.Tensor:
+    """Row i of a where rows[i], else of b (rows (B,) bool)."""
+    return torch.where(rows.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
 class StreamingFeaturizer:
     """Stateful chunked log-mel frontend. Its state is the 5 fields
     (audio carry (B, L), last raw sample before it (B,), frames processed
@@ -137,6 +143,32 @@ class StreamingFeaturizer:
         a = t * p ** (-i)
         return (p ** i) * torch.cumsum(a, 1) + (p ** (i + 1)) * x[:, -1:]
 
+    def with_end_tail(self, audio: torch.Tensor, chunk: torch.Tensor,
+                      is_tail: torch.Tensor, tail_real: torch.Tensor
+                      ) -> torch.Tensor:
+        """The (B, S) chunk with the rows where is_tail holds replaced by
+        their end-reflect tail: the first tail_real samples are the last
+        real audio, then the offline featurizer's end reflect padding
+        (end_reflect_tail of the last half + 2 real samples, read from the
+        (B, L) audio carry and the chunk), then zeros."""
+        s_len = chunk.shape[1]
+        dev = chunk.device
+        half = self.fc.fft_length // 2
+        lc = audio.shape[1]
+        buf = torch.cat([audio, chunk], 1)
+        start = torch.clamp(lc + tail_real - (half + 2), 0,
+                            lc + s_len - (half + 2))
+        seg = torch.gather(buf, 1, start[:, None] + torch.arange(
+            half + 2, device=dev))
+        refl = self.end_reflect_tail(seg)
+        pos = torch.arange(s_len, device=dev)[None]
+        rel = pos - tail_real[:, None]
+        masked = torch.where(pos < tail_real[:, None], chunk, 0.0)
+        tail_chunk = torch.where(
+            (rel >= 0) & (rel < half),
+            torch.gather(refl, 1, rel.clamp(0, refl.shape[1] - 1)), masked)
+        return torch.where(is_tail[:, None], tail_chunk, chunk)
+
     def init_fields(self, bsz: int = 1):
         z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
                                    device=self.device)
@@ -212,7 +244,7 @@ class StreamState:
               ) -> "StreamState":
         """Row b from self where rows[b], else from other."""
         return StreamState.from_fields([
-            torch.where(rows.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+            where_rows(rows, a, b)
             for a, b in zip(self.fields(), other.fields())])
 
 
@@ -233,7 +265,10 @@ class OnlineTranscriber:
     def __init__(self, cfg: ModelConfig, folded_variables: dict, *,
                  causal_norm: bool = True, device=None):
         if cfg.architecture != "quartznet":
-            raise NotImplementedError("online streaming: quartznet only")
+            raise NotImplementedError(
+                "OnlineTranscriber streams a QuartzNet; a chunked-causal "
+                "Conformer streams through streaming_conformer."
+                "ConformerOnlineTranscriber")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.variables = _tree_to(folded_variables, self.device)
@@ -347,35 +382,21 @@ class OnlineTranscriber:
             return self._step(state, chunk, is_pad, is_tail, tail_real)
 
     def _step(self, state: StreamState, chunk, is_pad, is_tail, tail_real):
-        bsz, s_len = chunk.shape
+        bsz = chunk.shape[0]
         dev = chunk.device
         is_pad = _per_row(is_pad, bsz, torch.bool, dev)
         is_tail = _per_row(is_tail, bsz, torch.bool, dev)
         tail_real = _per_row(tail_real, bsz, torch.int64, dev)
         sf = self._sf
-        half = sf.fc.fft_length // 2
         hop = sf.fc.hop_length
-        lc = state.audio.shape[1]
-        buf = torch.cat([state.audio, chunk], 1)
-        start = torch.clamp(lc + tail_real - (half + 2), 0,
-                            lc + s_len - (half + 2))
-        seg = torch.gather(buf, 1, start[:, None] + torch.arange(
-            half + 2, device=dev))
-        refl = sf.end_reflect_tail(seg)
-        pos = torch.arange(s_len, device=dev)[None]
-        rel = pos - tail_real[:, None]
-        masked = torch.where(pos < tail_real[:, None], chunk, 0.0)
-        tail_chunk = torch.where(
-            (rel >= 0) & (rel < half),
-            torch.gather(refl, 1, rel.clamp(0, refl.shape[1] - 1)), masked)
-        chunk = torch.where(is_tail[:, None], tail_chunk, chunk)
+        chunk = sf.with_end_tail(state.audio, chunk, is_tail, tail_real)
 
         fields = (state.audio, state.preemph_last, state.norm_count,
                   state.norm_s1, state.norm_s2)
         new_fields, feats = sf.step(fields, chunk)
         feats = torch.where(is_pad[:, None, None], 0.0, feats)
-        fields = [torch.where(is_pad.reshape((-1,) + (1,) * (a.ndim - 1)),
-                              b, a) for a, b in zip(new_fields, fields)]
+        fields = [where_rows(is_pad, b, a)
+                  for a, b in zip(new_fields, fields)]
         feat_pos = state.feat_pos
         n = feats.shape[1]
         # real_feat_end: the utterance's offline frame count in stream

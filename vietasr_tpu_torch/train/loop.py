@@ -80,6 +80,9 @@ def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
     if ctc_impl not in CTC_IMPLS:
         raise ValueError(f"ctc_impl must be one of {CTC_IMPLS}, "
                          f"got {ctc_impl!r}")
+    if cfg.architecture != "quartznet":
+        raise NotImplementedError(
+            "Conformer training is not ported yet (ROADMAP A.8)")
     featurize = make_train_featurizer(cfg, resolve_device(device))
     blank = cfg.num_classes
 

@@ -39,3 +39,23 @@ def strict_fp32():
             yield
     finally:
         matmul.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def exact_tensor_cores():
+    """Let the enclosed cuBLAS matmuls and cuDNN convolutions use TF32
+    tensor cores. Exact for operands that hold bf16 (or fp16) values: TF32
+    keeps 10 mantissa bits, so rounding such a value to TF32 changes
+    nothing, and the products accumulate in fp32, which is a bf16 product
+    with an fp32 result. The flags are restored on exit."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=True):
+            yield
+    finally:
+        matmul.allow_tf32 = old
