@@ -140,6 +140,28 @@ Phases, each of which raises on failure:
      launch a tick; ms per tick. The kernel lines' path_launches gain
      conformer_greedy, conformer_device_beam and
      conformer_stream_pool_beam
+  12. training from a manifest through the command line (after 8). (a)
+     64 seeded PCM16 WAVs of 1.5-16.7 s with VI_CORPUS transcripts and a
+     manifest; `cli.main(["train", ...])` in process on
+     quartznet12x1_vi.yaml, bf16, B = 32, Novograd, --augment
+     speed,gain,noise,shift, warmup 2, one epoch (8 steps, one per
+     duration bucket): 1 frontend, 1 alpha, 1 beta launch a step, no
+     repeat launch, 0 skipped steps, finite losses, a checkpoint; a
+     second call resumes from it (traced: device busy vs the steps'
+     wall); the BucketBatcher alone, batches/s. (b) `eval` from the
+     checkpoint equal to Trainer.evaluate; `transcribe` (greedy and
+     device_beam) over 16 eval WAVs equal to the Transcriber's texts, 1
+     frontend and 13 repeat launches a forward, 1 beam launch a call.
+     (c) Jasper10x5dr at full width built in code (params beside the
+     paper's ~333 M): the B = 8 x 16.7 s bf16 forward with BN folded vs
+     its fp32 forward (argmax, |d log p| <= E2E_LOGP_TOL), 0 repeat
+     launches, wall, busy by group, idle; 3 LAMB Trainer steps at B = 8.
+     (d) conformer_ctc_vi at full width: 3 steps at B = 16 with dropout,
+     remat off and on (ms a step, peak memory, the CTC pair once a step);
+     with dropout 0 the gradients with and without remat within
+     REMAT_GRAD_RTOL. path_launches gain cli_train, cli_eval,
+     cli_transcribe, cli_transcribe_device_beam, jasper_train and
+     conformer_train
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -1530,8 +1552,6 @@ def ctc_case(np, torch, dev, seed, ilen, tlen, t_max, num_classes=90,
              targets=None):
     """Seeded (B, T, V) log-probs (blank = num_classes) and random labels
     (or `targets`) -> the tensors both kernels take, on the card."""
-    from vietasr_tpu_torch.ops.ctc_loss import emission_lookup, lattice_masks
-
     rng = np.random.RandomState(seed)
     bsz, v = len(ilen), num_classes + 1
     lp = torch.log_softmax(torch.from_numpy(
@@ -1542,9 +1562,18 @@ def ctc_case(np, torch, dev, seed, ilen, tlen, t_max, num_classes=90,
     targets = torch.from_numpy(np.asarray(targets, np.int64)).to(dev)
     ilen = torch.from_numpy(np.asarray(ilen, np.int32)).to(dev)
     tlen = torch.from_numpy(np.asarray(tlen, np.int32)).to(dev)
-    ext, can, valid = lattice_masks(targets, tlen, num_classes)
+    return ctc_lattice(lp, targets, ilen, tlen, num_classes)
+
+
+def ctc_lattice(lp, targets, ilen, tlen, blank):
+    """(B, T, V) fp32 log-probs and (B, L) targets on the card -> the
+    tensors both kernels take, built as ctc_loss builds them."""
+    from vietasr_tpu_torch.ops.ctc_loss import emission_lookup, lattice_masks
+
+    ext, can, valid = lattice_masks(targets, tlen, blank)
     lp_ext = emission_lookup(lp, ext).contiguous()
-    return dict(lp=lp, targets=targets, ilen=ilen, tlen=tlen, lp_ext=lp_ext,
+    return dict(lp=lp, targets=targets, ilen=ilen.int().contiguous(),
+                tlen=tlen.int().contiguous(), lp_ext=lp_ext,
                 can=can.contiguous(), valid=valid.contiguous())
 
 
@@ -2853,14 +2882,16 @@ KERNEL_GROUPS = {
 }
 
 
-def device_time_by_group(rows) -> dict:
-    """{group: device ms} of device_profile rows, by kernel name; the rest
-    (elementwise, reductions, copies on the card) as "other"."""
-    out = {g: 0.0 for g in KERNEL_GROUPS}
+def device_time_by_group(rows, groups=None) -> dict:
+    """{group: device ms} of device_profile rows, by kernel name (the first
+    group with a word in it); the rest (elementwise, reductions, copies on
+    the card) as "other"."""
+    groups = groups or KERNEL_GROUPS
+    out = {g: 0.0 for g in groups}
     out["other"] = 0.0
     for ms, _, key in rows:
         low = key.lower()
-        group = next((g for g, words in KERNEL_GROUPS.items()
+        group = next((g for g, words in groups.items()
                       if any(w in low for w in words)), "other")
         out[group] += ms
     return out
@@ -3030,6 +3061,525 @@ def train_phase(np, torch, dev, kernels):
     check(last < 0.7 * first, f"train: loss {first} -> {last}, not < 0.7x")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training from a manifest through the command line, Jasper10x5dr,
+# Conformer training
+
+
+# Jasper10x5dr at its published widths (Li et al. 2019, "Jasper", Table 1;
+# NeMo's jasper10x5dr.yaml): a k11 s2 prologue, B1-B5 x 2 blocks of 5
+# repeats with dense residuals, a dilated k29 epilogue and a k1 1024 block
+JASPER_PAPER_PARAMS = 333e6
+# phase 12d: remat vs no remat gradients (fp32, dropout 0, cuDNN held to
+# deterministic algorithms): the same ops recomputed; relative to each
+# leaf's largest gradient
+REMAT_GRAD_RTOL = 1e-5
+# phase 12a's training corpus: 64 clips in two of the 8 default duration
+# buckets (14.6-16.7 s and 6.3-8.35 s), 32 in each, so that every batch of
+# B = 32 is full and comes from the batcher's full-batch branch
+CLI_TRAIN_SPANS = ((14.7, 16.7), (6.3, 8.3))
+CLI_TRAIN_EPOCHS = 4
+# phase 12c's groups: cuDNN's convolution kernels first ("implicit_convolve_
+# sgemm" holds "gemm" too), then the GEMMs of the 1x1s and the head
+JASPER_GROUPS = {"cuDNN convolutions": ("convolve", "fprop", "cudnn"),
+                 "GEMMs (1x1s, head)": ("gemm", "xmma", "cutlass")}
+
+
+def jasper10x5dr_blocks():
+    from vietasr_tpu_torch.config import BlockConfig
+
+    blocks = [BlockConfig(filters=256, kernel=11, stride=2, dropout=0.2,
+                          residual=False)]
+    for filters, kernel, drop in ((256, 11, 0.2), (384, 13, 0.2),
+                                  (512, 17, 0.2), (640, 21, 0.3),
+                                  (768, 25, 0.3)):
+        blocks += [BlockConfig(filters=filters, repeat=5, kernel=kernel,
+                               dropout=drop, residual=True,
+                               residual_dense=True)] * 2
+    return blocks + [BlockConfig(filters=896, kernel=29, dilation=2,
+                                 dropout=0.4, residual=False),
+                     BlockConfig(filters=1024, kernel=1, dropout=0.4,
+                                 residual=False)]
+
+
+def jasper_flops(ecfg, t_in: int, bsz: int) -> float:
+    """Multiply-adds x 2 of every convolution of a (dense, unseparable)
+    Jasper encoder over bsz rows of t_in feature frames (the head left
+    out)."""
+    from vietasr_tpu_torch.models.layers import conv_out_length
+
+    total, t, c_in, dense = 0.0, t_in, ecfg.feat_in, []
+    for b in ecfg.blocks:
+        t_out = int(conv_out_length(t, b.effective_kernel, b.stride,
+                                    b.dilation, b.same_padding))
+        c = c_in
+        for _ in range(b.repeat):
+            total += 2.0 * b.effective_kernel * c * b.filters * t_out
+            c = b.filters
+        if b.residual_dense:
+            dense.append(c_in)
+            panes = list(dense)
+        else:
+            panes = [c_in] if b.residual else []
+        total += sum(2.0 * p * b.filters * t_out for p in panes)
+        t, c_in = t_out, b.filters
+    return bsz * total
+
+
+def write_corpus(np, folder, name, n, seed, spans=((1.5, 16.7),)):
+    """n seeded 16 kHz PCM16 WAVs (noise x 0.1), clip i's duration drawn
+    from spans[i % len(spans)] (clip 0 is 16.7 s), with VI_CORPUS
+    transcripts of ~13 characters a second, and their manifest. Returns
+    (manifest path, [(wav path, samples)])."""
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    text = " ".join(VI_CORPUS)
+    lines, clips = [], []
+    for i in range(n):
+        secs = 16.7 if i == 0 else float(rng.uniform(*spans[i % len(spans)]))
+        pcm = (rng.randn(int(secs * 16000)) * 0.1 * 32767).clip(
+            -32768, 32767).astype(np.int16)
+        path = os.path.join(folder, f"{name}{i:03d}.wav")
+        wavfile.write(path, 16000, pcm)
+        k = int(round(13 * secs))
+        off = rng.randint(0, len(text) - k)
+        lines.append({"audio_filepath": path, "duration": len(pcm) / 16000,
+                      "text": text[off:off + k].strip()})
+        clips.append((path, pcm.astype(np.float32) / 32768.0))
+    manifest = os.path.join(folder, f"{name}.json")
+    with open(manifest, "w", encoding="utf-8") as f:
+        for line in lines:
+            f.write(json.dumps(line, ensure_ascii=False) + "\n")
+    return manifest, clips
+
+
+def run_cli(argv):
+    """cli.main(argv) in this process: (exit code, stdout, wall s)."""
+    import contextlib
+    import io
+
+    from vietasr_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+
+
+def path_kernel_check(torch, dev, cfg, variables, batch, what, dtype):
+    """The kernels of a phase 12 path against their plain versions at that
+    path's own shapes: the fp32 frontend on `batch`'s signals (padded rows
+    included, dither 0) at phase 3's tolerance, then the CTC pair on the
+    log-probs and targets that the loss gives this batch (eval mode,
+    `dtype`) through ctc_compare, phase 7's check. Raises on a
+    difference."""
+    import dataclasses
+
+    from vietasr_tpu_torch.frontend.cuda_frontend import (
+        fft_tables, fused_log_mel_features, fused_log_mel_features_plain)
+    from vietasr_tpu_torch.frontend.features import (_mel_matrix,
+                                                     _windowed_dft_matrix)
+    from vietasr_tpu_torch.train.loop import batch_to_tensors, make_loss_fn
+
+    fcfg = dataclasses.replace(cfg.featurizer, dither=0.0)
+    t = batch_to_tensors(batch, dev)
+    sig, lens = t["signal"], t["signal_lens"]
+    got, got_len = fused_log_mel_features(sig, lens, cfg=fcfg,
+                                          tables=fft_tables(fcfg, dev))
+    want, want_len = fused_log_mel_features_plain(
+        sig, lens, cfg=fcfg,
+        dft_matrix=torch.as_tensor(_windowed_dft_matrix(fcfg), device=dev),
+        mel_matrix=torch.as_tensor(_mel_matrix(fcfg), device=dev))
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+          and bool((got_len == want_len).all()),
+          f"{what}: frontend shape, seq_len or finiteness")
+    f_err = float((got - want).abs().max())
+    check(f_err < FRONTEND_TOL, f"{what}: frontend max|d| {f_err}")
+
+    loss_fn = make_loss_fn(cfg, use_specaug=False, compute_dtype=dtype,
+                           device=dev)
+    with torch.no_grad():
+        _, (_, lp, enc_lens) = loss_fn(variables["params"],
+                                       variables["batch_stats"], t, None,
+                                       False)
+    c = ctc_lattice(lp.float().contiguous(), t["tokens"], enc_lens,
+                    t["token_lens"], cfg.num_classes)
+    d_ll, d_a, d_g, _, differ = ctc_compare(torch, c)
+    print(f"{what}: kernels vs plain at the path's shapes: frontend "
+          f"B = {sig.shape[0]} x {sig.shape[1]} samples ({int((lens == 0).sum())}"
+          f" rows of length 0) -> {tuple(got.shape)}, max|d| {f_err:.3e} "
+          f"(tol {FRONTEND_TOL}); CTC pair on the loss's log-probs "
+          f"{tuple(lp.shape)}, S = {c['lp_ext'].shape[2]}, input lengths "
+          f"{int(enc_lens.min())}-{int(enc_lens.max())}: |d ll| {d_ll:.3e}, "
+          f"relative |d alpha| {d_a:.3e}, |d grad| {d_g:.3e} (tol "
+          f"{CTC_TOL}), elements differing {differ}")
+
+
+def cli_phase(np, torch, dev, kernels, tmp):
+    """Phase 12a-b: `train` from a 64-clip manifest, resumed, then `eval`
+    and `transcribe` from its checkpoint, each against the library call it
+    wraps; the kernels against their plain versions on the largest batch
+    of each of train's and eval's batchers."""
+    from vietasr_tpu_torch.audio import (AudioTextDataset, BucketBatcher,
+                                         CharTokenizer, read_manifest)
+    from vietasr_tpu_torch.cli import train_batcher
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+    from vietasr_tpu_torch.train import (CheckpointManager, TrainState,
+                                         Trainer, make_optimizer)
+
+    cfg = load_config(CONFIG)
+    train_m, _ = write_corpus(np, tmp, "train", 64, seed=12,
+                              spans=CLI_TRAIN_SPANS)
+    eval_m, eval_clips = write_corpus(np, tmp, "eval", 16, seed=13)
+    work = os.path.join(tmp, "work")
+    argv = ["--device", dev.type, "train", "--config", CONFIG,
+            "--train-manifest", train_m, "--work-dir", work,
+            "--batch-size", "32", "--optimizer", "novograd",
+            "--augment", "speed,gain,noise,shift", "--warmup-steps", "2",
+            "--num-epochs", str(CLI_TRAIN_EPOCHS),
+            "--compute-dtype", "bfloat16",
+            "--log-every", "1", "--checkpoint-every", "1000"]
+    audio_s = CLI_TRAIN_EPOCHS * sum(e.duration for e in read_manifest(
+        train_m, min_duration=cfg.data.min_duration,
+        max_duration=cfg.data.max_duration))
+
+    reset_conformer_counts()
+    rc, out, wall = run_cli(argv)
+    counts = conformer_counts()
+    steps = [m for m in json_lines(out) if "loss" in m]
+    n = len(steps)
+    payload = torch.load(os.path.join(work, f"state-STEP-{n}.pt"),
+                         map_location="cpu", weights_only=True)
+    step_s = sum(m["step_time"] for m in steps)
+    print(f"cli train: rc {rc}, {n} steps of B = 32 ({CLI_TRAIN_EPOCHS} "
+          f"epochs of 64 clips in 2 full buckets, {audio_s:.1f} audio-s), "
+          f"losses "
+          f"{[round(m['loss'], 3) for m in steps]}; launches {counts}; "
+          f"skipped {payload['skipped_steps']}; call wall {wall:.2f} s, "
+          f"steps {step_s * 1e3:.2f} ms in all = "
+          f"{step_s / max(n, 1) * 1e3:.2f} ms a step, "
+          f"{audio_s / step_s:.1f} trained audio-s/s over the steps, "
+          f"{audio_s / wall:.1f} over the call")
+    check(rc == 0 and 6 <= n <= 10, f"cli train: rc {rc}, {n} steps")
+    check(counts == {"log_mel_frontend": n, "repeat_block": 0,
+                     "beam_search": 0, "ctc_alpha": n, "ctc_beta": n},
+          f"cli train: launches {counts} for {n} steps")
+    check(payload["step"] == n and payload["skipped_steps"] == 0,
+          f"cli train: checkpoint step {payload['step']}, skipped "
+          f"{payload['skipped_steps']}")
+    check(all(np.isfinite(m["loss"]) for m in steps), "cli train: loss")
+    add_path_launches(kernels, "cli_train", counts)
+
+    # the resumed call, under the profiler: the step's device busy time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc2, out2, wall2 = run_cli(argv)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")) / 1e3
+    steps2 = [m for m in json_lines(out2) if "loss" in m]
+    step2_ms = sum(m["step_time"] for m in steps2) * 1e3
+    print(f"cli train resumed: rc {rc2}, '{out2.splitlines()[0]}', "
+          f"{len(steps2)} more steps, {step2_ms:.2f} ms of steps (traced), "
+          f"device busy {busy:.2f} ms over the call = "
+          f"{busy / max(len(steps2), 1):.2f} ms a step; idle "
+          f"{100 * (1 - busy / step2_ms):.1f} % of the steps' wall")
+    check(rc2 == 0 and f"resumed from step {n}" in out2
+          and f"done at step {2 * n}" in out2, "cli train: resume")
+    # a third call, untraced: every bucket's shape has been seen before
+    rc3, out3, wall3 = run_cli(argv)
+    steps3 = [m for m in json_lines(out3) if "loss" in m]
+    step3_s = sum(m["step_time"] for m in steps3)
+    print(f"cli train, third call: rc {rc3}, {len(steps3)} steps, "
+          f"{step3_s / max(len(steps3), 1) * 1e3:.2f} ms a step = "
+          f"{audio_s / step3_s:.1f} trained audio-s/s over the steps, "
+          f"{audio_s / wall3:.1f} over the call ({wall3:.2f} s); idle vs "
+          f"the traced call's busy "
+          f"{100 * (1 - busy / (step3_s * 1e3)):.1f} %")
+    check(rc3 == 0 and len(steps3) == n, "cli train: third call")
+
+    # the host side alone: one epoch over the CLI's own augmenting batcher
+    batcher = train_batcher(cfg, train_m, 32,
+                            augment="speed,gain,noise,shift", seed=0)
+    t0 = time.perf_counter()
+    batches = list(batcher)
+    dt = time.perf_counter() - t0
+    epoch_s = audio_s / CLI_TRAIN_EPOCHS
+    print(f"BucketBatcher alone (read + augment + pad, one host thread): "
+          f"{len(batches)} batches ({[int((b.signal_lens > 0).sum()) for b in batches]}"
+          f" real rows) in {dt:.3f} s = {len(batches) / dt:.2f} batches/s, "
+          f"{epoch_s / dt:.1f} audio-s/s")
+    variables = CheckpointManager(work, device=dev).restore_variables()
+    path_kernel_check(torch, dev, cfg, variables,
+                      max(batches, key=lambda b: b.signal.shape[1]),
+                      "cli train, largest bucket", torch.bfloat16)
+
+    # eval: the CLI's JSON == Trainer.evaluate on the restored variables
+    torch.backends.cudnn.deterministic = True
+    reset_conformer_counts()
+    rc, out, wall = run_cli(["--device", dev.type, "eval", "--config", CONFIG,
+                             "--checkpoint-dir", work, "--manifest", eval_m,
+                             "--batch-size", "16"])
+    counts = conformer_counts()
+    got = json_lines(out)[-1]
+    variables = CheckpointManager(work, device=dev).restore_variables()
+    eval_batcher = BucketBatcher(AudioTextDataset(
+        read_manifest(eval_m), CharTokenizer(cfg.labels)), 16, shuffle=False)
+    want = Trainer(cfg, device=dev).evaluate(
+        TrainState.create(variables, make_optimizer("sgd", 0.0)),
+        eval_batcher)
+    torch.backends.cudnn.deterministic = False
+    print(f"cli eval: {got} in {wall:.2f} s; Trainer.evaluate {want}; "
+          f"launches {counts}")
+    check(rc == 0 and got == want, "cli eval differs from Trainer.evaluate")
+    add_path_launches(kernels, "cli_eval", counts)
+    path_kernel_check(torch, dev, cfg, variables,
+                      max(eval_batcher, key=lambda b: b.signal.shape[1]),
+                      "cli eval, largest bucket", None)
+
+    # transcribe, greedy and device beam: the CLI's texts == Transcriber's
+    wavs = [p for p, _ in eval_clips]
+    for decoder in ("greedy", "device_beam"):
+        tr = Transcriber(CONFIG, variables=variables, device=dev,
+                         options=TranscriberOptions(decoder=decoder))
+        want = tr.transcribe_batch([x for _, x in eval_clips])
+        reset_conformer_counts()
+        rc, out, wall = run_cli(["--device", dev.type, "transcribe",
+                                 "--config", CONFIG, "--checkpoint-dir",
+                                 work, "--decoder", decoder, *wavs])
+        counts = conformer_counts()
+        got = [l["pred_text"] for l in json_lines(out)]
+        fwd = n_forwards(tr, [x for _, x in eval_clips])
+        print(f"cli transcribe ({decoder}): {len(got)} texts in "
+              f"{wall:.2f} s, {sum(t == w for t, w in zip(got, want))}/"
+              f"{len(want)} equal to Transcriber's; {fwd} forwards, launches {counts}")
+        check(rc == 0 and got == want,
+              f"cli transcribe ({decoder}) differs from the Transcriber")
+        check(counts["log_mel_frontend"] == fwd
+              and counts["repeat_block"] == 13 * fwd
+              and counts["beam_search"] == (decoder == "device_beam")
+              and counts["ctc_alpha"] == 0,
+              f"cli transcribe ({decoder}): launches {counts}")
+        add_path_launches(kernels, "cli_transcribe" if decoder == "greedy"
+                          else "cli_transcribe_device_beam", counts)
+
+
+def jasper_phase(np, torch, dev, kernels):
+    """Phase 12c: Jasper10x5dr at full width, built in code."""
+    import dataclasses
+
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.models.quartznet import (cast_matmul_weights,
+                                                    fold_batchnorm,
+                                                    init_quartznet,
+                                                    quartznet_apply,
+                                                    tree_leaves)
+    from vietasr_tpu_torch.train import (TrainState, Trainer,
+                                         make_optimizer)
+    from vietasr_tpu_torch.train.loop import make_train_featurizer
+
+    base = load_config(CONFIG)
+    cfg = dataclasses.replace(base, name="jasper10x5dr", encoder=
+                              dataclasses.replace(
+                                  base.encoder,
+                                  blocks=tuple(jasper10x5dr_blocks())))
+    variables = init_quartznet(torch.Generator(device=dev).manual_seed(0),
+                               cfg.encoder, cfg.num_classes, device=dev)
+    n_params = sum(int(p.numel()) for p in tree_leaves(variables["params"]))
+    batch = train_batch(np, cfg)
+    sig = torch.from_numpy(batch.signal[:8]).to(dev)
+    lens = torch.from_numpy(batch.signal_lens[:8]).to(dev)
+    featurize = make_train_featurizer(cfg, dev)
+    with torch.no_grad():
+        feats, flens = featurize(sig, lens, generator=None, training=False)
+    folded = fold_batchnorm(variables, cfg.encoder)
+    bf16 = cast_matmul_weights(folded, torch.bfloat16)
+
+    def forward(v, dtype):
+        with torch.no_grad():
+            return quartznet_apply(v, feats, flens, cfg=cfg.encoder,
+                                   compute_dtype=dtype)
+
+    reset_conformer_counts()
+    lp16, out_lens = forward(bf16, torch.bfloat16)
+    counts = conformer_counts()
+    lp32, _ = forward(folded, None)
+    valid = torch.arange(lp16.shape[1], device=dev)[None] < out_lens[:, None]
+    d = float(((lp16 - lp32).abs() * valid[..., None]).max())
+    agree = float(((lp16.argmax(-1) == lp32.argmax(-1)) & valid).sum()
+                  / valid.sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        forward(bf16, torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    dev_ms = event_ms(lambda: forward(bf16, torch.bfloat16), reps=5)
+    rows = device_profile(lambda: forward(bf16, torch.bfloat16), reps=3)
+    busy = sum(r[0] for r in rows)
+    groups = device_time_by_group(rows, JASPER_GROUPS)
+    # the forward's convolutions that are no plain 1x1 GEMM
+    n_conv = sum(b.repeat for b in cfg.encoder.blocks
+                 if b.effective_kernel > 1 or b.stride > 1)
+    conv_seen = sum(c for _, c, key in rows
+                    if any(w in key.lower() for w in ("convolve", "fprop")))
+    flops = jasper_flops(cfg.encoder, int(flens.max()), 8)
+    print(f"jasper10x5dr: {n_params} params (paper ~{JASPER_PAPER_PARAMS:.0f})"
+          f"; B = 8 x 16.7 s bf16 forward (BN folded) vs fp32: frame argmax "
+          f"{agree:.4f}, max |d log p| {d:.4e} (bound {E2E_LOGP_TOL}); "
+          f"launches {counts}; {wall:.3f} ms wall, {dev_ms:.3f} ms on the "
+          f"card by CUDA events behind a sleep kernel "
+          f"({100 * (1 - dev_ms / wall):.1f} % idle), "
+          f"{flops / 1e12:.3f} TFLOP of convolutions = "
+          f"{flops / dev_ms / 1e9:.1f} TFLOP/s, "
+          f"{8 * 16.7 / wall * 1e3:.1f} audio-s/s")
+    if conv_seen == n_conv:
+        print(f"  device time by group (CUPTI, {busy:.4f} ms a call):")
+        for g, ms in groups.items():
+            print(f"    {g:<28} {ms:9.4f} ms")
+    else:
+        # CUPTI's durations are then no device times: the groups' shares of
+        # its sum only, scaled to the events' time and labelled so
+        print(f"  device time by group: not measured (CUPTI saw "
+              f"{conv_seen:g} convolution launches a call for the forward's "
+              f"{n_conv} and sums {busy:.4f} ms against the events' "
+              f"{dev_ms:.4f}); CUPTI's shares scaled to the event time:")
+        for g, ms in groups.items():
+            print(f"    {g:<28} {100 * ms / busy:6.2f} % = "
+                  f"{ms / busy * dev_ms:9.4f} ms (scaled)")
+    for ms, count, key in rows[:6]:
+        print(f"  {ms:8.4f} ms  x{count:<5g} {key[:100]}")
+    check(d <= E2E_LOGP_TOL, f"jasper: bf16 vs fp32 |d log p| {d}")
+    check(counts["repeat_block"] == 0, f"jasper: launches {counts}")
+
+    # 3 LAMB steps at B = 8
+    small = dataclasses.replace(batch, signal=batch.signal[:8],
+                                signal_lens=batch.signal_lens[:8],
+                                tokens=batch.tokens[:8],
+                                token_lens=batch.token_lens[:8])
+    del folded, bf16
+    path_kernel_check(torch, dev, cfg, variables, small, "jasper train",
+                      torch.bfloat16)
+    state = TrainState.create(variables, make_optimizer(
+        "lamb", 1e-3, weight_decay=0.001))
+    tr = Trainer(cfg, compute_dtype="bfloat16", log_every=1, device=dev)
+    tr.fit(state, [small])
+    reset_conformer_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit(state, [small] * 3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    counts = conformer_counts()
+    losses = [h["loss"] for h in tr.history if "loss" in h]
+    print(f"jasper10x5dr train: LAMB, bf16, B = 8 x 16.7 s: losses "
+          f"{[round(x, 3) for x in losses]}, {step_ms:.2f} ms a step "
+          f"({8 * 16.7 / step_ms * 1e3:.1f} trained audio-s/s in padded "
+          f"seconds), launches {counts} for 3 steps, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, skipped "
+          f"{int(state.skipped_steps)}")
+    check(all(np.isfinite(losses)) and int(state.skipped_steps) == 0,
+          f"jasper train: losses {losses}")
+    check(counts["ctc_alpha"] == 3 and counts["ctc_beta"] == 3
+          and counts["log_mel_frontend"] == 3
+          and counts["repeat_block"] == 0,
+          f"jasper train: launches {counts}")
+    add_path_launches(kernels, "jasper_train", counts)
+
+
+def conformer_train_phase(np, torch, dev, kernels, config=os.path.join(
+        HERE, "vietasr_tpu_torch", "configs", "conformer_ctc_vi.yaml")):
+    """Phase 12d: conformer_ctc_vi at full width, 3 steps at B = 16 with
+    dropout, without and with remat; remat's gradients against none's."""
+    import dataclasses
+
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.models import model_init
+    from vietasr_tpu_torch.models.quartznet import map_tree, tree_leaves
+    from vietasr_tpu_torch.train import (TrainState, Trainer,
+                                         make_optimizer)
+    from vietasr_tpu_torch.train.loop import batch_to_tensors, make_loss_fn
+
+    cfg = load_config(config)
+    full = train_batch(np, cfg)
+    batch = dataclasses.replace(full, signal=full.signal[:16],
+                                signal_lens=full.signal_lens[:16],
+                                tokens=full.tokens[:16],
+                                token_lens=full.token_lens[:16])
+    variables = model_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    path_kernel_check(torch, dev, cfg, variables, batch, "conformer train",
+                      torch.bfloat16)
+    for remat in (False, True):
+        state = TrainState.create(variables, make_optimizer(
+            "adamw", 1e-4, weight_decay=0.001))
+        tr = Trainer(cfg, compute_dtype="bfloat16", log_every=1, device=dev,
+                     remat=remat)
+        tr.fit(state, [batch])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_conformer_counts()
+        t0 = time.perf_counter()
+        tr.fit(state, [batch] * 3)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        counts = conformer_counts()
+        losses = [h["loss"] for h in tr.history if "loss" in h]
+        print(f"conformer train (remat={remat}): dropout "
+              f"{cfg.conformer.dropout}, bf16, B = 16 x 16.7 s: losses "
+              f"{[round(x, 3) for x in losses]}, {step_ms:.2f} ms a step, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+              f" GiB, launches {counts} for 3 steps")
+        check(all(np.isfinite(losses)) and int(state.skipped_steps) == 0,
+              f"conformer train: losses {losses}")
+        check(counts["ctc_alpha"] == 3 and counts["ctc_beta"] == 3
+              and counts["log_mel_frontend"] == 3,
+              f"conformer train: launches {counts}")
+        if not remat:
+            add_path_launches(kernels, "conformer_train", counts)
+
+    # dropout and dither 0, fp32, one batch: the gradients with and
+    # without remat
+    nodrop = dataclasses.replace(
+        cfg, conformer=dataclasses.replace(cfg.conformer, dropout=0.0),
+        featurizer=dataclasses.replace(cfg.featurizer, dither=0.0))
+    tensors = batch_to_tensors(batch, dev)
+    ptree = map_tree(lambda p: p.detach().clone().requires_grad_(True),
+                     variables["params"])
+    params = tree_leaves(ptree)
+    grads = {}
+    torch.backends.cudnn.deterministic = True
+    for remat in (False, True):
+        loss_fn = make_loss_fn(nodrop, use_specaug=False, device=dev,
+                               remat=remat)
+        loss, _ = loss_fn(ptree, variables["batch_stats"], tensors, None,
+                          True)
+        grads[remat] = torch.autograd.grad(loss, params)
+    torch.backends.cudnn.deterministic = False
+    worst = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                for a, b in zip(grads[False], grads[True]))
+    print(f"conformer remat vs none (fp32, dropout 0): largest relative "
+          f"gradient difference {worst:.3e} over {len(params)} leaves "
+          f"(bound {REMAT_GRAD_RTOL})")
+    check(worst <= REMAT_GRAD_RTOL, f"conformer remat gradients {worst}")
+
+
+def phase12(np, torch, dev, kernels):
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_phase(np, torch, dev, kernels, tmp)
+    jasper_phase(np, torch, dev, kernels)
+    conformer_train_phase(np, torch, dev, kernels)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3088,6 +3638,8 @@ def main() -> int:
     print(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     train_phase(np, torch, dev, kernels)
     print(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
+    phase12(np, torch, dev, kernels)
+    print(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

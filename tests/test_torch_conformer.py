@@ -436,11 +436,15 @@ def test_conformer_refusals(narrow, tmp_path):
     cfg = load_config(yml)
     v = params_from_jax(variables, device="cpu")
     feats, lens = torch.zeros(1, 16, 80), torch.tensor([16])
-    for kw in ({"training": True}, {"remat": True}):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            P.conformer_apply(v, feats, lens, cfg=cfg.conformer, **kw)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        make_loss_fn(cfg, device="cpu")
+    # training, remat and the loss run since the training slice; a
+    # QuartzNet refuses remat
+    for kw in ({"training": True}, {"training": True, "remat": True}):
+        assert len(P.conformer_apply(v, feats, lens, cfg=cfg.conformer,
+                                     **kw)) == 3
+    make_loss_fn(cfg, device="cpu", remat=True)
+    with pytest.raises(ValueError, match="Conformer only"):
+        make_loss_fn(dataclasses.replace(cfg, architecture="quartznet"),
+                     device="cpu", remat=True)
     with pytest.raises(NotImplementedError, match="QuartzNet"):
         Transcriber(yml, encoder_checkpoint="enc.pt", device="cpu")
     from vietasr_tpu_torch.models.convert import (encoder_from_state_dict,

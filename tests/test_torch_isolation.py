@@ -57,7 +57,9 @@ def test_importing_every_module_pulls_in_no_jax():
         assert f"vietasr_tpu_torch.ops.{beam_tier}" in names
     for training in ("ops.ctc_loss", "ops.fused_ctc", "ops.specaug",
                      "train.loop", "train.optim", "train.schedules",
-                     "train.state", "train.checkpoint", "audio.tokenizer"):
+                     "train.state", "train.checkpoint", "audio.tokenizer",
+                     "train.freeze", "audio.dataset", "audio.augment",
+                     "audio.manifest", "audio.cleaners", "cli"):
         assert f"vietasr_tpu_torch.{training}" in names
 
 
@@ -90,8 +92,9 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
 
 
 def test_training_entry_points_default_to_cuda(tmp_path):
-    """Trainer, CheckpointManager, the featurizers, the loss and the
-    JAX-state converter: device=None means CUDA, and raises without it."""
+    """Trainer, CheckpointManager, the featurizers, the loss, the
+    JAX-state converter and the command line without --device: device=None
+    means CUDA, and raises without it."""
     import numpy as np
     import torch
 
@@ -101,9 +104,13 @@ def test_training_entry_points_default_to_cuda(tmp_path):
     from vietasr_tpu_torch.models.convert import train_state_from_jax
     from vietasr_tpu_torch.train import (CheckpointManager, Trainer,
                                          make_optimizer)
+    from vietasr_tpu_torch import cli
     from vietasr_tpu_torch.train.loop import make_loss_fn
 
-    cfg = load_config(os.path.join(PORT, "configs", "quartznet12x1_vi.yaml"))
+    config = os.path.join(PORT, "configs", "quartznet12x1_vi.yaml")
+    cfg = load_config(config)
+    empty = tmp_path / "empty.json"
+    empty.write_text("")
     variables = {"params": {"w": np.ones(2, np.float32)}, "batch_stats": {}}
     entry_points = {
         "Trainer": lambda: Trainer(cfg).device,
@@ -115,6 +122,8 @@ def test_training_entry_points_default_to_cuda(tmp_path):
         "make_loss_fn": lambda: make_loss_fn(cfg) and torch.device("cuda"),
         "train_state_from_jax": lambda: train_state_from_jax(
             variables, optimizer=make_optimizer("sgd", 0.1)).step.device,
+        "cli": lambda: cli.main(["eval", "--config", config, "--manifest",
+                                 str(empty)]) or torch.device("cuda"),
     }
     for name, call in entry_points.items():
         if torch.cuda.is_available():

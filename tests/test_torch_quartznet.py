@@ -153,13 +153,14 @@ def test_bf16_routes_agree():
     assert torch.equal(out["auto"], out["kernel"])
     assert torch.equal(out["kernel"], out["plain"])
     params, stats = (folded[k]["encoder"] for k in ("params", "batch_stats"))
-    x, lens = _apply_block(feats, lens, params[0], stats[0], cfg.blocks[0],
-                           cfg, torch.bfloat16, "plain")
-    fused, fused_lens = _apply_block(x, lens, params[1], stats[1],
-                                     cfg.blocks[1], cfg, torch.bfloat16,
-                                     "plain")
-    ops, ops_lens, _ = _apply_block_ops(x, lens, params[1], stats[1],
-                                        cfg.blocks[1], cfg, torch.bfloat16)
+    (x,), lens, _ = _apply_block([feats], lens, params[0], stats[0],
+                                 cfg.blocks[0], cfg, torch.bfloat16, "plain")
+    (fused,), fused_lens, _ = _apply_block([x], lens, params[1], stats[1],
+                                           cfg.blocks[1], cfg,
+                                           torch.bfloat16, "plain")
+    (ops,), ops_lens, _ = _apply_block_ops([x], lens, params[1], stats[1],
+                                           cfg.blocks[1], cfg,
+                                           torch.bfloat16)
     assert fused.dtype == torch.bfloat16 and torch.equal(fused_lens, ops_lens)
     assert float((fused.float() - ops).abs().max()) \
         <= 2.0 ** -7 * float(ops.abs().max())

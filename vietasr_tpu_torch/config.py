@@ -2,10 +2,10 @@
 (counterpart of vietasr_tpu/config.py, restricted to what a QuartzNet or a
 Conformer config needs).
 
-Reads the section-per-component YAML shape (`AudioToMelSpectrogram
-Preprocessor`, `SpectrogramAugmentation`, `JasperEncoder` or
-`ConformerEncoder`, `labels`), so the same file loads here and in the JAX
-package.
+Reads the section-per-component YAML shape (`AudioToTextDataLayer`,
+`AudioToMelSpectrogramPreprocessor`, `SpectrogramAugmentation`,
+`JasperEncoder` or `ConformerEncoder`, `labels`), so the same file loads
+here and in the JAX package.
 """
 
 from __future__ import annotations
@@ -128,6 +128,22 @@ class SpecAugmentConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """AudioToTextDataLayer kwargs the data path honours."""
+
+    sample_rate: int = 16000
+    max_duration: Optional[float] = 16.7
+    min_duration: Optional[float] = 0.1
+    trim_silence: bool = False
+    normalize_transcripts: bool = False
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DataConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     labels: List[str]
@@ -136,6 +152,7 @@ class ModelConfig:
     spec_augment: SpecAugmentConfig
     architecture: str = "quartznet"            # "quartznet" | "conformer"
     conformer: Optional[ConformerConfig] = None
+    data: DataConfig = DataConfig()
 
     @property
     def num_classes(self) -> int:
@@ -177,4 +194,5 @@ def config_from_dict(raw: dict) -> ModelConfig:
             raw.get("SpectrogramAugmentation", {})),
         architecture="conformer" if conformer is not None else "quartznet",
         conformer=conformer,
+        data=DataConfig.from_dict(raw.get("AudioToTextDataLayer", {})),
     )

@@ -1,5 +1,5 @@
 """Conformer-CTC encoder (counterpart of vietasr_tpu/models/conformer.py):
-init and the inference forward.
+init, the inference forward and the training forward.
 
 Macaron FFN halves, multi-head self-attention with Transformer-XL relative
 positions, the conv module (pointwise GLU -> masked depthwise -> BN ->
@@ -35,9 +35,15 @@ fp32 angles (float64 positions times float64 frequencies, rounded), taken
 in float64 and rounded once; XLA's fp32 sin may differ in the last bit.
 `_rel_shift` is kept as the oracle the tests hold the matmul form to.
 
-Only inference is ported: `training=True` and `remat=True` raise
-(ROADMAP A.8). `scan_blocks` runs the same loop, the JAX package's own
-test holds its scan equal to the unrolled blocks.
+Training (`training=True`) draws dropout at JAX's six sites a block (the
+two FFN halves' inner and outer, attention, conv module) from the
+caller's torch.Generator, in JAX's order (the draws themselves differ from
+JAX's keys), and runs the conv module's BN on batch statistics, returning
+the new running stats. `remat=True` recomputes each block in the backward
+pass (torch.utils.checkpoint, non-reentrant): the block's dropout masks
+come from a copy of the generator's state taken before the block, so the
+recomputation draws the same masks. `scan_blocks` runs the same loop, the
+JAX package's own test holds its scan equal to the unrolled blocks.
 """
 
 from __future__ import annotations
@@ -45,13 +51,16 @@ from __future__ import annotations
 import contextlib
 from typing import Optional, Tuple
 
+import torch.utils.checkpoint
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vietasr_tpu_torch.config import ConformerConfig
-from vietasr_tpu_torch.models.layers import (batchnorm_apply, init_batchnorm,
-                                             length_mask, symmetric_uniform,
+from vietasr_tpu_torch.models.layers import (batchnorm_apply, dropout,
+                                             init_batchnorm, length_mask,
+                                             symmetric_uniform,
                                              xavier_uniform)
 from vietasr_tpu_torch.utils.device import exact_tensor_cores, strict_fp32
 
@@ -285,7 +294,8 @@ def _depthwise(y, w, pad: Tuple[int, int], cast):
     return cast(z.transpose(1, 2)).float()
 
 
-def _conv_module(x, params, stats, lens, cast, causal: bool):
+def _conv_module(x, params, stats, lens, cast, causal: bool,
+                 training: bool = False):
     y = _layernorm(x, params["ln"])
     y = _linear(y, params["pw1"], cast)                   # (B, T, 2D)
     a, g = y.chunk(2, dim=-1)
@@ -295,14 +305,15 @@ def _conv_module(x, params, stats, lens, cast, causal: bool):
     pad = (k - 1, 0) if causal else (k // 2, k // 2)
     with _range("conformer.depthwise"):
         y = _depthwise(y, params["dw"], pad, cast)
-    y, _ = batchnorm_apply(y, params["bn"], stats["conv_bn"], training=False)
+    y, new_bn = batchnorm_apply(y, params["bn"], stats["conv_bn"],
+                                training=training)
     y = cast(_swish(y))
-    return _linear(y, params["pw2"], cast)
+    return _linear(y, params["pw2"], cast), {"conv_bn": new_bn}
 
 
-def _ffn(x, params, cast):
+def _ffn(x, params, cast, drop=lambda a: a):
     y = _layernorm(x, params["ln"])
-    y = _swish(_linear(y, params["in"], cast))
+    y = drop(_swish(_linear(y, params["in"], cast)))
     return _linear(y, params["out"], cast)
 
 
@@ -348,15 +359,14 @@ def conformer_apply(
     cfg: ConformerConfig,
     compute_dtype: Optional[torch.dtype] = None,
     training: bool = False,
+    generator: Optional[torch.Generator] = None,
     remat: bool = False,
 ):
     """feats (B, T, F) -> (log_probs (B, T', V + 1) fp32, out_lens (B,)
-    int32), eval mode. With `cfg.chunk_size > 0` the attention is
-    chunked-causal (a query sees its chunk and `left_chunks` chunks before
-    it) and the convolutions pad on the left only."""
-    if training or remat:
-        raise NotImplementedError(
-            "Conformer training is not ported yet (ROADMAP A.8)")
+    int32); with training=True also the new batch stats, as
+    quartznet_apply returns them. With `cfg.chunk_size > 0` the attention
+    is chunked-causal (a query sees its chunk and `left_chunks` chunks
+    before it) and the convolutions pad on the left only."""
     if compute_dtype is None or compute_dtype == torch.float32:
         flags, cast = strict_fp32(), (lambda a: a)
     elif compute_dtype in (torch.bfloat16, torch.float16):
@@ -365,10 +375,59 @@ def conformer_apply(
     else:
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     with flags:
-        return _apply(variables, feats, feat_lens, cfg, cast)
+        log_probs, lens, new_stats = _apply(
+            variables, feats, feat_lens, cfg, cast, training, generator,
+            remat)
+    if training:
+        return log_probs, lens, new_stats
+    return log_probs, lens
 
 
-def _apply(variables, feats, feat_lens, cfg: ConformerConfig, cast):
+def _block(x, bp, bstat, lens, att_mask, cfg: ConformerConfig, pos_enc,
+           scale, cast, chunked: bool, training: bool, generator):
+    """One Conformer block; dropout at JAX's sites in JAX's order."""
+    rate = cfg.dropout
+
+    def drop(a):
+        return dropout(a, rate, generator, training)
+
+    x = x + 0.5 * drop(_ffn(x, bp["ff1"], cast, drop))
+    with _range("conformer.mhsa"):
+        attn = _mhsa(_layernorm(x, bp["mhsa"]["ln"]), bp["mhsa"], att_mask,
+                     cfg, pos_enc, scale, cast)
+    x = x + drop(attn)
+    conv, new_stats = _conv_module(x, bp["conv"], bstat, lens, cast, chunked,
+                                   training)
+    x = x + drop(conv)
+    x = x + 0.5 * drop(_ffn(x, bp["ff2"], cast, drop))
+    return _layernorm(x, bp["final_ln"]), new_stats
+
+
+def _remat_block(x, generator, *args):
+    """_block under torch.utils.checkpoint. With a generator, the block
+    draws from a copy made from the generator's state before it (the
+    recomputation makes the same copy) and the generator then moves on to
+    the copy's end state, as if the block had drawn from it."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(
+            _block, x, *args, None, use_reentrant=False)
+    start = generator.get_state()
+    end = {}
+
+    def run(x):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = _block(x, *args, g)
+        end.setdefault("state", g.get_state())
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    generator.set_state(end["state"])
+    return out
+
+
+def _apply(variables, feats, feat_lens, cfg: ConformerConfig, cast,
+           training: bool, generator, remat: bool):
     params = variables["params"]
     stats = variables["batch_stats"]
     chunked = cfg.chunk_size > 0
@@ -396,18 +455,19 @@ def _apply(variables, feats, feat_lens, cfg: ConformerConfig, cast):
     else:
         att_mask = mask
 
+    new_stats = {"blocks": []}
     for bp, bstat in zip(params["blocks"], stats["blocks"]):
-        x = x + 0.5 * _ffn(x, bp["ff1"], cast)
-        with _range("conformer.mhsa"):
-            attn = _mhsa(_layernorm(x, bp["mhsa"]["ln"]), bp["mhsa"],
-                         att_mask, cfg, pos_enc, scale, cast)
-        x = x + attn
-        x = x + _conv_module(x, bp["conv"], bstat, lens, cast, chunked)
-        x = x + 0.5 * _ffn(x, bp["ff2"], cast)
-        x = _layernorm(x, bp["final_ln"])
+        args = (bp, bstat, lens, att_mask, cfg, pos_enc, scale, cast,
+                chunked, training)
+        if remat:
+            x, st = _remat_block(x, generator, *args)
+        else:
+            x, st = _block(x, *args, generator)
+        new_stats["blocks"].append(st)
 
     logits = _linear(x, params["decoder"], cast)
-    return torch.log_softmax(logits.float(), dim=-1), lens.to(torch.int32)
+    return (torch.log_softmax(logits.float(), dim=-1), lens.to(torch.int32),
+            new_stats)
 
 
 def num_params(variables: dict) -> int:

@@ -149,11 +149,14 @@ def load_anchor(path: str) -> dict:
 
 
 def params_from_jax(variables: dict, *, device=None) -> dict:
-    """JAX variables tree (numpy or array-like leaves, unfolded or folded)
-    -> the same tree with fp32 torch tensors on `device` (None: CUDA)."""
+    """JAX variables tree (numpy, array-like or tensor leaves, unfolded or
+    folded) -> the same tree with fp32 torch tensors on `device` (None:
+    CUDA), each a copy."""
     dev = resolve_device(device)
 
     def leaf(a):
+        if torch.is_tensor(a):
+            return a.detach().to(device=dev, dtype=torch.float32, copy=True)
         return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     return map_tree(leaf, variables)

@@ -66,14 +66,15 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dense_conv1d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                  dilation: int = 1, padding: int = 0,
                  groups: int = 1) -> torch.Tensor:
-    """Full conv: x (B, T, Cin), w (K, Cin // groups, Cout) -> (B, T', Cout)
-    in fp32."""
+    """Full conv: x (B, T, Cin), w (K, Cin // groups, Cout) -> (B, T', Cout).
+    A plain 1x1 is `pointwise_conv` (fp32 result); any other conv
+    accumulates in fp32 and returns x's dtype, as JAX's conv does."""
     if w.shape[0] == 1 and stride == 1 and padding == 0 and groups == 1:
         return pointwise_conv(x, w[0])
     y = F.conv1d(x.to(torch.float32).transpose(1, 2),
                  w.to(torch.float32).permute(2, 1, 0), stride=stride,
                  padding=padding, dilation=dilation, groups=groups)
-    return y.transpose(1, 2)
+    return y.transpose(1, 2).to(x.dtype)
 
 
 def init_batchnorm(c: int, *, device=None):
@@ -116,6 +117,46 @@ def fold_bn_into_conv(conv_w: torch.Tensor, bn_params: dict, bn_stats: dict,
     channels on its LAST axis. Returns (w_folded, bias)."""
     inv = bn_params["scale"] / torch.sqrt(bn_stats["var"] + eps)
     return conv_w * inv, bn_params["bias"] - bn_stats["mean"] * inv
+
+
+def group_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Channel shuffle of (B, T, C): channel g * (C / groups) + j moves to
+    j * groups + g."""
+    b, t, c = x.shape
+    return x.reshape(b, t, groups, c // groups).transpose(2, 3).reshape(
+        b, t, c)
+
+
+def squeeze_excite(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Squeeze-excite over time: the mean over ALL time steps, padding
+    included (as the reference and JAX pool), -> relu(. @ w1) ->
+    sigmoid(. @ w2) scales each channel; fp32 gate."""
+    y = torch.mean(x, dim=1).to(torch.float32)             # (B, C)
+    y = torch.relu(y @ params["w1"].to(torch.float32))
+    y = torch.sigmoid(y @ params["w2"].to(torch.float32))
+    return x * y[:, None, :]
+
+
+# jax.nn.selu's constants
+SELU_ALPHA = 1.6732632423543772848170429916717
+SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def _selu(x: torch.Tensor) -> torch.Tensor:
+    neg = SELU_ALPHA * torch.expm1(torch.clamp_max(x, 0.0))
+    return SELU_SCALE * torch.where(x > 0, x, neg)
+
+
+def activation_fn(name: str):
+    """relu; hardtanh as clip(x, 0, 20) (the reference's range, not
+    torch's default -1..1); selu with jax.nn.selu's constants."""
+    if name == "relu":
+        return torch.relu
+    if name == "hardtanh":
+        return lambda x: torch.clamp(x, 0.0, 20.0)
+    if name == "selu":
+        return _selu
+    raise ValueError(f"unsupported activation {name!r}")
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -9,22 +9,30 @@ as in JAX, so each weight is found under the same path in both packages
 (models/convert.py loads it). `init_quartznet` builds the unfolded tree
 from a `torch.Generator`.
 
-Block routing. A block that `block_eligible` accepts (separable, stride 1,
-folded BN: blocks 1-13 of QuartzNet12x1) goes through the fused repeat
-block kernel (ops/repeat_block.py) whenever the compute dtype is bf16 and
-`block_impl` is "auto" or "kernel": this is the encoder's main-path kernel
-on the GPU (in the JAX package the Pallas block was opt-in, through
+Every block variant of the JAX package runs: grouped separable 1x1s
+(a grouped conv, then a channel shuffle after BN), heads (one depthwise
+filter shared by channel groups), squeeze-excite (per repeat and once at
+the end without a residual, on each residual pane with one), dense
+residual panes over every earlier dense block's input, `residual_mode=
+"max"`, and relu / hardtanh / selu.
+
+Block routing. A block goes through the fused repeat block kernel
+(ops/repeat_block.py) when `block_impl` is "auto" or "kernel" and
+`kernel_route` holds: JAX's fused conditions (bf16, relu, add,
+conv_mask, the default pw_fn, no dense residual, the block input the only
+earlier output) and `block_eligible` (separable, stride 1, folded BN: blocks
+1-13 of QuartzNet12x1). This is the encoder's main-path kernel on the GPU
+(in the JAX package the Pallas block was opt-in, through
 `block_impl="pallas"`). `block_impl="plain"` runs the same blocks through
-the kernel's plain PyTorch version. Other blocks, and every block outside
-bf16, take the per-op path (`_apply_block_ops`), as JAX's default XLA path
-does: blocks 0 (stride 2) and 14 (dense 1x1) and the head always do. In
-training every block takes the per-op path: BN is unfolded and uses batch
-statistics, which the fused block cannot (JAX's `block_eligible` refuses
-training too).
+the kernel's plain PyTorch version. Every other block takes the per-op path
+(`_apply_block_ops`), as JAX's default XLA path does: blocks 0 (stride 2)
+and 14 (dense 1x1) of 12x1, every Jasper block, and every block in
+training, where BN is unfolded and uses batch statistics.
 
 bf16 semantics follow the JAX package: convolutions take bf16 operands,
-1x1 products accumulate in fp32 and return fp32, biases and BN are fp32,
-and the head's log-softmax is fp32.
+1x1 products accumulate in fp32 and return fp32, a grouped or dense conv
+returns bf16 (JAX's conv output dtype), biases, BN and the SE gate are
+fp32, and the head's log-softmax is fp32.
 
 `pw_fn(tag, x, w)` intercepts every 1x1 product of the per-op path, at
 JAX's call sites and tags: "enc{i}.sub{r}" (separable, ungrouped
@@ -42,12 +50,14 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vietasr_tpu_torch.config import BlockConfig, EncoderConfig
-from vietasr_tpu_torch.models.layers import (batchnorm_apply,
+from vietasr_tpu_torch.models.layers import (activation_fn,
+                                             batchnorm_apply,
                                              conv_out_length, dense_conv1d,
                                              depthwise_conv1d, dropout,
-                                             fold_bn_into_conv,
+                                             fold_bn_into_conv, group_shuffle,
                                              init_batchnorm, kaiming_uniform,
                                              mask_padding, pointwise_conv,
+                                             squeeze_excite,
                                              symmetric_uniform,
                                              xavier_uniform)
 from vietasr_tpu_torch.ops.repeat_block import (block_eligible,
@@ -88,15 +98,17 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _check_supported(cfg: EncoderConfig) -> None:
-    if cfg.activation != "relu" or cfg.residual_mode != "add":
-        raise NotImplementedError(
-            "only activation='relu' with residual_mode='add' is ported")
-    for b in cfg.blocks:
-        if b.groups > 1 or b.heads != -1 or b.se or b.residual_dense:
-            raise NotImplementedError(
-                "grouped, multi-head, SE and dense-residual blocks are not "
-                "ported yet")
+def tree_paths(tree, prefix: str = "") -> list:
+    """Each leaf's path ("encoder/0/sub/0/pw_w", the JAX package's
+    `_path_str` of its key path), in tree_leaves order."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [prefix]
+    return [p for k, v in items
+            for p in tree_paths(v, f"{prefix}/{k}" if prefix else str(k))]
 
 
 def _conv_init(generator, shape, mode: str, fan_in: int, fan_out: int,
@@ -115,35 +127,53 @@ def _conv_init(generator, shape, mode: str, fan_in: int, fan_out: int,
 
 def _init_sub(generator, bcfg: BlockConfig, c_in: int, c_out: int,
               mode: str, device):
-    """One conv + BN sub-layer. Weight layouts: depthwise (K, C), pointwise
-    (Cin, Cout), dense (K, Cin, Cout); fans as torch computes them."""
-    k = bcfg.effective_kernel
+    """One conv + BN sub-layer. Weight layouts: depthwise (K, C) or (K,
+    heads), pointwise (Cin, Cout) or, grouped, (1, Cin // groups, Cout),
+    dense (K, Cin // groups, Cout); fans as torch computes them."""
+    k, g = bcfg.effective_kernel, bcfg.groups
     params: dict = {}
     if bcfg.separable:
-        params["dw_w"] = _conv_init(generator, (k, c_in), mode, k, c_in * k,
+        dw_ch = bcfg.heads if bcfg.heads != -1 else c_in
+        params["dw_w"] = _conv_init(generator, (k, dw_ch), mode, k,
+                                    dw_ch * k, device)
+        shape = (1, c_in // g, c_out) if g > 1 else (c_in, c_out)
+        params["pw_w"] = _conv_init(generator, shape, mode, c_in // g, c_out,
                                     device)
-        params["pw_w"] = _conv_init(generator, (c_in, c_out), mode, c_in,
-                                    c_out, device)
     else:
-        params["conv_w"] = _conv_init(generator, (k, c_in, c_out), mode,
-                                      c_in * k, c_out * k, device)
+        params["conv_w"] = _conv_init(generator, (k, c_in // g, c_out), mode,
+                                      (c_in // g) * k, c_out * k, device)
     params["bn"], stats = init_batchnorm(c_out, device=device)
     return params, {"bn": stats}
+
+
+def _init_se(generator, c: int, ratio: int, mode: str, device) -> dict:
+    hidden = c // ratio
+    return {"w1": _conv_init(generator, (c, hidden), mode, c, hidden,
+                             device),
+            "w2": _conv_init(generator, (hidden, c), mode, hidden, c,
+                             device)}
 
 
 def init_quartznet(generator: Optional[torch.Generator], cfg: EncoderConfig,
                    num_classes: int, *, device=None) -> dict:
     """The unfolded variables tree, drawn from `generator` (on `device`;
     None: the device's default generator) in block order: each sub-layer's
-    weights, then the residual pane's, then the head. num_classes excludes
-    the blank; the head outputs num_classes + 1. The JAX package splits a
-    key instead, so the values differ and the shapes, fans and
-    distributions are the same."""
-    _check_supported(cfg)
+    weights (and its SE when the block has SE and no residual), then each
+    residual pane's (1x1 weight, then its SE), then the head. A dense-
+    residual block has one pane per earlier dense block's input and its
+    own. num_classes excludes the blank; the head outputs num_classes + 1.
+    The JAX package splits a key instead, so the values differ and the
+    shapes, fans and distributions are the same."""
     mode = cfg.init_mode
     enc_params, enc_stats = [], []
     feat_in = cfg.feat_in
+    dense_panes: list = []
     for bcfg in cfg.blocks:
+        if bcfg.residual_dense:
+            dense_panes.append(feat_in)
+            panes = list(dense_panes)
+        else:
+            panes = [feat_in] if bcfg.residual else []
         params = {"sub": [], "res": [], "se": []}
         stats = {"sub": [], "res": []}
         c = feat_in
@@ -152,11 +182,19 @@ def init_quartznet(generator: Optional[torch.Generator], cfg: EncoderConfig,
             params["sub"].append(p)
             stats["sub"].append(st)
             c = bcfg.filters
-        if bcfg.residual:
-            bn, bn_stats = init_batchnorm(bcfg.filters, device=device)
-            params["res"].append({"conv_w": _conv_init(
-                generator, (feat_in, bcfg.filters), mode, feat_in,
-                bcfg.filters, device), "bn": bn})
+            if bcfg.se and not bcfg.residual:
+                params["se"].append(_init_se(generator, bcfg.filters,
+                                             bcfg.se_reduction_ratio, mode,
+                                             device))
+        for pane_c in panes:
+            pane = {"conv_w": _conv_init(generator, (pane_c, bcfg.filters),
+                                         mode, pane_c, bcfg.filters, device)}
+            pane["bn"], bn_stats = init_batchnorm(bcfg.filters,
+                                                  device=device)
+            if bcfg.se:
+                pane["se"] = _init_se(generator, bcfg.filters,
+                                      bcfg.se_reduction_ratio, mode, device)
+            params["res"].append(pane)
             stats["res"].append({"bn": bn_stats})
         enc_params.append(params)
         enc_stats.append(stats)
@@ -175,72 +213,123 @@ def _default_pw(tag, x, w):
     return pointwise_conv(x, w)
 
 
+def _apply_depthwise(x, w, bcfg: BlockConfig):
+    """The block's depthwise conv; with `heads`, one (K, heads) filter
+    shared by the C / heads channel groups (channel g * heads + j takes
+    filter j)."""
+    conv = lambda a: depthwise_conv1d(  # noqa: E731
+        a, w, stride=bcfg.stride, dilation=bcfg.dilation,
+        padding=bcfg.same_padding)
+    if bcfg.heads == -1:
+        return conv(x)
+    b, t, c = x.shape
+    h = bcfg.heads
+    y = conv(x.reshape(b, t, c // h, h).transpose(1, 2)
+             .reshape(b * (c // h), t, h))
+    t2 = y.shape[1]
+    return y.reshape(b, c // h, t2, h).transpose(1, 2).reshape(b, t2, c)
+
+
 def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
                compute_dtype, training: bool = False, pw_fn=_default_pw,
                tag: str = ""):
-    """conv + BN (or folded bias). Returns (y, new_lens, new_stats); y is
-    fp32 unless pw_fn returns another dtype."""
+    """conv (+ channel shuffle) + BN (or folded bias). Returns (y,
+    new_lens, new_stats). A plain 1x1 product returns fp32 (unless pw_fn
+    returns another dtype); a grouped or dense conv returns the compute
+    dtype, as JAX's conv does; BN runs in fp32."""
     cast = (lambda a: a.to(compute_dtype)) if compute_dtype \
         else (lambda a: a)
     if conv_mask:
         x = mask_padding(x, lens)
     if bcfg.separable:
-        x = depthwise_conv1d(cast(x), cast(params["dw_w"]),
-                             stride=bcfg.stride, dilation=bcfg.dilation,
-                             padding=bcfg.same_padding)
+        x = _apply_depthwise(cast(x), cast(params["dw_w"]), bcfg)
         lens = conv_out_length(lens, bcfg.effective_kernel, bcfg.stride,
                                bcfg.dilation, bcfg.same_padding)
         if conv_mask:
             x = mask_padding(x, lens)
-        x = pw_fn(tag, cast(x), cast(params["pw_w"]))
+        if bcfg.groups > 1:
+            w = params["pw_w"]
+            x = dense_conv1d(cast(x), cast(w[None] if w.ndim == 2 else w),
+                             groups=bcfg.groups)
+        else:
+            x = pw_fn(tag, cast(x), cast(params["pw_w"]))
     else:
         x = dense_conv1d(cast(x), cast(params["conv_w"]), stride=bcfg.stride,
-                         dilation=bcfg.dilation, padding=bcfg.same_padding)
+                         dilation=bcfg.dilation, padding=bcfg.same_padding,
+                         groups=bcfg.groups)
         lens = conv_out_length(lens, bcfg.effective_kernel, bcfg.stride,
                                bcfg.dilation, bcfg.same_padding)
     if "bn" in params:
-        y, new_bn = batchnorm_apply(x, params["bn"], stats["bn"],
-                                    training=training)
-        return y, lens, {"bn": new_bn}
-    return x + cast(params["b"]), lens, stats
+        x, new_bn = batchnorm_apply(x.to(torch.float32), params["bn"],
+                                    stats["bn"], training=training)
+        stats = {"bn": new_bn}
+    else:
+        x = x + cast(params["b"])
+    if bcfg.groups > 1:
+        x = group_shuffle(x, bcfg.groups)
+    return x, lens, stats
 
 
-def _apply_block(x, lens, params, stats, bcfg: BlockConfig,
-                 cfg: EncoderConfig, compute_dtype, block_impl: str,
-                 pw_fn=_default_pw, block_idx: int = 0):
-    """Inference JasperBlock: R sub-layers (ReLU between), + residual,
-    ReLU; an eligible bf16 block as one fused repeat block unless pw_fn
-    intercepts the 1x1 products."""
-    if (compute_dtype == torch.bfloat16 and cfg.conv_mask
+def kernel_route(xs: list, params, bcfg: BlockConfig, cfg: EncoderConfig,
+                 compute_dtype, training: bool, pw_fn) -> bool:
+    """Does this block go through the fused repeat-block kernel? Only where
+    JAX's own fused conditions hold (bf16, relu, add, conv_mask, the
+    default pw_fn, no dense residual, and the block input is the only
+    earlier output: after a dense-residual block pane 0 reads xs[0], not
+    the block input) and `block_eligible` accepts the block."""
+    return (compute_dtype == torch.bfloat16
+            and cfg.activation == "relu"
+            and cfg.residual_mode == "add"
+            and cfg.conv_mask
             and pw_fn is _default_pw
-            and block_eligible(bcfg, params, False)):
-        fused = fused_repeat_block_plain if block_impl == "plain" \
-            else fused_repeat_block
-        r = bcfg.repeat
-        res = params["res"][0] if params["res"] else None
-        out = fused(x.to(compute_dtype), lens,
-                    [params["sub"][j]["dw_w"] for j in range(r)],
-                    [params["sub"][j]["pw_w"] for j in range(r)],
-                    [params["sub"][j]["b"] for j in range(r)],
-                    res["conv_w"] if res else None,
-                    res["b"] if res else None,
-                    kernel=bcfg.effective_kernel)
-        return out, lens
-    return _apply_block_ops(x, lens, params, stats, bcfg, cfg,
-                            compute_dtype, pw_fn=pw_fn,
-                            block_idx=block_idx)[:2]
+            and not bcfg.residual_dense
+            and len(xs) == 1
+            and block_eligible(bcfg, params, training))
 
 
-def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
+def _apply_block(xs, lens, params, stats, bcfg: BlockConfig,
+                 cfg: EncoderConfig, compute_dtype, block_impl: str,
+                 training: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 pw_fn=_default_pw, block_idx: int = 0):
+    """JasperBlock over `xs`, the outputs a block may read its residual
+    panes from (the block input last). Returns (xs', lens, new_stats): a
+    dense-residual block appends its output to xs, any other returns
+    [out]. A block that `kernel_route` accepts is one fused repeat block;
+    every other takes the per-op path."""
+    if not kernel_route(xs, params, bcfg, cfg, compute_dtype, training,
+                        pw_fn):
+        return _apply_block_ops(xs, lens, params, stats, bcfg, cfg,
+                                compute_dtype, training, generator, pw_fn,
+                                block_idx)
+    fused = fused_repeat_block_plain if block_impl == "plain" \
+        else fused_repeat_block
+    r = bcfg.repeat
+    res = params["res"][0] if params["res"] else None
+    out = fused(xs[-1].to(compute_dtype), lens,
+                [params["sub"][j]["dw_w"] for j in range(r)],
+                [params["sub"][j]["pw_w"] for j in range(r)],
+                [params["sub"][j]["b"] for j in range(r)],
+                res["conv_w"] if res else None,
+                res["b"] if res else None,
+                kernel=bcfg.effective_kernel)
+    return [out], lens, stats
+
+
+def _apply_block_ops(xs, lens, params, stats, bcfg: BlockConfig,
                      cfg: EncoderConfig, compute_dtype,
                      training: bool = False,
                      generator: Optional[torch.Generator] = None,
                      pw_fn=_default_pw, block_idx: int = 0):
-    """The per-op JasperBlock: each sub-layer's conv and BN (or bias)
-    apart; dropout (training only) after each ReLU. Returns (out, lens,
-    new_block_stats)."""
-    out, out_lens = x, lens
+    """The per-op JasperBlock (JAX's `_apply_block` past its fused branch):
+    R sub-layers with the activation, dropout (training only) and, with SE
+    and no residual, SE between them; the final SE; each residual pane p
+    from xs[p] (1x1, BN or bias, SE) added or max-ed in; the activation
+    and dropout. Returns (xs', lens, new_block_stats)."""
+    act = activation_fn(cfg.activation)
+    out, out_lens = xs[-1], lens
     new_stats = {"sub": [], "res": []}
+    se_per_repeat = bcfg.se and not bcfg.residual
     for r in range(bcfg.repeat):
         out, out_lens, st = _apply_sub(out, out_lens, params["sub"][r],
                                        stats["sub"][r] if stats else None,
@@ -249,24 +338,34 @@ def _apply_block_ops(x, lens, params, stats, bcfg: BlockConfig,
                                        f"enc{block_idx}.sub{r}")
         new_stats["sub"].append(st)
         if r < bcfg.repeat - 1:
-            out = dropout(torch.relu(out), bcfg.dropout, generator, training)
+            out = dropout(act(out), bcfg.dropout, generator, training)
+            if se_per_repeat:
+                out = squeeze_excite(out, params["se"][r])
+    if se_per_repeat and params["se"]:
+        out = squeeze_excite(out, params["se"][-1])
     cast = (lambda a: a.to(compute_dtype)) if compute_dtype \
         else (lambda a: a)
     for i, pane in enumerate(params["res"]):
-        res = mask_padding(x, lens) if cfg.conv_mask else x
+        res = mask_padding(xs[i], lens) if cfg.conv_mask else xs[i]
         res = pw_fn(f"enc{block_idx}.res{i}", cast(res),
                     cast(pane["conv_w"]))
         pane_stats = stats["res"][i] if stats else {}
         if "bn" in pane:
-            res, new_bn = batchnorm_apply(res, pane["bn"], pane_stats["bn"],
+            res, new_bn = batchnorm_apply(res.to(torch.float32), pane["bn"],
+                                          pane_stats["bn"],
                                           training=training)
             pane_stats = {"bn": new_bn}
         else:
             res = res + cast(pane["b"])
+        if "se" in pane:
+            res = squeeze_excite(res, pane["se"])
         new_stats["res"].append(pane_stats)
-        out = out + res
-    out = dropout(torch.relu(out), bcfg.dropout, generator, training)
-    return out, out_lens, new_stats
+        out = out + res if cfg.residual_mode == "add" \
+            else torch.maximum(out, res)
+    out = dropout(act(out), bcfg.dropout, generator, training)
+    if params["res"] and bcfg.residual_dense:
+        return list(xs) + [out], out_lens, new_stats
+    return [out], out_lens, new_stats
 
 
 def quartznet_apply(
@@ -293,26 +392,22 @@ def quartznet_apply(
     if block_impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, "
                          f"got {block_impl!r}")
-    _check_supported(cfg)
+    activation_fn(cfg.activation)
+    if cfg.residual_mode not in ("add", "max"):
+        raise ValueError(f"unsupported residual_mode {cfg.residual_mode!r}")
     params = variables["params"]
     stats = variables.get("batch_stats", {}).get("encoder")
-    x, lens = feats, feat_lens
+    xs, lens = [feats], feat_lens
     new_enc_stats = []
     for i, bcfg in enumerate(cfg.blocks):
-        block_stats = stats[i] if stats else None
-        if training:
-            x, lens, st = _apply_block_ops(x, lens, params["encoder"][i],
-                                           block_stats, bcfg, cfg,
-                                           compute_dtype, True, generator,
-                                           pw_fn, i)
-            new_enc_stats.append(st)
-        else:
-            x, lens = _apply_block(x, lens, params["encoder"][i],
-                                   block_stats, bcfg, cfg, compute_dtype,
-                                   block_impl, pw_fn, i)
+        xs, lens, st = _apply_block(xs, lens, params["encoder"][i],
+                                    stats[i] if stats else None, bcfg, cfg,
+                                    compute_dtype, block_impl, training,
+                                    generator, pw_fn, i)
+        new_enc_stats.append(st)
     dec = params["decoder"]
-    logits = pw_fn("dec", x, dec["w"]) + dec["b"]
-    log_probs = torch.log_softmax(logits, dim=-1)
+    logits = pw_fn("dec", xs[-1], dec["w"]) + dec["b"]
+    log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
     if training:
         return log_probs, lens.to(torch.int32), {"encoder": new_enc_stats}
     return log_probs, lens.to(torch.int32)

@@ -1,6 +1,6 @@
 """Training (counterpart of vietasr_tpu/train/): optimizers, schedules,
-state, train/eval steps and the Trainer, checkpoints, metrics and
-synthetic data. `freeze.py` and value schedules are not ported yet."""
+freezing and value schedules (`freeze.py`), state, train/eval steps and
+the Trainer, checkpoints, metrics and synthetic data."""
 
 from vietasr_tpu_torch.train.checkpoint import CheckpointManager
 from vietasr_tpu_torch.train.loop import (Trainer, make_eval_step,

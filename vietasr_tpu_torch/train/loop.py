@@ -1,8 +1,14 @@
 """Train/eval steps and the Trainer loop (counterpart of
 vietasr_tpu/train/loop.py).
 
-- forward = featurize (dither) -> SpecAugment -> QuartzNet in training
-  mode (batch-stat BN) -> CTC loss; autograd takes the gradient.
+- forward = featurize (dither) -> SpecAugment -> the encoder in training
+  mode through the `model_apply` dispatch (QuartzNet/Jasper or the
+  Conformer; batch-stat BN, dropout) -> CTC loss; autograd takes the
+  gradient.
+- value schedules ({name: fn(step)}, train/freeze.py): evaluated on the
+  step count each step; `specaug_freq_masks` / `specaug_time_masks` set
+  the live SpecAugment band counts, and every value is reported in the
+  metrics.
 - gradient accumulation over microbatches, the BN running stats carried
   from one microbatch to the next.
 - NaN/inf guard: a non-finite loss or global grad norm skips the update
@@ -15,6 +21,9 @@ added to the waveform before it), the CTC loss the alpha/beta CUDA kernel
 pair (`ctc_impl="auto"`). On CPU tensors both take their plain versions,
 the featurizer the plain log-mel chain as JAX computes it.
 
+The Trainer can record a `torch.profiler` trace of steps [profile_start,
+profile_stop) into `profile_dir` (each step a `train_step_<n>` range).
+
 The JAX train step returns a new state; here the step updates `state` in
 place and returns it. Random numbers (dither, SpecAugment masks, dropout)
 come from one torch.Generator, drawn in that order; the JAX package splits
@@ -23,7 +32,9 @@ a key, so the draws differ and their distributions do not.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -36,7 +47,8 @@ from vietasr_tpu_torch.config import ModelConfig
 from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
                                                       make_fused_featurizer)
 from vietasr_tpu_torch.frontend.features import make_featurizer
-from vietasr_tpu_torch.models.quartznet import assign_tree, quartznet_apply
+from vietasr_tpu_torch.models import model_apply
+from vietasr_tpu_torch.models.quartznet import assign_tree
 from vietasr_tpu_torch.ops.ctc_loss import CTC_IMPLS, ctc_loss
 from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
                                           ids_to_text)
@@ -68,43 +80,44 @@ def make_train_featurizer(cfg: ModelConfig, device: torch.device):
 
 def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
-                 ctc_impl: str = "auto", device=None):
-    """loss_fn(params, batch_stats, batch, generator, training) ->
-    (loss, (new_stats, log_probs, enc_lens)).
+                 ctc_impl: str = "auto", device=None, remat: bool = False):
+    """loss_fn(params, batch_stats, batch, generator, training, sched=None)
+    -> (loss, (new_stats, log_probs, enc_lens)).
 
     compute_dtype=torch.bfloat16 runs the encoder's convolutions and
-    products in bf16 with fp32 params and accumulation. Padded rows
-    (signal_lens == 0) and CTC-infeasible rows (the ~1e30 sentinel) are
-    masked per sample, torch CTCLoss(zero_infinity=True) semantics, and the
-    loss is the mean over the remaining rows."""
+    products in bf16 with fp32 params and accumulation. `sched` (the value
+    schedules' values) may set the live SpecAugment band counts. Padded
+    rows (signal_lens == 0) and CTC-infeasible rows (the ~1e30 sentinel)
+    are masked per sample, torch CTCLoss(zero_infinity=True) semantics, and
+    the loss is the mean over the remaining rows. `remat` recomputes each
+    Conformer block in the backward pass (a QuartzNet refuses it)."""
     if ctc_impl not in CTC_IMPLS:
         raise ValueError(f"ctc_impl must be one of {CTC_IMPLS}, "
                          f"got {ctc_impl!r}")
-    if cfg.architecture != "quartznet":
-        raise NotImplementedError(
-            "Conformer training is not ported yet (ROADMAP A.8)")
+    if remat and cfg.architecture != "conformer":
+        raise ValueError("remat applies to the Conformer only")
     featurize = make_train_featurizer(cfg, resolve_device(device))
     blank = cfg.num_classes
+    extra = {"remat": True} if remat else {}
 
-    def loss_fn(params, batch_stats, batch, generator, training: bool):
+    def loss_fn(params, batch_stats, batch, generator, training: bool,
+                sched=None):
         assert_audio_batch(batch["signal"], batch["signal_lens"])
         assert_labels(batch["tokens"], batch["token_lens"])
         feats, flens = featurize(batch["signal"], batch["signal_lens"],
                                  generator=generator, training=training)
         if training and use_specaug:
-            feats = apply_spec_augment(feats, cfg.spec_augment,
-                                       generator=generator)
+            sched = sched or {}
+            feats = apply_spec_augment(
+                feats, cfg.spec_augment, generator=generator,
+                active_freq=sched.get("specaug_freq_masks"),
+                active_time=sched.get("specaug_time_masks"))
         variables = {"params": params, "batch_stats": batch_stats}
-        if training:
-            log_probs, enc_lens, new_stats = quartznet_apply(
-                variables, feats, flens, cfg=cfg.encoder,
-                compute_dtype=compute_dtype, training=True,
-                generator=generator)
-        else:
-            log_probs, enc_lens = quartznet_apply(
-                variables, feats, flens, cfg=cfg.encoder,
-                compute_dtype=compute_dtype)
-            new_stats = batch_stats
+        out = model_apply(variables, feats, flens, cfg=cfg,
+                          compute_dtype=compute_dtype, training=training,
+                          generator=generator, **extra)
+        log_probs, enc_lens = out[:2]
+        new_stats = out[2] if training else batch_stats
         per_sample = ctc_loss(log_probs, batch["tokens"], enc_lens,
                               batch["token_lens"], blank=blank,
                               reduction="none", impl=ctc_impl)
@@ -122,22 +135,27 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                     use_specaug: bool = True,
                     lr_schedule: Optional[Callable] = None,
                     compute_dtype: Optional[torch.dtype] = None,
-                    ctc_impl: str = "auto", device=None):
+                    ctc_impl: str = "auto", device=None,
+                    value_schedules: Optional[dict] = None,
+                    remat: bool = False):
     """train_step(state, batch, generator) -> (state, metrics): one update
     of `state` (in place) from a batch of tensors; metrics are device
-    tensors (loss, grad_norm, and lr with a schedule)."""
+    tensors (loss, grad_norm, lr with a schedule, and each value
+    schedule's value at the step count before the update)."""
     loss_fn = make_loss_fn(cfg, use_specaug=use_specaug,
                            compute_dtype=compute_dtype, ctc_impl=ctc_impl,
-                           device=device)
+                           device=device, remat=remat)
 
-    def grads_of(state: TrainState, stats, batch, generator):
+    def grads_of(state: TrainState, stats, batch, generator, sched):
         loss, (new_stats, _, _) = loss_fn(state.params, stats, batch,
-                                          generator, True)
+                                          generator, True, sched)
         grads = torch.autograd.grad(loss, state.param_list())
         return loss.detach(), new_stats, grads
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]):
+        sched = {k: fn(state.step)
+                 for k, fn in (value_schedules or {}).items()}
         if grad_accum > 1:
             bsz = batch["signal"].shape[0]
             if bsz % grad_accum:
@@ -148,7 +166,7 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
             for k in range(grad_accum):
                 micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
                 loss_k, new_stats, grads_k = grads_of(state, new_stats, micro,
-                                                      generator)
+                                                      generator, sched)
                 grads = grads_k if grads is None \
                     else [a + b for a, b in zip(grads, grads_k)]
                 loss = loss + loss_k
@@ -156,17 +174,19 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
             loss = loss / grad_accum
         else:
             loss, new_stats, grads = grads_of(state, state.batch_stats, batch,
-                                              generator)
+                                              generator, sched)
 
         # a masked NaN row can leave the loss finite while the gradients are
         # NaN (it still reaches the BN batch stats), so guard both
         grad_norm = global_norm(grads)
         finite = torch.isfinite(loss) & (loss < 1e25) \
             & torch.isfinite(grad_norm)
-        for p, g in zip(state.param_list(), grads):
+        params = state.param_list()
+        for p, g in zip(params, grads):
             p.grad = torch.where(finite, g, torch.zeros_like(g))
         state.optimizer.step(finite=finite)
-        state.optimizer.zero_grad(set_to_none=True)
+        for p in params:         # frozen parameters are not the optimizer's
+            p.grad = None
         with torch.no_grad():
             assign_tree(state.batch_stats, new_stats, finite)
             state.step += 1
@@ -177,6 +197,7 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                                                             float("inf")))}
         if lr_schedule is not None:
             metrics["lr"] = lr_schedule(state.step)
+        metrics.update(sched)
         return state, metrics
 
     return train_step
@@ -243,10 +264,10 @@ def _prefetch(iterable, depth: int = 2):
 @dataclasses.dataclass
 class Trainer:
     """Epoch/step loop with callbacks, eval and checkpointing (the JAX
-    Trainer's fields, less `optimizer`, which the TrainState holds here,
-    and the not-yet-ported profile and value-schedule hooks). Callbacks are
-    plain callables fn(trainer, metrics_dict) invoked every `log_every`
-    steps. `device=None` means CUDA, and raises without a GPU."""
+    Trainer's fields, less `optimizer`, which the TrainState holds here;
+    plus `remat` for the Conformer). Callbacks are plain callables
+    fn(trainer, metrics_dict) invoked every `log_every` steps.
+    `device=None` means CUDA, and raises without a GPU."""
 
     cfg: ModelConfig
     grad_accum: int = 1
@@ -258,12 +279,22 @@ class Trainer:
     checkpoint_manager: Optional[object] = None
     checkpoint_every: int = 0
     seed: int = 0
+    # torch.profiler trace of steps [profile_start, profile_stop) written
+    # here as trace_steps_<start>_<stop>.json
+    profile_dir: Optional[str] = None
+    profile_start: int = 10
+    profile_stop: int = 13
     # log a sample hyp/ref + batch WER every log_every steps
     monitor_progress: bool = False
     # "auto": the CUDA kernel pair on the GPU, the plain recursion on CPU
     ctc_impl: str = "auto"
     # background-thread batch prefetch depth (0 disables)
     prefetch_depth: int = 2
+    # {name: fn(step) -> scalar} annealed knobs (train/freeze.py
+    # make_value_schedule)
+    value_schedules: Optional[dict] = None
+    # recompute each Conformer block in the backward pass
+    remat: bool = False
     device: Optional[object] = None
 
     def __post_init__(self):
@@ -274,7 +305,9 @@ class Trainer:
             self.cfg, grad_accum=self.grad_accum,
             use_specaug=self.use_specaug, lr_schedule=self.lr_schedule,
             compute_dtype=_DTYPES[self.compute_dtype],
-            ctc_impl=self.ctc_impl, device=self.device)
+            ctc_impl=self.ctc_impl, device=self.device,
+            value_schedules=self.value_schedules, remat=self.remat)
+        self._profiler = None
         self._eval_step = make_eval_step(self.cfg, ctc_impl=self.ctc_impl,
                                          device=self.device)
         self.callbacks = []
@@ -292,9 +325,14 @@ class Trainer:
                   if self.prefetch_depth > 0 else batcher)
             for batch in it:
                 t0 = time.time()
-                state, metrics = self._train_step(
-                    state, batch_to_tensors(batch, self.device), generator)
+                self._profile_enter(step)
+                with (torch.profiler.record_function(f"train_step_{step}")
+                      if self._profiler else contextlib.nullcontext()):
+                    state, metrics = self._train_step(
+                        state, batch_to_tensors(batch, self.device),
+                        generator)
                 step += 1
+                self._profile_exit(step)
                 if self.log_every and step % self.log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=step, epoch=epoch,
@@ -314,6 +352,28 @@ class Trainer:
             self.history.append({"epoch": epoch,
                                  "epoch_time": time.time() - t_epoch})
         return state
+
+    def _profile_enter(self, step: int) -> None:
+        if self.profile_dir is None or self._profiler is not None \
+                or step != self.profile_start:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.start()
+
+    def _profile_exit(self, step: int) -> None:
+        if self._profiler is None or step != self.profile_stop:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self._profiler.export_chrome_trace(os.path.join(
+            self.profile_dir,
+            f"trace_steps_{self.profile_start}_{self.profile_stop}.json"))
+        self._profiler = None
 
     def _decode(self, state: TrainState, batch):
         """(hyps, refs, loss) of one batch, padded rows skipped."""

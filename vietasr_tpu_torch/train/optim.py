@@ -17,8 +17,21 @@ round trip. The step counter is a device int32 tensor per parameter group
 - Adam, AdamW and SGD (+ momentum, + weight decay) as optax computes them;
   their learning rate is lr(count), the number of updates before this one
   (optax's scale_by_schedule).
+- LAMB as `optax.lamb`: scale_by_adam (eps 1e-6), decayed weights added,
+  then each tensor's update scaled by the trust ratio |p| / |u| (1 where
+  either norm is 0), then -lr(count).
+- LARC (SGD only) as the JAX package chains it: the gradient scaled by
+  larc_eta * |p| / |g| (1 where either norm is 0) before SGD, SGD's weight
+  decay included.
 - `grad_clip_norm` clips by the global norm first (optax
   clip_by_global_norm).
+
+A parameter group may carry "paths" (each parameter's JAX path string,
+which TrainState.create supplies) and "unfreeze_at" ({path prefix: step},
+train/freeze.py's `unfreeze_schedule`): a parameter under such a prefix
+has its gradient zeroed before the update (clipping included) and its
+update dropped after it until the group's step count reaches that step,
+as optax's gates do; its moments see the zeroed gradients meanwhile.
 """
 
 from __future__ import annotations
@@ -38,6 +51,39 @@ def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor (optax.global_norm)."""
     return torch.sqrt(torch.stack([torch.sum(torch.square(t.float()))
                                    for t in tensors]).sum())
+
+
+def trust_ratio(p: torch.Tensor, u: torch.Tensor,
+                coefficient: float = 1.0) -> torch.Tensor:
+    """optax.scale_by_trust_ratio's factor: coefficient * |p| / |u|, or 1
+    where either norm is 0."""
+    p_norm, u_norm = torch.linalg.norm(p), torch.linalg.norm(u)
+    ratio = coefficient * p_norm / u_norm
+    return torch.where((p_norm == 0) | (u_norm == 0),
+                       torch.ones_like(ratio), ratio)
+
+
+def path_matches(path: str, prefixes) -> bool:
+    """Is `path` one of `prefixes` or below one ("encoder" holds
+    "encoder/0/sub/0/pw_w")?"""
+    return any(path == q or path.startswith(q + "/") for q in prefixes)
+
+
+def _unfreeze_gates(group: dict, count: torch.Tensor) -> list:
+    """Per parameter of the group: None (never gated) or a 0-d bool, true
+    once `count` reaches the step of the first matching prefix."""
+    schedule = group.get("unfreeze_at")
+    if not schedule:
+        return [None] * len(group["params"])
+    if "paths" not in group:
+        raise ValueError("unfreeze_at needs the parameters' paths (build "
+                         "the optimizer through TrainState.create)")
+    gates = []
+    for path in group["paths"]:
+        th = next((int(schedule[q]) for q in schedule
+                   if path_matches(path, [q])), 0)
+        gates.append(count >= th if th > 0 else None)
+    return gates
 
 
 class _GuardedOptimizer(torch.optim.Optimizer):
@@ -70,24 +116,32 @@ class _GuardedOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
+            if "step" not in group:
+                group["step"] = torch.zeros(
+                    (), dtype=torch.int32,
+                    device=group["params"][0].device if group["params"]
+                    else None)
+            count = group["step"]
+            live = [(p, gate) for p, gate in zip(
+                group["params"], _unfreeze_gates(group, count))
+                if p.grad is not None]
+            if not live:
                 continue
-            grads = [p.grad for p in params]
+            grads = [p.grad if gate is None
+                     else torch.where(gate, p.grad, torch.zeros_like(p.grad))
+                     for p, gate in live]
             if self.grad_clip_norm:
                 norm = global_norm(grads)
                 grads = [torch.where(norm < self.grad_clip_norm, g,
                                      (g / norm) * self.grad_clip_norm)
                          for g in grads]
-            if "step" not in group:
-                group["step"] = torch.zeros((), dtype=torch.int32,
-                                            device=params[0].device)
-            count = group["step"]
-            for p, g in zip(params, grads):
+            for (p, gate), g in zip(live, grads):
                 state = self.state[p]
                 if not state:
                     state.update(self._init_state(p))
                 new_p, new_state = self._update(p, g, state, group, count)
+                if gate is not None:
+                    new_p = torch.where(gate, new_p, p)
                 _assign(p, new_p, finite)
                 for key, value in new_state.items():
                     _assign(state[key], value, finite)
@@ -161,24 +215,46 @@ class Adam(_GuardedOptimizer):
         u = mu_hat / (torch.sqrt(nu_hat) + group["eps"])
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
-        return p + (-self._lr(count)) * u, {"exp_avg": mu, "exp_avg_sq": nu}
+        return (p + (-self._lr(count)) * self._rescale(p, u),
+                {"exp_avg": mu, "exp_avg_sq": nu})
+
+    def _rescale(self, p, u):
+        return u
+
+
+class Lamb(Adam):
+    """optax.lamb: Adam's update (eps 1e-6) + weight decay, times the trust
+    ratio |p| / |u|, times -lr(count)."""
+
+    def __init__(self, params, lr, *, betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0,
+                 grad_clip_norm: Optional[float] = None):
+        super().__init__(params, lr, betas=betas, eps=eps,
+                         decoupled_weight_decay=weight_decay,
+                         grad_clip_norm=grad_clip_norm)
+
+    def _rescale(self, p, u):
+        return u * trust_ratio(p, u)
 
 
 class SGD(_GuardedOptimizer):
     """optax.sgd with momentum (a trace, not Nesterov), optionally after
-    add_decayed_weights."""
+    add_decayed_weights; with `larc_eta`, after LARC's trust ratio."""
 
     def __init__(self, params, lr, *, momentum: float = 0.9,
-                 weight_decay: float = 0.0,
+                 weight_decay: float = 0.0, larc_eta: Optional[float] = None,
                  grad_clip_norm: Optional[float] = None):
         super().__init__(params, dict(momentum=momentum,
-                                      weight_decay=weight_decay),
+                                      weight_decay=weight_decay,
+                                      larc_eta=larc_eta),
                          lr, grad_clip_norm)
 
     def _init_state(self, p):
         return {"momentum_buffer": torch.zeros_like(p)}
 
     def _update(self, p, g, state, group, count):
+        if group["larc_eta"] is not None:
+            g = g * trust_ratio(p, g, group["larc_eta"])
         if group["weight_decay"]:
             g = g + group["weight_decay"] * p
         trace = g + group["momentum"] * state["momentum_buffer"]
@@ -191,14 +267,13 @@ OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 def make_optimizer(name: str, learning_rate, *, weight_decay: float = 0.0,
                    betas=None, momentum: float = 0.9,
                    grad_clip_norm: Optional[float] = None,
-                   larc: bool = False) -> OptimizerFactory:
-    """The reference's optimizer set (sgd / adam / adam_w / novograd, with
-    grad-norm clipping) as a constructor: call it on the parameters
-    (TrainState.create does). LAMB and LARC are not ported yet."""
+                   larc: bool = False,
+                   larc_eta: float = 0.02) -> OptimizerFactory:
+    """The reference's optimizer set (sgd / adam / adam_w / novograd /
+    lamb, LARC around SGD, grad-norm clipping) as a constructor: call it on
+    the parameters (TrainState.create does). `larc` wraps SGD only, as in
+    the JAX package; other optimizers ignore it."""
     name = name.lower()
-    if name == "lamb" or larc:
-        raise NotImplementedError(
-            "LAMB and LARC are not ported yet (ROADMAP A.8)")
     kw = dict(grad_clip_norm=grad_clip_norm)
     if name == "novograd":
         return functools.partial(Novograd, lr=learning_rate,
@@ -213,5 +288,10 @@ def make_optimizer(name: str, learning_rate, *, weight_decay: float = 0.0,
                                  decoupled_weight_decay=weight_decay, **kw)
     if name == "sgd":
         return functools.partial(SGD, lr=learning_rate, momentum=momentum,
+                                 weight_decay=weight_decay,
+                                 larc_eta=larc_eta if larc else None, **kw)
+    if name == "lamb":
+        return functools.partial(Lamb, lr=learning_rate,
+                                 betas=betas or (0.9, 0.999),
                                  weight_decay=weight_decay, **kw)
     raise ValueError(f"unknown optimizer {name!r}")

@@ -15,7 +15,8 @@ from typing import Callable, Iterable, List
 
 import torch
 
-from vietasr_tpu_torch.models.quartznet import map_tree, tree_leaves
+from vietasr_tpu_torch.models.quartznet import (map_tree, tree_leaves,
+                                                tree_paths)
 
 
 @dataclasses.dataclass
@@ -32,14 +33,17 @@ class TrainState:
                                    torch.optim.Optimizer],
                *, step: int = 0) -> "TrainState":
         """`variables`: {"params", "batch_stats"} trees of tensors on one
-        device (copied); `optimizer`: a constructor from make_optimizer."""
+        device (copied); `optimizer`: a constructor from make_optimizer
+        (or train/freeze.py's wrappers of one), given one parameter group
+        whose "paths" name each parameter as the JAX package does."""
         params = map_tree(lambda t: t.detach().clone().to(torch.float32)
                           .requires_grad_(True), variables["params"])
         stats = map_tree(lambda t: t.detach().clone(),
                          variables.get("batch_stats") or {})
         dev = tree_leaves(params)[0].device
         return cls(params=params, batch_stats=stats,
-                   optimizer=optimizer(tree_leaves(params)),
+                   optimizer=optimizer([{"params": tree_leaves(params),
+                                         "paths": tree_paths(params)}]),
                    step=torch.full((), step, dtype=torch.int32, device=dev),
                    skipped_steps=torch.zeros((), dtype=torch.int32,
                                              device=dev))
