@@ -129,8 +129,8 @@ Phases, each of which raises on failure:
      beam launch per transcribe_batch call, the raw result bit for bit
      with the plain device_beam_search on the same log-probs, texts
      equal; decoder="beam" from the PROBING binary on the 4 shortest
-     signals, texts equal to the C++ tier over the ARPA; transcribe_long
-     refused. (b) conformer_ctc_vi_streaming.yaml at full width
+     signals, texts equal to the C++ tier over the ARPA (long-form on a
+     Conformer: phase 13d). (b) conformer_ctc_vi_streaming.yaml at full width
      (25,525,339 parameters), fp32: ConformerOnlineTranscriber over
      20.48 s of noise against the offline chunked forward of the frames
      it saw (2e-4 in log p); two StreamPool(slots=8, decoder="beam",
@@ -162,11 +162,35 @@ Phases, each of which raises on failure:
      REMAT_GRAD_RTOL. path_launches gain cli_train, cli_eval,
      cli_transcribe, cli_transcribe_device_beam, jasper_train and
      conformer_train
+  13. parallelism, export and long-form on a Conformer (after 12). (a) 2
+     gloo ranks spawned on the one card (NCCL refuses two ranks on one
+     device): QuartzNet12x1_vi at full width, bf16, 3 data-parallel
+     steps on 16 + 16 of phase 8's 32 rows (dither and SpecAugment off):
+     the ranks' params and BN stats bit for bit, within phase 8's bf16
+     bars of the one-process step on the 32 rows, 1 frontend, 1 alpha, 1
+     beta launch a step a rank, each held to its plain version on the
+     rank's batch; then a world-size-1 NCCL group: the same 3 steps
+     against the one-process step, the gradient all-reduce's ms, ms a
+     step with and without the group beside phase 8's. (b) the same
+     ranks run conformer_ctc_vi in fp32 tensor-parallel (heads and FFN
+     columns over 2 ranks), B = 8 x 16.7 s: within TP_TOL of the
+     replicated forward. (c) export_transcriber of the anchor's
+     Transcriber at B = 1 and 8 x 16.7 s, loaded back: outputs bit for
+     bit with the eager forward, 1 frontend and 13 repeat launches a
+     forward of the loaded program; ms a forward of the loaded program,
+     the eager forward, and the eager forward through the custom ops.
+     (d) transcribe_long on conformer_ctc_vi over 45-300 s: stitched
+     frames equal the offline forward's grid, audio-s/s and idle share,
+     1 frontend launch a call; device_beam (W = 100, word 3-gram) on 90
+     s, 1 beam launch, the beam kernel bit for bit with the plain search
+     on the 45 s posterior. path_launches gain dp_train, dp_train_nccl1,
+     tp_forward, export_forward and conformer_longform
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -241,6 +265,7 @@ CTC_GRAD_FP64_RTOL = 1e-2
 # gradient (add, sub, min, exp, mul, select)
 CTC_ALPHA_OPS, CTC_BETA_OPS = 15, 21
 TRAIN_STEPS, TRAIN_WARMUP = 30, 5
+TRAIN_BATCH = 32
 # 3 train steps, kernel CTC vs plain CTC (the scan under autograd), from
 # one state and seed: {compute dtype: (step-1 grad norm, losses, params)},
 # relative; params as |p_kernel - p_plain| / |p_kernel - p_0| (global
@@ -2737,13 +2762,6 @@ def conformer_offline_phase(np, torch, dev, signals, lm_paths, kernels):
           "conformer host beam transcripts differ")
     del trh
 
-    try:
-        tr.transcribe_long(np.zeros(20 * 16000, np.float32))
-    except NotImplementedError as e:
-        print(f"conformer transcribe_long refused: {str(e)[:90]}...")
-    else:
-        check(False, "transcribe_long on a Conformer did not raise")
-
 
 def conformer_streaming_phase(np, torch, dev, lm_paths, kernels):
     """Phase 11b: the chunked streamer on conformer_ctc_vi_streaming
@@ -2903,7 +2921,7 @@ def train_batch(np, cfg):
     from vietasr_tpu_torch.audio import Batch, CharTokenizer
 
     sr = cfg.featurizer.sample_rate
-    bsz, n = 32, int(16.7 * sr)
+    bsz, n = TRAIN_BATCH, int(16.7 * sr)
     rng = np.random.RandomState(77)
     secs = rng.uniform(1.5, 16.7, size=bsz)
     secs[0] = 16.7
@@ -3018,6 +3036,7 @@ def train_phase(np, torch, dev, kernels):
     for k in kernels:
         if k["name"] in ("ctc_alpha", "ctc_beta"):
             k["launches"] = launches[k["name"]]
+    PHASE8["step_ms"] = dt * 1e3
     print(f"train step B={len(batch.signal_lens)} x 16.7 s bucket: "
           f"{dt * 1e3:.2f} ms = "
           f"{audio_s / dt:.1f} trained audio-s/s; peak memory "
@@ -3580,6 +3599,552 @@ def phase12(np, torch, dev, kernels):
     conformer_train_phase(np, torch, dev, kernels)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data and tensor parallelism, export, long-form on a Conformer
+
+PHASE13_WORLD = 2
+# the tensor-parallel Conformer forward vs the replicated one, fp32 (the
+# JAX package's own TP bar, tests/test_tp.py)
+TP_TOL = 2e-4
+# the 2-rank and the world-size-1 NCCL DP steps vs the one-process step
+# (3 steps, in bf16 and in fp32, cuDNN deterministic): (step 1's gradient
+# norm, the losses, the params and BN running stats), relative, as phase
+# 8's kernel-vs-plain bars (TRAIN_ROUTE_TOLS), since both differ only in
+# summation order (BN sums and gradients reduced per rank, the BN mean as
+# sum / n where one process takes torch.mean). Novograd scales each
+# tensor's gradient by its own norm, so step 1's gradient norm is what
+# holds the reduction's scale (a wrong scale is off by 1/2 or more). In
+# bf16 that norm is taken over a forward whose activations round
+# differently (phase 8's runs the same forward twice), so it gets the
+# losses' bf16 bar: 2 ranks read 1.734e-3 on the H100.
+DP_TOLS = {None: TRAIN_ROUTE_TOLS[None],
+           "bfloat16": (2.0 ** -8,) + TRAIN_ROUTE_TOLS["bfloat16"][1:]}
+DP_DTYPES = {"bf16": "bfloat16", "fp32": None}
+# the world-size-1 NCCL step timed against the plain step in turns:
+# rounds of steps each way, the median round
+DP_TIME_ROUNDS, DP_TIME_STEPS = 5, 4
+RANK_LIMIT_S = 420.0
+# phase 8's step ms, for phase 13's DP steps beside it
+PHASE8 = {}
+
+
+def _rank_entry(fn_name, rank, world, tmp):
+    """A spawned rank: runs globals()[fn_name](rank, world, tmp) and saves
+    its result (or its traceback) under tmp."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        out = globals()[fn_name](rank, world, tmp)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w",
+                  encoding="utf-8") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(torch, fn_name, tmp, world=PHASE13_WORLD):
+    """`world` spawned ranks of fn_name, joined within RANK_LIMIT_S (killed
+    past it); their results, or a raise with their tracebacks."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(fn_name, r, world, tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_LIMIT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    errs = []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                errs.append(f"rank {r}:\n{f.read()}")
+    check(not hung and not errs and not any(p.exitcode for p in procs),
+          f"{fn_name}: {len(hung)} rank(s) killed after {RANK_LIMIT_S} s, "
+          f"exit codes {[p.exitcode for p in procs]}\n" + "\n".join(errs))
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def dp_setup(np, torch, dev):
+    """Phase 13a's model, batch and step: QuartzNet12x1_vi at full width
+    (init seed 0), bf16, Novograd on phase 8's schedule, phase 8's batch of
+    32 x 16.7 s, dither and SpecAugment off (each rank would draw its own)."""
+    import dataclasses
+
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.models.quartznet import init_quartznet
+    from vietasr_tpu_torch.train import (TrainState, make_optimizer,
+                                         make_schedule)
+
+    cfg = load_config(CONFIG)
+    cfg = dataclasses.replace(cfg, featurizer=dataclasses.replace(
+        cfg.featurizer, dither=0.0))
+    batch = train_batch(np, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    variables = init_quartznet(gen, cfg.encoder, cfg.num_classes, device=dev)
+    schedule = make_schedule("CosineAnnealing", 0.02, TRAIN_STEPS,
+                             warmup_steps=TRAIN_WARMUP)
+    state = TrainState.create(variables, make_optimizer(
+        "novograd", schedule, weight_decay=0.001))
+    return cfg, batch, variables, state
+
+
+def dp_steps(torch, cfg, state, batch, dev, group, steps=3,
+             dtype="bfloat16"):
+    """`steps` train steps of `batch` (the kernels; compute dtype `dtype`,
+    None for fp32): (losses, gradient norms, ms a step by the host
+    clock)."""
+    from vietasr_tpu_torch.train.loop import batch_to_tensors, make_train_step
+
+    step = make_train_step(cfg, use_specaug=False,
+                           compute_dtype=dtype and getattr(torch, dtype),
+                           device=dev, group=group)
+    t = batch_to_tensors(batch, dev)
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, t, None)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    return losses, norms, (time.perf_counter() - t0) / steps * 1e3
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def dp_compare(torch, dev, name, got, ref, tol):
+    """A DP run against the one-process run of the same steps: got / ref
+    hold losses, norms, params and stats (ref's p0 and s0, the state
+    before the steps). Prints the differences beside `tol` (DP_TOLS);
+    returns a failure's message past them, else None."""
+    from vietasr_tpu_torch.models.quartznet import tree_leaves
+    from vietasr_tpu_torch.train.optim import global_norm
+
+    tol_gn, tol_loss, tol_param = tol
+
+    def rel(a, b, base):
+        with torch.no_grad():
+            num = global_norm([x.to(dev) - y for x, y in zip(a, b)])
+            den = global_norm([y - z for y, z in zip(b, base)])
+        return float(num / den)
+
+    d_gn = abs(got["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+    d_loss = max(abs(x - y) / abs(y) for x, y in zip(got["losses"],
+                                                     ref["losses"]))
+    d_param = rel(tree_leaves(got["params"]), tree_leaves(ref["params"]),
+                  ref["p0"])
+    d_stats = rel(tree_leaves(got["stats"]), tree_leaves(ref["stats"]),
+                  ref["s0"])
+    print(f"{name}: step 1's gradient norm {got['norms'][0]:.6g} vs one "
+          f"process {ref['norms'][0]:.6g} (relative {d_gn:.3e}, bar "
+          f"{tol_gn:.0e}); losses {got['losses']} vs {ref['losses']} (max "
+          f"relative {d_loss:.3e}, bar {tol_loss:.3e}); |p - p_one| / "
+          f"|p_one - p_0| {d_param:.3e}, BN running stats |s - s_one| / "
+          f"|s_one - s_0| {d_stats:.3e} (bar {tol_param})")
+    if not (d_gn <= tol_gn and d_loss <= tol_loss and d_param <= tol_param
+            and d_stats <= tol_param):
+        return (f"{name}: {d_gn} / {d_loss} / {d_param} / {d_stats} from "
+                "the one-process step")
+    return None
+
+
+def dp_run(np, torch, dev, group, batch_rows=None, dtype="bfloat16"):
+    """3 steps from dp_setup's state on its batch (or rows
+    `batch_rows` of it): losses, norms, step ms, params and stats after,
+    p0 / s0 before."""
+    from vietasr_tpu_torch.models.quartznet import map_tree, tree_leaves
+
+    cfg, batch, variables, state = dp_setup(np, torch, dev)
+    if batch_rows is not None:
+        batch = rows_of(batch, *batch_rows)
+    out = {"p0": [p.detach().clone() for p in state.param_list()],
+           "s0": [s.clone() for s in tree_leaves(state.batch_stats)]}
+    with cudnn_deterministic(torch):
+        out["losses"], out["norms"], out["step_ms"] = dp_steps(
+            torch, cfg, state, batch, dev, group, dtype=dtype)
+    out["params"] = map_tree(lambda p: p.detach().clone(), state.params)
+    out["stats"] = map_tree(lambda p: p.clone(), state.batch_stats)
+    return out, (cfg, batch, state)
+
+
+def rows_of(batch, lo, hi):
+    from vietasr_tpu_torch.audio import Batch
+
+    return Batch(*(getattr(batch, k)[lo:hi] for k in
+                   ("signal", "signal_lens", "tokens", "token_lens")))
+
+
+def ctc_and_frontend_launches():
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+
+    return {"log_mel_frontend": fused_log_mel_features.launches,
+            "ctc_alpha": fc.fused_ctc_alpha.launches,
+            "ctc_beta": fc.fused_ctc_beta.launches}
+
+
+def reset_ctc_and_frontend():
+    from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+
+    for f in (fused_log_mel_features, fc.fused_ctc_alpha, fc.fused_ctc_beta):
+        f.launches = 0
+
+
+def parallel_ranks(rank, world, tmp):
+    """Phase 13's ranks: 2 gloo processes sharing the one card (NCCL
+    refuses two ranks on one device). (a) 3 data-parallel train steps on
+    this rank's 16 of phase 8's 32 rows, the kernels this rank launched,
+    and those kernels against their plain versions on this rank's batch;
+    (b) the tensor-parallel conformer_ctc_vi forward (fp32, B = 8 x 16.7 s,
+    the heads and FFN columns split over the 2 ranks) against the
+    replicated forward."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vietasr_tpu_torch.config import load_config
+    from vietasr_tpu_torch.frontend.cuda_frontend import make_fused_featurizer
+    from vietasr_tpu_torch.models import model_init
+    from vietasr_tpu_torch.models.conformer import conformer_apply
+    from vietasr_tpu_torch.models.quartznet import map_tree
+    from vietasr_tpu_torch.parallel import initialize_multihost, make_mesh
+    from vietasr_tpu_torch.parallel.tp import shard_conformer_variables
+
+    dev = torch.device("cuda", 0)
+    initialize_multihost("file://" + os.path.join(tmp, "store"), world, rank,
+                         device=dev, backend="gloo")
+    out = {}
+    n = TRAIN_BATCH // world
+    for key, dtype in DP_DTYPES.items():
+        reset_ctc_and_frontend()
+        run, (cfg, local, state) = dp_run(
+            np, torch, dev, dist.group.WORLD, (rank * n, (rank + 1) * n),
+            dtype)
+        out[key] = {k: run[k] for k in ("losses", "norms", "step_ms")}
+        out[key].update(
+            launches=ctc_and_frontend_launches(),
+            params=map_tree(lambda p: p.cpu(), run["params"]),
+            stats=map_tree(lambda p: p.cpu(), run["stats"]))
+        if dtype:
+            path_kernel_check(torch, dev, cfg, state.variables, local,
+                              f"dp rank {rank} ({n} rows)",
+                              getattr(torch, dtype))
+
+    ccfg = load_config(CONFORMER_CONFIG)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = model_init(gen, ccfg, device=dev)
+    mesh = make_mesh(num_data=1, num_model=world)
+    shard = shard_conformer_variables(full, mesh)
+    featurize = make_fused_featurizer(ccfg.featurizer, device=dev)
+    rng = np.random.RandomState(31)
+    sig = torch.from_numpy((rng.randn(8, 267200) * 0.1).astype(np.float32)) \
+        .to(dev)
+    lens = torch.from_numpy(rng.randint(80000, 267201, size=8)
+                            .astype(np.int32)).to(dev)
+
+    @torch.no_grad()
+    def tp_forward():
+        feats, flens = featurize(sig, lens)
+        return conformer_apply(shard, feats, flens, cfg=ccfg.conformer,
+                               tp_group=mesh.get_group("model"))
+
+    tp_forward()
+    torch.cuda.synchronize()
+    reset_ctc_and_frontend()
+    t0 = time.perf_counter()
+    lp, enc_lens = tp_forward()
+    torch.cuda.synchronize()
+    out["tp_ms"] = (time.perf_counter() - t0) * 1e3
+    out["tp_launches"] = ctc_and_frontend_launches()
+    with torch.no_grad():
+        feats, flens = featurize(sig, lens)
+        want, want_lens = conformer_apply(full, feats, flens,
+                                          cfg=ccfg.conformer)
+    valid = (torch.arange(lp.shape[1], device=dev)[None]
+             < enc_lens[:, None])[..., None]
+    out["tp_err"] = float(((lp - want).abs() * valid).max())
+    out["tp_lens_equal"] = bool(torch.equal(enc_lens, want_lens))
+    out["tp_shape"] = tuple(lp.shape)
+    out["tp_finite"] = bool(torch.isfinite(lp).all())
+    return out
+
+
+def dp_phase(np, torch, dev, kernels, tmp):
+    """Phase 13a/b: the 2 gloo ranks (parallel_ranks) against the
+    one-process step, then a world-size-1 NCCL group, each in bf16 and in
+    fp32."""
+    import torch.distributed as dist
+
+    from vietasr_tpu_torch.models.quartznet import tree_leaves
+
+    refs = {key: dp_run(np, torch, dev, None, dtype=dtype)[0]
+            for key, dtype in DP_DTYPES.items()}
+    failed = []
+    ranks = run_ranks(torch, "parallel_ranks", tmp)
+    a, b = ranks
+    for key, dtype in DP_DTYPES.items():
+        same = all(torch.equal(x, y) for part in ("params", "stats")
+                   for x, y in zip(tree_leaves(a[key][part]),
+                                   tree_leaves(b[key][part])))
+        half = TRAIN_BATCH // 2
+        print(f"dp {key}: 2 gloo ranks on one card, QuartzNet12x1_vi, 3 "
+              f"steps of {half} + {half} of phase 8's {TRAIN_BATCH} rows: "
+              f"the ranks' params and BN stats equal bit for bit: {same}; "
+              f"launches per rank {a[key]['launches']}, "
+              f"{b[key]['launches']}; ms a step on rank 0 (3 steps, the "
+              f"first warming up) {a[key]['step_ms']:.2f}: gloo stages "
+              f"every all-reduce through the host, not a scaling number")
+        check(same, f"dp {key}: the ranks' parameters differ")
+        failed.append(dp_compare(torch, dev, f"dp {key} 2 ranks", a[key],
+                                 refs[key], DP_TOLS[dtype]))
+        for r in ranks:
+            check(r[key]["launches"] == {"log_mel_frontend": 3,
+                                         "ctc_alpha": 3, "ctc_beta": 3},
+                  f"dp {key}: a rank launched {r[key]['launches']} in 3 "
+                  "steps")
+    add_path_launches(kernels, "dp_train", a["bf16"]["launches"])
+
+    print(f"tp: conformer_ctc_vi fp32 forward over 2 gloo ranks, B=8 x "
+          f"16.7 s -> {a['tp_shape']}: max|d log p| vs the replicated "
+          f"forward {a['tp_err']:.3e}, {b['tp_err']:.3e} (tol {TP_TOL}); "
+          f"lengths equal {a['tp_lens_equal']}; {a['tp_ms']:.2f} ms (gloo, "
+          f"host-staged); launches {a['tp_launches']}")
+    for r in ranks:
+        check(r["tp_finite"] and r["tp_lens_equal"]
+              and r["tp_err"] <= TP_TOL, f"tp: rank result {r['tp_err']}")
+        check(r["tp_launches"] == {"log_mel_frontend": 1, "ctc_alpha": 0,
+                                   "ctc_beta": 0},
+              f"tp: launches {r['tp_launches']}")
+    add_path_launches(kernels, "tp_forward", a["tp_launches"])
+
+    # a world-size-1 NCCL group: the same steps through the collectives
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "nccl1"), world_size=1, rank=0)
+    try:
+        for key, dtype in DP_DTYPES.items():
+            reset_ctc_and_frontend()
+            got, (cfg, batch, state) = dp_run(np, torch, dev,
+                                              dist.group.WORLD, dtype=dtype)
+            launches = ctc_and_frontend_launches()
+            check(launches == {"log_mel_frontend": 3, "ctc_alpha": 3,
+                               "ctc_beta": 3},
+                  f"dp nccl {key}: launches {launches}")
+            failed.append(dp_compare(torch, dev,
+                                     f"dp {key} world-size-1 NCCL", got,
+                                     refs[key], DP_TOLS[dtype]))
+            if dtype == "bfloat16":
+                add_path_launches(kernels, "dp_train_nccl1", launches)
+                times = {"group": [], "none": []}
+                for _ in range(DP_TIME_ROUNDS):
+                    for k, g in (("group", dist.group.WORLD),
+                                 ("none", None)):
+                        times[k].append(dp_steps(torch, cfg, state, batch,
+                                                 dev, g, DP_TIME_STEPS)[2])
+    finally:
+        dist.destroy_process_group()
+    with_ms, without_ms = (float(np.median(times[k]))
+                           for k in ("group", "none"))
+    print(f"dp world-size-1 NCCL, bf16: ms a step with the group "
+          f"{with_ms:.2f}, without {without_ms:.2f} "
+          f"({100 * (with_ms / without_ms - 1):+.1f} %; median of "
+          f"{DP_TIME_ROUNDS} rounds of {DP_TIME_STEPS} steps each way, in "
+          f"turns: {times}), phase 8 "
+          f"{PHASE8.get('step_ms', float('nan')):.2f}; the gradient "
+          f"all-reduce's own time is not measurable on one rank (NCCL "
+          f"moves nothing)")
+    failed = [f for f in failed if f]
+    check(not failed, "; ".join(failed))
+
+
+def interleaved_ms(torch, fns: dict, rounds: int = 6, reps: int = 10):
+    """Median host ms per call of each fn, timed in turns (a round times
+    every fn over `reps` calls, synchronized at both ends)."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) / reps * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def export_phase(np, torch, dev, kernels, tmp):
+    """Phase 13c: export_transcriber of the full-width QuartzNet12x1_vi
+    Transcriber (the anchor, bf16) at B = 1 and 8 x the 16.7 s bucket,
+    loaded back: outputs bit for bit with the eager forward, 1 frontend and
+    13 repeat launches a forward, ms per forward beside the eager path's,
+    and the eager forward through the custom ops vs the direct calls."""
+    from vietasr_tpu_torch.export import export_transcriber, load_exported
+    from vietasr_tpu_torch.ops import custom_ops
+    from vietasr_tpu_torch.pipeline import Transcriber
+
+    tr = Transcriber(CONFIG, checkpoint=ANCHOR)
+    bucket = tr.buckets[-1]
+    t0 = time.perf_counter()
+    manifest = export_transcriber(tr, os.path.join(tmp, "export"),
+                                  batch_sizes=(1, 8), buckets=[bucket])
+    print(f"export: {[f['file'] for f in manifest['functions']]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(13)
+    for f in manifest["functions"]:
+        bsz = f["batch"]
+        fn = load_exported(os.path.join(tmp, "export", f["file"]))
+        sig = torch.from_numpy((rng.randn(bsz, bucket) * 0.1)
+                               .astype(np.float32)).to(dev)
+        lens = torch.from_numpy(np.linspace(bucket, bucket // 3, bsz)
+                                .astype(np.int32)).to(dev)
+        fn(sig, lens)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = fn(sig, lens)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = tr._forward(sig, lens)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"export B={bsz}: the loaded program's outputs differ "
+              "from the eager forward")
+        check(launches == {"log_mel_frontend": 1, "repeat_block": 13,
+                           "beam_search": 0},
+              f"export B={bsz}: launches {launches}")
+
+        def eager_ops():
+            with custom_ops.through_ops():
+                tr._forward(sig, lens)
+
+        ms = interleaved_ms(torch, {
+            "loaded": lambda: fn(sig, lens),
+            "eager": lambda: tr._forward(sig, lens),
+            "eager_ops": eager_ops})
+        slower = ms["eager_ops"] / ms["eager"] - 1
+        print(f"export B={bsz} x 16.7 s: loaded program equal bit for bit "
+              f"with the eager forward: {same}; launches {launches}; ms a "
+              f"forward (median of 6 rounds of 10): loaded "
+              f"{ms['loaded']:.3f}, eager {ms['eager']:.3f}, eager through "
+              f"the custom ops {ms['eager_ops']:.3f} ({100 * slower:+.1f} %)")
+        if bsz == 8:
+            add_path_launches(kernels, "export_forward", launches)
+
+
+def conformer_longform_phase(np, torch, dev, kernels, tmp):
+    """Phase 13d: transcribe_long over 45-300 s on conformer_ctc_vi (full
+    width, seeded init, bf16), greedy and device_beam (W = 100, the word
+    3-gram): stitched frame counts equal the offline forward's grid, 1
+    frontend launch a call (and 1 beam launch with device_beam), the beam
+    kernel against the plain search on the 45 s posterior."""
+    from vietasr_tpu_torch import streaming as lf
+    from vietasr_tpu_torch.frontend.features import feature_seq_len
+    from vietasr_tpu_torch.ops.device_beam import device_beam_search
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    lm_paths = train_word_lms(tmp)
+    sigs = longform_signals(np)[0]
+    tr = Transcriber(CONFORMER_CONFIG)
+    chunk, overlap, grid = lf._longform_grid(tr, 15.0, 2.0)
+    check(grid == tr.cfg.featurizer.hop_length * 4,
+          f"conformer long-form grid {grid}")
+    preps = [lf._prep_longform(tr, s, None, chunk, overlap) for s in sigs]
+    counts = []
+    for s, prep in zip(sigs, preps):
+        lp, total = lf._run_fused(tr, prep, chunk, overlap, True)
+        n = feature_seq_len(torch.tensor([len(s)]), tr.cfg.featurizer
+                            .hop_length)
+        for _ in range(2):                       # the two k3 s2 stages
+            n = torch.div(n - 1, 2, rounding_mode="floor") + 1
+        counts.append((int(total), int(n[0])))
+        check(bool(torch.isfinite(lp[:int(total)]).all()),
+              "conformer long-form: non-finite log-probs")
+    print(f"conformer long-form: stitched frames vs the offline grid "
+          f"{counts} for {[len(s) // 16000 for s in sigs]} s")
+    check(all(a == b for a, b in counts), f"conformer long-form frames "
+          f"{counts}")
+    tr.transcribe_long_batch(sigs)                     # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.transcribe_long_batch(sigs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == {"log_mel_frontend": len(sigs), "repeat_block": 0,
+                       "beam_search": 0},
+          f"conformer long-form launches {launches}")
+    add_path_launches(kernels, "conformer_longform", launches)
+    rows = device_profile(lambda: tr.transcribe_long_batch(sigs), reps=1)
+    busy = sum(r[0] for r in rows)
+    audio_s = sum(len(s) for s in sigs) / 16000
+    print(f"conformer long-form greedy: {audio_s:.0f} audio-s in "
+          f"{dt * 1e3:.2f} ms = {audio_s / dt:.1f} audio-s/s; device busy "
+          f"{busy:.4f} ms ({100 * (1 - busy / (dt * 1e3)):.1f} % idle); "
+          f"launches {launches}")
+
+    bt = Transcriber(CONFORMER_CONFIG, options=TranscriberOptions(
+        decoder="device_beam", lm_path=lm_paths[3]))
+    bt.transcribe_long(sigs[1])                        # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    bt.transcribe_long(sigs[1])
+    torch.cuda.synchronize()
+    dt_b = time.perf_counter() - t0
+    b_launches = read_launches()
+    print(f"conformer long-form device beam (W={bt.opts.beam_width}, word "
+          f"3-gram), 90 s: {dt_b * 1e3:.2f} ms = {90 / dt_b:.1f} "
+          f"audio-s/s, launches {b_launches}")
+    check(b_launches == {"log_mel_frontend": 1, "repeat_block": 0,
+                         "beam_search": 1},
+          f"conformer long-form device beam launches {b_launches}")
+    add_path_launches(kernels, "conformer_longform", {
+        k: launches[k] + b_launches[k] for k in launches})
+    lp, total = lf._run_fused(bt, preps[0], chunk, overlap, True)
+    labels = bt.cfg.labels
+    kw = dict(blank=len(labels), beam_width=bt.opts.beam_width,
+              word_lm=bt._device_word_lm, wlm_probes=bt._device_wlm_probes,
+              space=labels.index(" "), return_raw=True, **BEAM_KW)
+    lens = total.reshape(1).to(torch.int32)
+    got = fused_beam_search(lp[None].float().contiguous(), lens, **kw)
+    want = device_beam_search(lp[None].float().contiguous(), lens, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"conformer long-form beam kernel B=1 T={int(total)} (45 s) vs "
+          f"the plain search: raw result equal bit for bit: {same}")
+    check(same, "conformer long-form beam kernel differs from the plain "
+          "search")
+
+
+def phase13(np, torch, dev, kernels):
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_phase(np, torch, dev, kernels, tmp)
+        export_phase(np, torch, dev, kernels, tmp)
+        conformer_longform_phase(np, torch, dev, kernels, tmp)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3640,6 +4205,8 @@ def main() -> int:
     print(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
     phase12(np, torch, dev, kernels)
     print(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
+    phase13(np, torch, dev, kernels)
+    print(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -192,11 +192,17 @@ def test_arguments_and_defaults_match_jax_cli(monkeypatch):
 
 
 def test_multiprocess_flags_raise(tmp_path):
+    """The multi-process flags start a process group (two processes train
+    in tests/test_torch_parallel.py); more than one process without a
+    coordinator address or a process id raises before any connection."""
     cfg = _config(tmp_path)
     train = _manifest(tmp_path, "train", [0.6])
-    for flags in (["--coordinator-address", "localhost:1234"],
-                  ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="A.9"):
+    for flags in (["--coordinator-address", "localhost:1234",
+                   "--num-processes", "2"],
+                  ["--num-processes", "2"],
+                  ["--num-processes", "2", "--process-id", "0"]):
+        with pytest.raises(ValueError, match="coordinator_address and "
+                                             "process_id"):
             cli.main(["--device", "cpu", "train", "--config", cfg,
                       "--train-manifest", train,
                       "--work-dir", str(tmp_path / "w"), *flags])

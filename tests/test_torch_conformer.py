@@ -22,8 +22,8 @@ CPU:
   in bf16 (JAX's Transcriber jits) frame argmax >= 0.98 over 5 signals
   and |d log p| <= 0.25;
 - the refusals: calibrate_int8, training, remat, NeMo .pt weights and
-  the .pt converters, make_loss_fn and every long-form entry point on a
-  Conformer config.
+  the .pt converters, make_loss_fn on a Conformer config; every
+  long-form entry point, which takes a Conformer, and its frame count.
 """
 
 import dataclasses
@@ -453,17 +453,18 @@ def test_conformer_refusals(narrow, tmp_path):
         encoder_from_state_dict({}, cfg.encoder)
     with pytest.raises(ValueError, match="QuartzNet"):
         state_dict_from_variables(variables, cfg.encoder)
-    long = np.zeros(20 * 16000, np.float32)
-    for call in (lambda: tr.transcribe_long(long),
-                 lambda: tr.transcribe_long_batch([long]),
-                 lambda: long_form_log_probs(tr, long, chunk_seconds=15.0,
-                                             overlap_seconds=2.0)):
-        with pytest.raises(NotImplementedError, match="encoder stride"):
-            call()
+    # long-form runs, stitched on the 4x subsampling
+    # (test_torch_streaming_conformer.py holds it to JAX)
+    long = (np.random.RandomState(3).randn(20 * 16000) * 0.1) \
+        .astype(np.float32)
+    text = tr.transcribe_long(long)
+    assert tr.transcribe_long_batch([long]) == [text]
+    lp, total = long_form_log_probs(tr, long, chunk_seconds=15.0,
+                                    overlap_seconds=2.0)
+    assert total == lp.shape[0] == int(tr.log_probs(long)[1][0]) == 500
     wav = str(tmp_path / "long.wav")
     wavfile.write(wav, 16000, (long * 32767).astype(np.int16))
-    with pytest.raises(NotImplementedError, match="encoder stride"):
-        tr.transcribe_file(wav)
+    assert isinstance(tr.transcribe_file(wav), str)
     short = str(tmp_path / "short.wav")
     wavfile.write(short, 16000, (signals[2] * 32767).astype(np.int16))
     assert isinstance(tr.transcribe_file(short), str)
@@ -472,7 +473,7 @@ def test_conformer_refusals(narrow, tmp_path):
 def test_upload_serves_a_conformer(narrow):
     """AsrServer's /upload over a Conformer Transcriber: up to the last
     bucket the transcript equals `transcribe` of the samples it reads;
-    past it the long-form refusal comes back as an error."""
+    past it, `transcribe_long` of them."""
     import json
     import urllib.error
     import urllib.request
@@ -493,9 +494,11 @@ def test_upload_serves_a_conformer(narrow):
                 url, data=data, method="POST")) as r:
             out = json.load(r)
         assert out["transcript"] == tr.transcribe(read_wav(data)[0])
-        long = wav_bytes(np.zeros(17 * 16000, np.float32))
-        with pytest.raises(urllib.error.HTTPError):
-            urllib.request.urlopen(urllib.request.Request(
-                url, data=long, method="POST"))
+        long = wav_bytes((np.random.RandomState(5).randn(17 * 16000)
+                          * 0.1).astype(np.float32))
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=long, method="POST")) as r:
+            out = json.load(r)
+        assert out["transcript"] == tr.transcribe_long(read_wav(long)[0])
     finally:
         srv.stop()

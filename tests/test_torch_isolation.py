@@ -61,6 +61,44 @@ def test_importing_every_module_pulls_in_no_jax():
                      "train.freeze", "audio.dataset", "audio.augment",
                      "audio.manifest", "audio.cleaners", "cli"):
         assert f"vietasr_tpu_torch.{training}" in names
+    for parallel in ("parallel", "parallel.mesh", "parallel.distributed",
+                     "parallel.tp", "parallel.collectives", "export",
+                     "ops.custom_ops"):
+        assert f"vietasr_tpu_torch.{parallel}" in names
+
+
+PARALLEL_AND_EXPORT = r"""
+import sys
+import torch.distributed as dist
+import vietasr_tpu_torch.parallel as parallel
+import vietasr_tpu_torch.export
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "vietasr_tpu"))
+assert not bad, bad
+topo = parallel.initialize_multihost()
+assert topo == {"process_index": 0, "process_count": 1, "local_devices": 1,
+                "global_devices": 1}, topo
+topo = parallel.initialize_multihost("localhost:1", 1, 0)
+assert topo["process_count"] == 1
+assert not dist.is_initialized()
+parallel.sync_all_processes(True)
+assert parallel.broadcast_string("x") == "x"
+import torch
+assert hasattr(torch.ops.vietasr, "repeat_block")
+print("ok")
+"""
+
+
+def test_parallel_and_export_alone_and_one_process_is_a_no_op():
+    """Importing parallel/ and export.py alone pulls in no JAX module and
+    registers the kernels' custom ops; initialize_multihost() for one
+    process starts no process group (and, on a machine without a GPU,
+    does not ask for one)."""
+    out = subprocess.run([sys.executable, "-c", PARALLEL_AND_EXPORT],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_no_forbidden_import_in_sources():

@@ -20,7 +20,10 @@ against the port's own offline forward, on the CPU in fp32:
 - beam_host and the device beam (its plain search on the CPU) over a
   Conformer pool equal the same decoder on the single stream's log-probs;
 - the JAX package's long-form fault on a Conformer: its stitched output
-  has 900 frames where its own offline forward has 1,000.
+  has 900 frames where its own offline forward has 1,000; the port's
+  long-form stitches on the 4x subsampling (1,000 frames) and equals
+  JAX's Transcriber run on each of the same spans and stitched at stride
+  4 here (1e-4), on the grouped and the fused path.
 """
 
 import dataclasses
@@ -355,8 +358,8 @@ def test_jax_longform_reads_the_wrong_stride(tmp_path):
     takes the encoder stride from the Jasper blocks (1 for a Conformer,
     whose subsampling is 4x), so on a 1-block d = 32 stack Conformer over
     40 s with 15 s chunks and 1 s overlap it stitches 900 frames where its
-    own offline forward has 1,000. The port refuses long-form there
-    (test_torch_conformer.py::test_conformer_refusals)."""
+    own offline forward has 1,000. The port stitches 1,000
+    (test_conformer_longform_stitches_on_the_subsampling)."""
     yml = write_narrow_yaml(tmp_path / "c.yaml", num_blocks=1,
                             subsampling_mode="stack")
     jtr = JaxTranscriber(yml)
@@ -371,3 +374,54 @@ def test_jax_longform_reads_the_wrong_stride(tmp_path):
     feats, flens = jax_featurizer(jtr.cfg.featurizer)(
         jnp.asarray(sig[None]), jnp.asarray([len(sig)]))
     assert int(np.asarray(flens)[0]) == 4000
+
+
+@pytest.mark.parametrize("mode", ["conv2d", "stack"])
+def test_conformer_longform_stitches_on_the_subsampling(tmp_path, mode):
+    """40 s on a 1-block Conformer in 15 s spans with 1 s overlap: the
+    port's stitched posterior has the offline forward's 1,000 frames, and
+    equals JAX's Transcriber.log_probs run on each of the same spans (the
+    rows the grouped path builds) and stitched here at stride 4; the fused
+    program's posterior equals it too."""
+    from vietasr_tpu.pipeline import TranscriberOptions as JaxOptions
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+    from vietasr_tpu_torch.streaming import (_longform_grid, _prep_longform,
+                                             _run_fused, chunk_spans,
+                                             frame_stride,
+                                             long_form_log_probs)
+
+    yml = write_narrow_yaml(tmp_path / "c.yaml", num_blocks=1,
+                            subsampling_mode=mode)
+    jtr = JaxTranscriber(yml, options=JaxOptions(compute_dtype=None))
+    variables = jax.tree_util.tree_map(np.asarray, jtr.variables)
+    tr = Transcriber(yml, variables=variables, device="cpu",
+                     options=TranscriberOptions(compute_dtype=None))
+    assert frame_stride(tr.cfg) == 4
+    sig = (np.random.RandomState(41).randn(40 * 16000) * 0.1) \
+        .astype(np.float32)
+    lp, total = long_form_log_probs(tr, sig, chunk_seconds=15.0,
+                                    overlap_seconds=1.0)
+    _, offline_lens = tr.log_probs(sig)
+    assert total == int(offline_lens[0]) == 1000
+
+    chunk, overlap, grid = _longform_grid(tr, 15.0, 1.0)
+    assert grid == 160 * 4
+    pieces = []
+    for start, stop, keep_from, keep_to in chunk_spans(len(sig), chunk,
+                                                       overlap):
+        row = np.zeros((1, chunk), np.float32)
+        row[0, : stop - start] = sig[start:stop]
+        jlp, jlens = jtr.log_probs(row, lengths=np.array([stop - start]))
+        f_from = math.ceil(keep_from / 160 / 4)
+        f_to = min(int(np.asarray(jlens)[0]), math.ceil(keep_to / 160 / 4))
+        pieces.append(np.asarray(jlp)[0, f_from:f_to])
+    want = np.concatenate(pieces)
+    assert want.shape[0] == 1000
+    np.testing.assert_allclose(lp, want, atol=JAX_TOL, rtol=JAX_TOL)
+
+    prep = _prep_longform(tr, sig, None, chunk, overlap)
+    fused, fused_total = _run_fused(tr, prep, chunk, overlap, True)
+    assert int(fused_total) == 1000
+    np.testing.assert_allclose(fused[:1000].numpy(), want, atol=JAX_TOL,
+                               rtol=JAX_TOL)
+    assert isinstance(tr.transcribe_long(sig), str)

@@ -11,9 +11,16 @@ with ctypes. Each kernel's wrapper launches it for CUDA tensors and takes
 its plain PyTorch version only for CPU tensors.
 
 Entry points run on the GPU (`device=None` means "cuda") and raise when
-there is none; tests pass `device="cpu"`.
+there is none; tests pass `device="cpu"`. Importing the package
+registers the kernels' custom ops (`vietasr::...`, ops/custom_ops.py)
+that an exported program calls.
 """
 
 from vietasr_tpu_torch.version import __version__
+
+# the kernel wrappers' custom ops (ops/custom_ops.py), which an exported
+# program (export.py) calls
+from vietasr_tpu_torch.frontend import cuda_frontend as _cuda_frontend  # noqa
+from vietasr_tpu_torch.ops import fused_beam as _fused_beam  # noqa
 
 __all__ = ["__version__"]

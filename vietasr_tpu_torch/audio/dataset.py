@@ -208,9 +208,10 @@ class BucketBatcher:
         self.epoch += 1
 
     def _make_batch(self, indices: List[int], bucket_idx: int,
-                    pad_batch: bool = False) -> Batch:
+                    pad_batch: bool = False, rows: Optional[int] = None
+                    ) -> Batch:
         bucket_len = self.buckets[bucket_idx]
-        b = self.batch_size if pad_batch else len(indices)
+        b = rows or (self.batch_size if pad_batch else len(indices))
         signal = np.zeros((b, bucket_len), np.float32)
         signal_lens = np.zeros((b,), np.int32)
         tokens = np.zeros((b, self.max_token_len), np.int32)
@@ -225,6 +226,33 @@ class BucketBatcher:
             token_lens[row] = l
         # rows beyond len(indices) stay zero-length -> masked out downstream
         return Batch(signal, signal_lens, tokens, token_lens)
+
+
+class RankBatcher(BucketBatcher):
+    """One rank's share of a data-parallel run's global batches.
+
+    Every rank plans the same epoch: BucketBatcher's shuffle, bucketing
+    and padding at the global batch size `batch_size` x `num_ranks`. Rank
+    r reads (and augments) only rows [r * batch_size, (r + 1) *
+    batch_size) of each global batch, zero-length rows past the global
+    batch's end included. So every rank yields the same number of batches
+    in the same buckets, and the union of the ranks' rows at step i is the
+    one-process BucketBatcher's batch i at the global batch size. (The
+    `shard_id` / `num_shards` of BucketBatcher shard the indices before
+    bucketing, so its shards' batch counts and buckets differ.)"""
+
+    def __init__(self, dataset: AudioTextDataset, batch_size: int, *,
+                 rank: int, num_ranks: int, **kwargs):
+        super().__init__(dataset, batch_size * num_ranks, **kwargs)
+        self.local_batch = batch_size
+        self.rank = rank
+
+    def _make_batch(self, indices: List[int], bucket_idx: int,
+                    pad_batch: bool = False, rows: Optional[int] = None
+                    ) -> Batch:
+        lo = self.rank * self.local_batch
+        return super()._make_batch(indices[lo: lo + self.local_batch],
+                                   bucket_idx, rows=self.local_batch)
 
 
 def batch_sample_stats(batcher: BucketBatcher) -> dict:

@@ -7,9 +7,19 @@ of vietasr_tpu/cli.py, with its arguments and defaults).
 the default raises; `--device cpu` runs everything on the CPU (the tests
 do). `--checkpoint-dir` reads the port's `state-STEP-<n>.pt` and the JAX
 package's `state-STEP-<n>.msgpack` checkpoints (the newest). `train`
-resumes from the newest port checkpoint in `--work-dir`. Multi-process
-training (`--coordinator-address`, `--num-processes`, `--process-id`)
-waits for the port of parallel/ and raises.
+resumes from the newest checkpoint in `--work-dir`, the port's or the JAX
+package's (its whole TrainState).
+
+Multi-process training: start one process per GPU, each with
+`--coordinator-address HOST:PORT --num-processes N --process-id I`
+(a `file://` address also works). Process I takes `cuda:<I % GPUs>` and
+joins an NCCL group (gloo with `--device cpu`); the processes train
+data-parallel on the global batch of N x `--batch-size` rows
+(train/loop.py), each reading and augmenting only its own rows
+(audio/dataset.py RankBatcher; augmentor seed `seed + 1000 x I`, as in
+JAX). Only process 0 writes checkpoints; every process resumes from the
+same `--work-dir`. The eval set is sharded over the processes and its
+counts summed.
 """
 
 from __future__ import annotations
@@ -133,37 +143,47 @@ def build_augmentor(spec: str, seed: int = 0):
     return AudioAugmentor(perturbations=perturbations, rng=rng), margin
 
 
-def _refuse_multiprocess(args) -> None:
-    given = [flag for flag, v in (
-        ("--coordinator-address", args.coordinator_address),
-        ("--num-processes", args.num_processes),
-        ("--process-id", args.process_id)) if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: multi-process training waits for the port "
-            "of parallel/ onto torch.distributed (ROADMAP A.9)")
-
-
 def train_batcher(cfg, manifest: str, batch_size: int, *, augment: str = "",
-                  seed: int = 0):
+                  seed: int = 0, rank: int = 0, num_ranks: int = 1):
     """`train`'s BucketBatcher over `manifest`: the config's duration
     filters, silence trim and bucket bound, the `--augment` recipe (a fresh
     perturbation per read, so no two epochs see the same waveform) and its
-    bucket margin, shuffled from `seed`."""
+    bucket margin, shuffled from `seed`. Across `num_ranks` processes,
+    rank `rank`'s RankBatcher: its rows of the same global batches of
+    batch_size x num_ranks rows, augmented from seed + 1000 x rank."""
     from vietasr_tpu_torch.audio import (AudioTextDataset, BucketBatcher,
                                          CharTokenizer, read_manifest)
+    from vietasr_tpu_torch.audio.dataset import RankBatcher
 
     entries = read_manifest(manifest, min_duration=cfg.data.min_duration,
                             max_duration=cfg.data.max_duration)
     augmentor, bucket_margin = None, 1.0
     if augment:
-        augmentor, bucket_margin = build_augmentor(augment, seed=seed)
+        augmentor, bucket_margin = build_augmentor(augment,
+                                                   seed=seed + 1000 * rank)
     ds = AudioTextDataset(entries, CharTokenizer(cfg.labels),
                           sample_rate=cfg.featurizer.sample_rate,
                           trim=cfg.data.trim_silence, augmentor=augmentor)
-    return BucketBatcher(ds, batch_size,
-                         max_duration=cfg.data.max_duration or 16.7,
-                         seed=seed, bucket_margin=bucket_margin)
+    kw = dict(max_duration=cfg.data.max_duration or 16.7, seed=seed,
+              bucket_margin=bucket_margin)
+    if num_ranks > 1:
+        return RankBatcher(ds, batch_size, rank=rank, num_ranks=num_ranks,
+                           **kw)
+    return BucketBatcher(ds, batch_size, **kw)
+
+
+def _train_device(args):
+    """--device for this process: cuda:<process_id % GPUs> in a
+    multi-process run on the GPU."""
+    import torch
+
+    from vietasr_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and (args.num_processes or 1) > 1:
+        device = torch.device(
+            "cuda", (args.process_id or 0) % torch.cuda.device_count())
+    return device
 
 
 def cmd_train(args) -> int:
@@ -173,17 +193,24 @@ def cmd_train(args) -> int:
                                          CharTokenizer, read_manifest)
     from vietasr_tpu_torch.config import load_config
     from vietasr_tpu_torch.models import model_init
+    from vietasr_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                        is_main_process)
     from vietasr_tpu_torch.train import (CheckpointManager, TrainState,
                                          Trainer, make_optimizer,
                                          make_schedule)
-    from vietasr_tpu_torch.utils.device import resolve_device
 
-    _refuse_multiprocess(args)
-    device = resolve_device(args.device)
+    device = _train_device(args)
+    topo = initialize_multihost(
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id,
+        device=device)
+    rank, world = topo["process_index"], topo["process_count"]
+    group = torch.distributed.group.WORLD if world > 1 else None
     cfg = load_config(args.config)
     tok = CharTokenizer(cfg.labels)
     batcher = train_batcher(cfg, args.train_manifest, args.batch_size,
-                            augment=args.augment, seed=args.seed)
+                            augment=args.augment, seed=args.seed, rank=rank,
+                            num_ranks=world)
     steps_per_epoch = max(batcher.steps_per_epoch(), 1)
     total = args.num_epochs * steps_per_epoch
     schedule = make_schedule(args.lr_policy, args.lr, total,
@@ -203,18 +230,21 @@ def cmd_train(args) -> int:
     if args.eval_manifest:
         eval_ds = AudioTextDataset(read_manifest(args.eval_manifest), tok,
                                    sample_rate=cfg.featurizer.sample_rate)
-        eval_batcher = BucketBatcher(eval_ds, args.batch_size, shuffle=False)
+        eval_batcher = BucketBatcher(eval_ds, args.batch_size, shuffle=False,
+                                     shard_id=rank, num_shards=world)
 
     trainer = Trainer(cfg=cfg, grad_accum=args.grad_accum,
                       lr_schedule=schedule, log_every=args.log_every,
                       eval_every=args.eval_every, checkpoint_manager=cm,
                       checkpoint_every=args.checkpoint_every, seed=args.seed,
-                      compute_dtype=args.compute_dtype, device=device)
+                      compute_dtype=args.compute_dtype, device=device,
+                      process_group=group)
     trainer.callbacks.append(
         lambda tr, m: print(json.dumps(m, ensure_ascii=False)))
     state = trainer.fit(state, batcher, num_epochs=args.num_epochs,
                         eval_batcher=eval_batcher)
-    cm.save(state)
+    if is_main_process():
+        cm.save(state)
     print(f"done at step {int(state.step)}")
     return 0
 

@@ -27,14 +27,18 @@ class: O(1) log-mel error on spectral-floor bins.
 `fused_log_mel_features` launches the kernel for CUDA tensors and takes
 the plain version only for CPU tensors; `fused_log_mel_features_plain`
 is the plain version on any device (the reference the kernel is held
-to).
+to). The same route, for both precisions, is the custom op
+`vietasr::log_mel_tiles` (ops/custom_ops.py), which the wrapper calls
+while an export traces.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import NamedTuple, Optional
+import json
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +51,7 @@ from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                  log_guard,
                                                  mask_and_pad_time,
                                                  preemphasize_and_pad)
+from vietasr_tpu_torch.ops import custom_ops
 from vietasr_tpu_torch.utils.device import resolve_device
 from vietasr_tpu_torch.utils.typing import assert_audio_batch
 
@@ -629,6 +634,64 @@ def _plain_tiles(cfg, device, dft_matrix, mel_matrix, precision):
     return functools.partial(plain, dft=dft_matrix, mel=mel_matrix, cfg=cfg)
 
 
+@functools.lru_cache(maxsize=16)
+def _cfg_from_json(text: str) -> FeaturizerConfig:
+    return FeaturizerConfig(**json.loads(text))
+
+
+def _tiles_route(xp: torch.Tensor, seq_len: torch.Tensor,
+                 tables: List[torch.Tensor], meta: List[int], cfg_json: str,
+                 precision: str):
+    """The log-mel tiles of `precision` from flat tables: on the CPU the
+    plain version over [dft, mel]; on CUDA the FFT kernel over fft_tables'
+    [window, twiddle, mel_index, mel_weight] and meta [taps, win_lo,
+    win_hi], or the bf16 kernel over fast_tables' [dft, mel] and meta
+    [k_lo, k_rows, then each mel band's (first step, steps)]."""
+    cfg = _cfg_from_json(cfg_json)
+    if xp.device.type == "cpu":
+        return _plain_tiles(cfg, xp.device, tables[0], tables[1],
+                            precision)(xp, seq_len)
+    if precision == "highest":
+        return log_mel_tiles_cuda(xp, seq_len, FFTTables(
+            *tables, taps=meta[0], win_lo=meta[1], win_hi=meta[2]), cfg=cfg)
+    bands = tuple(zip(meta[2::2], meta[3::2]))
+    return log_mel_tiles_fast_cuda(xp, seq_len, FastTables(
+        tables[0], tables[1], mel_bands=bands, k_lo=meta[0],
+        k_rows=meta[1]), cfg=cfg)
+
+
+_tiles_op = torch.library.custom_op(
+    "vietasr::log_mel_tiles", _tiles_route, mutates_args=(),
+    schema="(Tensor xp, Tensor seq_len, Tensor[] tables, int[] meta, "
+           "str cfg_json, str precision) -> (Tensor, Tensor)")
+
+
+@_tiles_op.register_fake
+def _(xp, seq_len, tables, meta, cfg_json, precision):
+    cfg = _cfg_from_json(cfg_json)
+    t_out = (xp.shape[1] - cfg.fft_length) // cfg.hop_length + 1
+    n_tiles = -(-t_out // FRAMES_PER_TILE)
+    return (xp.new_empty((xp.shape[0], t_out, cfg.features)),
+            xp.new_empty((xp.shape[0], n_tiles, 2, cfg.features)))
+
+
+def _op_tiles(xp, seq_len, *, tables, cfg, precision):
+    """tiles(xp, seq_len) through the custom op."""
+    if isinstance(tables, FFTTables):
+        flat = [tables.window, tables.twiddle, tables.mel_index,
+                tables.mel_weight]
+        meta = [tables.taps, tables.win_lo, tables.win_hi]
+    elif isinstance(tables, FastTables):
+        flat = [tables.dft, tables.mel]
+        meta = [tables.k_lo, tables.k_rows] + [v for band in tables.mel_bands
+                                               for v in band]
+    else:
+        flat, meta = list(tables), []
+    return torch.ops.vietasr.log_mel_tiles(
+        xp, seq_len, flat, meta, json.dumps(dataclasses.asdict(cfg)),
+        precision)
+
+
 def fused_log_mel_features(signal: torch.Tensor, lengths: torch.Tensor, *,
                            cfg: FeaturizerConfig,
                            tables=None,
@@ -653,6 +716,17 @@ def fused_log_mel_features(signal: torch.Tensor, lengths: torch.Tensor, *,
     if signal.device.type == "cpu":
         tiles = _plain_tiles(cfg, signal.device, dft_matrix, mel_matrix,
                              precision)
+        if custom_ops.active():
+            tiles = functools.partial(
+                _op_tiles, tables=(tiles.keywords["dft"],
+                                   tiles.keywords["mel"]),
+                cfg=cfg, precision=precision)
+    elif custom_ops.active():
+        if tables is None:
+            tables = (fft_tables if precision == "highest"
+                      else fast_tables)(cfg, signal.device)
+        tiles = functools.partial(_op_tiles, tables=tables, cfg=cfg,
+                                  precision=precision)
     elif precision == "highest":
         if tables is None:
             tables = fft_tables(cfg, signal.device)

@@ -62,6 +62,8 @@ from vietasr_tpu_torch.models.layers import (batchnorm_apply, dropout,
                                              init_batchnorm, length_mask,
                                              symmetric_uniform,
                                              xavier_uniform)
+from vietasr_tpu_torch.parallel.collectives import (copy_to_group,
+                                                    reduce_from_group)
 from vietasr_tpu_torch.utils.device import exact_tensor_cores, strict_fp32
 
 # matmul / conv weights of the tree, by key, which the forward rounds to
@@ -87,6 +89,13 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _linear(x, p, cast):
     return cast(_mm(cast(x), cast(p["w"])) + p["b"])
+
+
+def _linear_rows(x, p, cast, tp_group):
+    """_linear of a row-sharded weight: the partial products are summed
+    over `tp_group` before the bias is added once."""
+    return cast(reduce_from_group(_mm(cast(x), cast(p["w"])), tp_group)
+                + p["b"])
 
 
 def _layernorm(x, p, eps: float = 1e-5):
@@ -248,16 +257,22 @@ def position_tables(t: int, d: int, device) -> Tuple[torch.Tensor,
     return torch.sin(ang).float(), torch.cos(ang).float()
 
 
-def _mhsa(x, params, mask, cfg: ConformerConfig, pos_enc, scale, cast):
+def _mhsa(x, params, mask, cfg: ConformerConfig, pos_enc, scale, cast,
+          tp_group=None):
+    """Relative-position MHSA. Under tensor parallelism `params` holds this
+    rank's heads (the q / k / v / pos columns, u / vb rows, out rows of
+    parallel/tp.py), and the output projection sums over `tp_group`."""
     b, t, d = x.shape
-    h = cfg.num_heads
-    dh = d // h
+    x = copy_to_group(x, tp_group)
+    dh = d // cfg.num_heads
+    h = params["u"].shape[0]                # this rank's heads
+    dl = h * dh
     # one (D, 3D) product for q/k/v; its fp32 bias added before rounding
     w_qkv = torch.cat([cast(params[n]["w"]) for n in "qkv"], 1)
     b_qkv = torch.cat([params[n]["b"] for n in "qkv"])
     qkv = cast(_mm(cast(x), w_qkv) + b_qkv)
     q, k, v = (a.reshape(b, t, h, dh).transpose(1, 2)       # (B, H, T, dh)
-               for a in qkv.split(d, dim=-1))
+               for a in qkv.split(dl, dim=-1))
     qu = q + params["u"][None, :, None]                   # fp32
     qv = q + params["vb"][None, :, None]
     content = _mm(cast(qu), cast(k).transpose(2, 3))      # (B, H, T, S)
@@ -277,7 +292,8 @@ def _mhsa(x, params, mask, cfg: ConformerConfig, pos_enc, scale, cast):
     scores = torch.where(mask, scores, -1e30)
     attn = torch.softmax(scores, dim=-1)
     out = _mm(cast(attn), cast(v))                        # (B, H, T, dh)
-    return _linear(out.transpose(1, 2).reshape(b, t, d), params["out"], cast)
+    return _linear_rows(out.transpose(1, 2).reshape(b, t, dl),
+                        params["out"], cast, tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +311,7 @@ def _depthwise(y, w, pad: Tuple[int, int], cast):
 
 
 def _conv_module(x, params, stats, lens, cast, causal: bool,
-                 training: bool = False):
+                 training: bool = False, bn_group=None):
     y = _layernorm(x, params["ln"])
     y = _linear(y, params["pw1"], cast)                   # (B, T, 2D)
     a, g = y.chunk(2, dim=-1)
@@ -306,15 +322,15 @@ def _conv_module(x, params, stats, lens, cast, causal: bool,
     with _range("conformer.depthwise"):
         y = _depthwise(y, params["dw"], pad, cast)
     y, new_bn = batchnorm_apply(y, params["bn"], stats["conv_bn"],
-                                training=training)
+                                training=training, group=bn_group)
     y = cast(_swish(y))
     return _linear(y, params["pw2"], cast), {"conv_bn": new_bn}
 
 
-def _ffn(x, params, cast, drop=lambda a: a):
-    y = _layernorm(x, params["ln"])
+def _ffn(x, params, cast, drop=lambda a: a, tp_group=None):
+    y = copy_to_group(_layernorm(x, params["ln"]), tp_group)
     y = drop(_swish(_linear(y, params["in"], cast)))
-    return _linear(y, params["out"], cast)
+    return _linear_rows(y, params["out"], cast, tp_group)
 
 
 def _stack_subsample(x, lens):
@@ -361,12 +377,22 @@ def conformer_apply(
     training: bool = False,
     generator: Optional[torch.Generator] = None,
     remat: bool = False,
+    bn_group=None,
+    tp_group=None,
 ):
     """feats (B, T, F) -> (log_probs (B, T', V + 1) fp32, out_lens (B,)
     int32); with training=True also the new batch stats, as
     quartznet_apply returns them. With `cfg.chunk_size > 0` the attention
     is chunked-causal (a query sees its chunk and `left_chunks` chunks
-    before it) and the convolutions pad on the left only."""
+    before it) and the convolutions pad on the left only.
+
+    `bn_group` (a process group) takes the conv module's training-mode BN
+    statistics over the global batch of its ranks. `tp_group` runs the
+    blocks tensor-parallel over its ranks: `variables` is then this rank's
+    shard (parallel/tp.py shard_conformer_variables), and every rank of
+    the group returns the whole output. Dropout draws in a tensor-parallel
+    forward must be the same on every rank of `tp_group` (one generator
+    seed), and the FFN's inner dropout acts on this rank's columns."""
     if compute_dtype is None or compute_dtype == torch.float32:
         flags, cast = strict_fp32(), (lambda a: a)
     elif compute_dtype in (torch.bfloat16, torch.float16):
@@ -377,29 +403,31 @@ def conformer_apply(
     with flags:
         log_probs, lens, new_stats = _apply(
             variables, feats, feat_lens, cfg, cast, training, generator,
-            remat)
+            remat, (bn_group, tp_group))
     if training:
         return log_probs, lens, new_stats
     return log_probs, lens
 
 
 def _block(x, bp, bstat, lens, att_mask, cfg: ConformerConfig, pos_enc,
-           scale, cast, chunked: bool, training: bool, generator):
-    """One Conformer block; dropout at JAX's sites in JAX's order."""
+           scale, cast, chunked: bool, training: bool, groups, generator):
+    """One Conformer block; dropout at JAX's sites in JAX's order. `groups`
+    is (bn_group, tp_group)."""
     rate = cfg.dropout
+    bn_group, tp_group = groups
 
     def drop(a):
         return dropout(a, rate, generator, training)
 
-    x = x + 0.5 * drop(_ffn(x, bp["ff1"], cast, drop))
+    x = x + 0.5 * drop(_ffn(x, bp["ff1"], cast, drop, tp_group))
     with _range("conformer.mhsa"):
         attn = _mhsa(_layernorm(x, bp["mhsa"]["ln"]), bp["mhsa"], att_mask,
-                     cfg, pos_enc, scale, cast)
+                     cfg, pos_enc, scale, cast, tp_group)
     x = x + drop(attn)
     conv, new_stats = _conv_module(x, bp["conv"], bstat, lens, cast, chunked,
-                                   training)
+                                   training, bn_group)
     x = x + drop(conv)
-    x = x + 0.5 * drop(_ffn(x, bp["ff2"], cast, drop))
+    x = x + 0.5 * drop(_ffn(x, bp["ff2"], cast, drop, tp_group))
     return _layernorm(x, bp["final_ln"]), new_stats
 
 
@@ -427,7 +455,7 @@ def _remat_block(x, generator, *args):
 
 
 def _apply(variables, feats, feat_lens, cfg: ConformerConfig, cast,
-           training: bool, generator, remat: bool):
+           training: bool, generator, remat: bool, groups=(None, None)):
     params = variables["params"]
     stats = variables["batch_stats"]
     chunked = cfg.chunk_size > 0
@@ -458,7 +486,7 @@ def _apply(variables, feats, feat_lens, cfg: ConformerConfig, cast,
     new_stats = {"blocks": []}
     for bp, bstat in zip(params["blocks"], stats["blocks"]):
         args = (bp, bstat, lens, att_mask, cfg, pos_enc, scale, cast,
-                chunked, training)
+                chunked, training, groups)
         if remat:
             x, st = _remat_block(x, generator, *args)
         else:

@@ -9,8 +9,10 @@ so `quartznet_apply` computes what JAX's does on the same tree.
 `q_tables_from_jax` carries JAX's int8 serving tables
 (models/quantize.py) across the same way.
 `train_state_from_jax` builds the port's TrainState from JAX's unfolded
-tree (and a Novograd state), so a train step from the same state computes
-the same thing in both; `to_numpy` is the way back.
+tree and the optax state of any optimizer `make_optimizer` builds
+(`assign_jax_opt_state`, which the checkpoint manager also uses to resume
+a JAX `state-STEP-<n>.msgpack`), so a train step from the same state
+computes the same thing in both; `to_numpy` is the way back.
 
 The reference's NeMo `.pt` state_dicts (`JasperEncoder-STEP-{n}.pt` /
 `JasperDecoderForCTC-STEP-{n}.pt`, its nemo/backends/pytorch/nm.py:92-103)
@@ -193,37 +195,119 @@ def _paired_leaves(a, b) -> list:
     return [(a, b)]
 
 
-def train_state_from_jax(variables: dict, novograd_state=None, step: int = 0,
+def _plain_tree(tree):
+    """NamedTuples -> dicts of their fields, tuples -> lists (the shape
+    flax's msgpack gives an optax state, once its "0".."n-1" dicts are
+    lists again)."""
+    if hasattr(tree, "_fields"):
+        return {k: _plain_tree(getattr(tree, k)) for k in tree._fields}
+    if isinstance(tree, dict):
+        return {k: _plain_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain_tree(v) for v in tree]
+    return tree
+
+
+# the state that each of make_optimizer's optax chains keeps, by its keys
+_JAX_STATES = ((("exp_avg", "exp_avg_sq", "step"), "novograd"),
+               (("count", "mu", "nu"), "adam"),
+               (("trace",), "sgd"))
+# the length of the chain around scale_by_adam: optax.adam, adamw, lamb
+_ADAM_CHAINS = {2: "adam", 3: "adamw", 4: "lamb"}
+# the port's optimizer classes and the JAX kinds each one resumes
+_RESUMES = {"Novograd": ("novograd",), "Adam": ("adam", "adamw"),
+            "Lamb": ("lamb",), "SGD": ("sgd",)}
+
+
+def _find_states(tree, parent=None, found=None) -> list:
+    """[(state dict, the chain list holding it)] in depth-first order."""
+    found = [] if found is None else found
+    if isinstance(tree, dict):
+        for keys, _ in _JAX_STATES:
+            if all(k in tree for k in keys):
+                found.append((tree, parent))
+                return found
+        if set(tree) == {"count"}:          # a schedule's ScaleByScheduleState
+            found.append((tree, parent))
+            return found
+        for v in tree.values():
+            _find_states(v, None, found)
+    elif isinstance(tree, list):
+        for v in tree:
+            _find_states(v, tree, found)
+    return found
+
+
+def jax_optimizer_kind(opt_state) -> tuple:
+    """(kind, moments state, schedule count or None) of an optax state
+    from the JAX package's make_optimizer: kind is "novograd", "adam",
+    "adamw", "lamb" or "sgd" (LARC and weight decay included), with or
+    without grad_clip_norm's chain."""
+    states = _find_states(_plain_tree(opt_state))
+    main = [(st, chain) for st, chain in states if set(st) != {"count"}]
+    if len(main) != 1:
+        raise TypeError("the checkpoint's optimizer state is none of "
+                        "make_optimizer's (Novograd, Adam, AdamW, SGD, LAMB)")
+    st, chain = main[0]
+    kind = next(name for keys, name in _JAX_STATES
+                if all(k in st for k in keys))
+    if kind == "adam":
+        kind = _ADAM_CHAINS.get(len(chain) if chain else 0, "adam")
+    sched = [s["count"] for s, _ in states if set(s) == {"count"}]
+    return kind, st, (sched[0] if sched else None)
+
+
+def assign_jax_opt_state(state, opt_state, *, applied_updates: int) -> None:
+    """Load an optax state of the JAX package's make_optimizer into the
+    TrainState's optimizer, in place: the moments of each parameter and
+    the group's step count. Raises TypeError, naming both, when the
+    state is not of the optimizer's kind (JAX's restore fails there too).
+    `applied_updates` (the train step count less the skipped steps) is
+    the step count of an SGD, whose optax state keeps none without a
+    schedule."""
+    opt = state.optimizer
+    kind, st, sched_count = jax_optimizer_kind(opt_state)
+    mine = type(opt).__name__
+    if kind not in _RESUMES.get(mine, ()):
+        raise TypeError(f"the checkpoint holds a JAX {kind} state; the "
+                        f"TrainState's optimizer is {mine}")
+    dev = state.step.device
+    if kind == "novograd":
+        moments, count = {"exp_avg": st["exp_avg"],
+                          "exp_avg_sq": st["exp_avg_sq"]}, st["step"]
+    elif kind == "sgd":
+        moments = {"momentum_buffer": st["trace"]}
+        count = applied_updates if sched_count is None else sched_count
+    else:
+        moments, count = {"exp_avg": st["mu"],
+                          "exp_avg_sq": st["nu"]}, st["count"]
+    for key, tree in moments.items():
+        for p, m in _paired_leaves(state.params,
+                                   params_from_jax(tree, device=dev)):
+            opt.state[p][key] = m.reshape(() if key == "exp_avg_sq"
+                                          and kind == "novograd"
+                                          else p.shape)
+    for group in opt.param_groups:
+        group["step"] = torch.tensor(int(np.asarray(count)),
+                                     dtype=torch.int32, device=dev)
+
+
+def train_state_from_jax(variables: dict, opt_state=None, step: int = 0,
                          *, optimizer, device=None):
     """JAX's unfolded {params, batch_stats} tree (numpy leaves) -> the
     port's TrainState on `device` (None: CUDA), its optimizer built by
-    `optimizer` (a make_optimizer constructor). `novograd_state` (JAX's
-    NovogradState, or a dict of its fields: exp_avg shaped like params,
-    scalar exp_avg_sq per tensor, step) sets the moments and the step count
-    of a Novograd."""
+    `optimizer` (a make_optimizer constructor). `opt_state` (JAX's
+    TrainState.opt_state, as live optax NamedTuples or as its msgpack
+    dicts) sets the optimizer's moments and step count
+    (assign_jax_opt_state)."""
     # imported here: the train package imports this module
-    from vietasr_tpu_torch.train.optim import Novograd
     from vietasr_tpu_torch.train.state import TrainState
 
     dev = resolve_device(device)
     state = TrainState.create(params_from_jax(variables, device=dev),
                               optimizer, step=step)
-    if novograd_state is None:
-        return state
-    field = (novograd_state.get if isinstance(novograd_state, dict)
-             else lambda k: getattr(novograd_state, k))
-    opt = state.optimizer
-    if not isinstance(opt, Novograd):
-        raise TypeError(f"novograd_state given for a {type(opt).__name__}")
-    moments = params_from_jax({"m": field("exp_avg"),
-                               "v": field("exp_avg_sq")}, device=dev)
-    for p, m in _paired_leaves(state.params, moments["m"]):
-        opt.state[p]["exp_avg"] = m.reshape(p.shape)
-    for p, v in _paired_leaves(state.params, moments["v"]):
-        opt.state[p]["exp_avg_sq"] = v.reshape(())
-    for group in opt.param_groups:
-        group["step"] = torch.tensor(int(np.asarray(field("step"))),
-                                     dtype=torch.int32, device=dev)
+    if opt_state is not None:
+        assign_jax_opt_state(state, opt_state, applied_updates=step)
     return state
 
 

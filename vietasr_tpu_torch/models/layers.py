@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from vietasr_tpu_torch.parallel.collectives import all_reduce_sum
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.1
 
@@ -88,25 +90,40 @@ def init_batchnorm(c: int, *, device=None):
 
 def batchnorm_apply(x: torch.Tensor, params: dict, stats: dict, *,
                     training: bool = False, eps: float = BN_EPS,
-                    momentum: float = BN_MOMENTUM):
+                    momentum: float = BN_MOMENTUM, group=None):
     """BatchNorm over the last axis of x (B, T, C). Returns (y, new_stats).
 
     Training (torch BatchNorm1d semantics, as the JAX package): statistics
     over (B, T) including padding, the biased variance to normalize, the
     unbiased one in the running update; the new stats carry no gradient.
+    With a process `group` the statistics are those of the global batch,
+    as the JAX package's sharded step takes them: the mean is the
+    all-reduced sum over the all-reduced row count n, the variance the
+    all-reduced sum of (x - mean)^2 over n (the same two passes), and the
+    running update's unbiased factor is n / (n - 1) of the global n.
     Eval: the running stats normalize and pass through."""
-    if training:
+    if training and group is not None:
+        local = torch.cat([x.sum(dim=(0, 1)),
+                           x.new_full((1,), x.shape[0] * x.shape[1])])
+        total = all_reduce_sum(local, group)
+        n = total[-1].detach()
+        mean = total[:-1] / n
+        var = all_reduce_sum(((x - mean) ** 2).sum(dim=(0, 1)), group) / n
+        factor = n / torch.clamp_min(n - 1, 1)
+    elif training:
         n = x.shape[0] * x.shape[1]
         mean = torch.mean(x, dim=(0, 1))
         var = torch.mean((x - mean) ** 2, dim=(0, 1))
-        unbiased = var.detach() * (n / max(n - 1, 1))
+        factor = n / max(n - 1, 1)
+    else:
+        mean, var = stats["mean"], stats["var"]
+        new_stats = stats
+    if training:
+        unbiased = var.detach() * factor
         new_stats = {
             "mean": (1 - momentum) * stats["mean"] + momentum * mean.detach(),
             "var": (1 - momentum) * stats["var"] + momentum * unbiased,
         }
-    else:
-        mean, var = stats["mean"], stats["var"]
-        new_stats = stats
     inv = torch.rsqrt(var + eps)
     return (x - mean) * (inv * params["scale"]) + params["bias"], new_stats
 

@@ -232,7 +232,7 @@ def _apply_depthwise(x, w, bcfg: BlockConfig):
 
 def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
                compute_dtype, training: bool = False, pw_fn=_default_pw,
-               tag: str = ""):
+               tag: str = "", bn_group=None):
     """conv (+ channel shuffle) + BN (or folded bias). Returns (y,
     new_lens, new_stats). A plain 1x1 product returns fp32 (unless pw_fn
     returns another dtype); a grouped or dense conv returns the compute
@@ -261,7 +261,8 @@ def _apply_sub(x, lens, params, stats, bcfg: BlockConfig, conv_mask: bool,
                                bcfg.dilation, bcfg.same_padding)
     if "bn" in params:
         x, new_bn = batchnorm_apply(x.to(torch.float32), params["bn"],
-                                    stats["bn"], training=training)
+                                    stats["bn"], training=training,
+                                    group=bn_group)
         stats = {"bn": new_bn}
     else:
         x = x + cast(params["b"])
@@ -291,7 +292,7 @@ def _apply_block(xs, lens, params, stats, bcfg: BlockConfig,
                  cfg: EncoderConfig, compute_dtype, block_impl: str,
                  training: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 pw_fn=_default_pw, block_idx: int = 0):
+                 pw_fn=_default_pw, block_idx: int = 0, bn_group=None):
     """JasperBlock over `xs`, the outputs a block may read its residual
     panes from (the block input last). Returns (xs', lens, new_stats): a
     dense-residual block appends its output to xs, any other returns
@@ -301,7 +302,7 @@ def _apply_block(xs, lens, params, stats, bcfg: BlockConfig,
                         pw_fn):
         return _apply_block_ops(xs, lens, params, stats, bcfg, cfg,
                                 compute_dtype, training, generator, pw_fn,
-                                block_idx)
+                                block_idx, bn_group)
     fused = fused_repeat_block_plain if block_impl == "plain" \
         else fused_repeat_block
     r = bcfg.repeat
@@ -320,7 +321,7 @@ def _apply_block_ops(xs, lens, params, stats, bcfg: BlockConfig,
                      cfg: EncoderConfig, compute_dtype,
                      training: bool = False,
                      generator: Optional[torch.Generator] = None,
-                     pw_fn=_default_pw, block_idx: int = 0):
+                     pw_fn=_default_pw, block_idx: int = 0, bn_group=None):
     """The per-op JasperBlock (JAX's `_apply_block` past its fused branch):
     R sub-layers with the activation, dropout (training only) and, with SE
     and no residual, SE between them; the final SE; each residual pane p
@@ -335,7 +336,7 @@ def _apply_block_ops(xs, lens, params, stats, bcfg: BlockConfig,
                                        stats["sub"][r] if stats else None,
                                        bcfg, cfg.conv_mask, compute_dtype,
                                        training, pw_fn,
-                                       f"enc{block_idx}.sub{r}")
+                                       f"enc{block_idx}.sub{r}", bn_group)
         new_stats["sub"].append(st)
         if r < bcfg.repeat - 1:
             out = dropout(act(out), bcfg.dropout, generator, training)
@@ -353,7 +354,7 @@ def _apply_block_ops(xs, lens, params, stats, bcfg: BlockConfig,
         if "bn" in pane:
             res, new_bn = batchnorm_apply(res.to(torch.float32), pane["bn"],
                                           pane_stats["bn"],
-                                          training=training)
+                                          training=training, group=bn_group)
             pane_stats = {"bn": new_bn}
         else:
             res = res + cast(pane["b"])
@@ -379,6 +380,7 @@ def quartznet_apply(
     training: bool = False,
     generator: Optional[torch.Generator] = None,
     pw_fn: Callable = _default_pw,
+    bn_group=None,
 ):
     """Forward pass.
 
@@ -388,7 +390,9 @@ def quartznet_apply(
     dropout drawn from `generator`) it returns (log_probs, out_lens,
     new_batch_stats), as the JAX function does; the new stats carry no
     gradient. `pw_fn(tag, x, w) -> y` intercepts every 1x1 product (see
-    the module docstring); the default is `pointwise_conv`."""
+    the module docstring); the default is `pointwise_conv`. `bn_group`, a
+    process group, takes the training-mode BN statistics over the global
+    batch of its ranks (models/layers.py batchnorm_apply)."""
     if block_impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, "
                          f"got {block_impl!r}")
@@ -403,7 +407,7 @@ def quartznet_apply(
         xs, lens, st = _apply_block(xs, lens, params["encoder"][i],
                                     stats[i] if stats else None, bcfg, cfg,
                                     compute_dtype, block_impl, training,
-                                    generator, pw_fn, i)
+                                    generator, pw_fn, i, bn_group)
         new_enc_stats.append(st)
     dec = params["decoder"]
     logits = pw_fn("dec", xs[-1], dec["w"]) + dec["b"]

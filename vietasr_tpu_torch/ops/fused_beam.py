@@ -18,18 +18,21 @@ the argmax and the backtrace are PyTorch after it.
 
 `fused_beam_search` launches the kernel for CUDA tensors (launches counted
 in `fused_beam_search.launches`) and takes the plain version only for CPU
-tensors; `beam_search_cuda` is the launch itself.
+tensors; `beam_search_cuda` is the launch itself. The same route is the
+custom op `vietasr::beam_search` (ops/custom_ops.py), which the wrapper
+calls while an export traces.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from vietasr_tpu_torch import _build
+from vietasr_tpu_torch.ops import custom_ops
 from vietasr_tpu_torch.ops.device_beam import (KERNEL_MAX_BEAM_WIDTH,
                                                WordLMTables,
                                                best_path_from_raw,
@@ -163,27 +166,57 @@ def fused_beam_search(log_probs: torch.Tensor, lengths: torch.Tensor, *,
     if beam_width > KERNEL_MAX_BEAM_WIDTH:
         raise ValueError(f"fused_beam_search takes beam_width <= "
                          f"{KERNEL_MAX_BEAM_WIDTH}, got {beam_width}")
-    bsz, t_max, v1 = log_probs.shape
-    if log_probs.device.type == "cpu":
-        raw = device_beam_search(
-            log_probs, lengths, beam_width=beam_width, blank=blank,
-            alpha=alpha, beta=beta, cutoff_top_n=cutoff_top_n,
-            word_lm=word_lm, wlm_probes=wlm_probes, space=space,
-            carry_state=carry_state, return_raw=True)
-    else:
-        top_lp, top_ci = frame_topk(log_probs,
-                                    expansion_width(v1 - 1, cutoff_top_n))
-        state = init_packed_state(bsz, beam_width, word_lm, log_probs.device) \
-            if carry_state is None else carry_state.contiguous()
-        raw = beam_search_cuda(
-            log_probs, lengths.to(torch.int32).contiguous(),
-            top_lp.contiguous(), top_ci.contiguous(), state, blank=blank,
-            space=space, alpha=alpha, beta=beta, word_lm=word_lm,
-            wlm_probes=wlm_probes)
+    state = init_packed_state(log_probs.shape[0], beam_width, word_lm,
+                              log_probs.device) \
+        if carry_state is None else carry_state.contiguous()
+    route = torch.ops.vietasr.beam_search if custom_ops.active() \
+        else _route
+    raw = route(log_probs, lengths, state,
+                [] if word_lm is None else list(word_lm), blank, space,
+                float(alpha), float(beta), cutoff_top_n, wlm_probes)
     if return_raw:
         return raw
     return best_path_from_raw(*raw, word_lm=word_lm, alpha=alpha, beta=beta,
-                              wlm_probes=wlm_probes, l_max=max_len or t_max)
+                              wlm_probes=wlm_probes,
+                              l_max=max_len or log_probs.shape[1])
 
 
 fused_beam_search.launches = 0
+
+
+def _route(log_probs, lengths, state, word_lm: List[torch.Tensor],
+           blank: int, space: int, alpha: float, beta: float,
+           cutoff_top_n: int, wlm_probes: int):
+    """The raw search from the packed `state`: the kernel for CUDA
+    tensors, its plain version device_beam_search for CPU tensors."""
+    lm = WordLMTables(*word_lm) if word_lm else None
+    if log_probs.device.type == "cpu":
+        return device_beam_search(
+            log_probs, lengths, beam_width=state.shape[1], blank=blank,
+            alpha=alpha, beta=beta, cutoff_top_n=cutoff_top_n, word_lm=lm,
+            wlm_probes=wlm_probes, space=space, carry_state=state,
+            return_raw=True)
+    top_lp, top_ci = frame_topk(log_probs,
+                                expansion_width(log_probs.shape[2] - 1,
+                                                cutoff_top_n))
+    return beam_search_cuda(
+        log_probs, lengths.to(torch.int32).contiguous(), top_lp.contiguous(),
+        top_ci.contiguous(), state, blank=blank, space=space, alpha=alpha,
+        beta=beta, word_lm=lm, wlm_probes=wlm_probes)
+
+
+_beam_op = torch.library.custom_op(
+    "vietasr::beam_search", _route, mutates_args=(),
+    schema="(Tensor log_probs, Tensor lengths, Tensor state, "
+           "Tensor[] word_lm, int blank, int space, float alpha, "
+           "float beta, int cutoff_top_n, int wlm_probes) "
+           "-> (Tensor, Tensor, Tensor)")
+
+
+@_beam_op.register_fake
+def _(log_probs, lengths, state, word_lm, blank, space, alpha, beta,
+      cutoff_top_n, wlm_probes):
+    bsz, t_max = log_probs.shape[:2]
+    w = state.shape[1]
+    return (torch.empty_like(state),
+            state.new_empty((t_max, bsz, w)), state.new_empty((t_max, bsz, w)))

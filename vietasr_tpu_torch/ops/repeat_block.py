@@ -13,7 +13,9 @@ out as relu(b_pw + b_res), as in JAX; later blocks mask them.
 
 `fused_repeat_block` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors; `fused_repeat_block_plain` is the
-plain version on any device (the reference the kernel is held to).
+plain version on any device (the reference the kernel is held to). The
+same route is the custom op `vietasr::repeat_block` (ops/custom_ops.py),
+which the wrapper calls while an export traces.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from vietasr_tpu_torch import _build
+from vietasr_tpu_torch.ops import custom_ops
 
 
 def fused_repeat_block_plain(
@@ -202,13 +205,33 @@ def fused_repeat_block(x, lens, dw_ws, pw_ws, bs, res_w, res_b, *,
 
     `last_act=True` also applies ReLU after the final repeat BEFORE the
     residual add (not used by QuartzNet; kept for generality)."""
+    if custom_ops.active():
+        return torch.ops.vietasr.repeat_block(
+            x, lens, list(dw_ws), list(pw_ws), list(bs), res_w, res_b,
+            kernel, last_act)
+    return _route(x, lens, dw_ws, pw_ws, bs, res_w, res_b, kernel, last_act)
+
+
+fused_repeat_block.launches = 0
+
+
+def _route(x, lens, dw_ws, pw_ws, bs, res_w, res_b, kernel, last_act):
     fn = fused_repeat_block_plain if x.device.type == "cpu" \
         else fused_repeat_block_cuda
     return fn(x, lens, dw_ws, pw_ws, bs, res_w, res_b, kernel=kernel,
               last_act=last_act)
 
 
-fused_repeat_block.launches = 0
+_repeat_op = torch.library.custom_op(
+    "vietasr::repeat_block", _route, mutates_args=(),
+    schema="(Tensor x, Tensor lens, Tensor[] dw_ws, Tensor[] pw_ws, "
+           "Tensor[] bs, Tensor? res_w, Tensor? res_b, int kernel, "
+           "bool last_act) -> Tensor")
+
+
+@_repeat_op.register_fake
+def _(x, lens, dw_ws, pw_ws, bs, res_w, res_b, kernel, last_act):
+    return x.new_empty((x.shape[0], x.shape[1], pw_ws[-1].shape[1]))
 
 
 def block_eligible(bcfg, params, training: bool) -> bool:

@@ -240,6 +240,13 @@ class Transcriber:
 
     @torch.inference_mode()
     def _forward(self, signal: torch.Tensor, lengths: torch.Tensor):
+        return self.forward_program(signal, lengths)
+
+    def forward_program(self, signal: torch.Tensor, lengths: torch.Tensor):
+        """The whole device forward, (B, S) float32 signal + (B,) int32
+        lengths -> (log_probs, enc_lens, greedy_preds, keep_mask): the
+        frontend, the encoder and the greedy decode, with no host read
+        (export.py traces it)."""
         feats, flens = self._featurize(signal, lengths)
         kwargs = {}
         if self.cfg.architecture == "quartznet":

@@ -22,12 +22,14 @@ FUSED_MAX_SPANS chunks take the grouped path (`long_form_log_probs`):
 host-side conversion, then max_batch chunks per forward through
 `Transcriber.log_probs`.
 
-A Conformer config is refused: the JAX package's long-form reads the
-encoder stride from the Jasper blocks (`encoder_stride`), which a
-Conformer config has none of, so its grid and keep ranges are in mel
-frames where its encoder subsamples 4x, and its stitched output has the
-wrong length. The port copies neither the fault nor a fix the JAX package
-lacks.
+A Conformer goes the same way, its spans stitched on its 4x subsampling
+(`frame_stride`): the stitched posterior has the offline forward's frame
+count. This differs from the JAX package by design: JAX reads the stride
+from the Jasper blocks (`encoder_stride`), which a Conformer config has
+none of, so it stitches on stride 1 and drops frames (900 of 1,000 over
+40 s, tests/test_torch_streaming_conformer.py). Each span of a Conformer
+attends within itself only, so the stitched posterior is that of the
+spans, not of the offline forward over the whole signal.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vietasr_tpu_torch.config import EncoderConfig
-from vietasr_tpu_torch.models.quartznet import quartznet_apply
+from vietasr_tpu_torch.config import EncoderConfig, ModelConfig
+from vietasr_tpu_torch.models import model_apply
 from vietasr_tpu_torch.ops.g711 import decode_wire
 from vietasr_tpu_torch.ops.greedy import greedy_decode, ids_to_text
 from vietasr_tpu_torch.ops.resample import make_device_resampler
@@ -68,14 +70,17 @@ def encoder_stride(cfg: EncoderConfig) -> int:
     return s
 
 
-def _refuse_conformer(transcriber) -> None:
-    if transcriber.cfg.architecture != "quartznet":
-        raise NotImplementedError(
-            "long-form transcription of a Conformer is not ported: the JAX "
-            "package's long-form (vietasr_tpu/streaming.py:42-46, 80-88, "
-            "139-148) takes the encoder stride from the Jasper blocks, 1 "
-            "for a Conformer whose subsampling is 4x, so its stitch grid "
-            "is wrong; use audio up to the last bucket, or StreamPool")
+def frame_stride(cfg: ModelConfig) -> int:
+    """Mel frames per encoder frame: a Conformer's subsampling (4x in
+    both its conv2d and its stack mode), a QuartzNet's product of block
+    strides."""
+    if cfg.architecture == "conformer":
+        factor = cfg.conformer.subsampling_factor
+        if factor != 4:
+            raise ValueError(f"subsampling_factor {factor}: the Conformer "
+                             "subsamples 4x (models/conformer.py)")
+        return factor
+    return encoder_stride(cfg.encoder)
 
 
 def chunk_spans(n_samples: int, chunk: int, overlap: int
@@ -108,7 +113,7 @@ def _longform_grid(transcriber, chunk_seconds: float,
     boundary frames)."""
     sr = transcriber.cfg.featurizer.sample_rate
     hop = transcriber.cfg.featurizer.hop_length
-    grid = hop * encoder_stride(transcriber.cfg.encoder)
+    grid = hop * frame_stride(transcriber.cfg)
     chunk = max(int(chunk_seconds * sr) // grid, 2) * grid
     overlap = max(int(overlap_seconds * sr) // grid, 1) * grid
     return chunk, overlap, grid
@@ -125,7 +130,7 @@ class _LongformProgram:
         self.tr = transcriber
         self.n_spans, self.chunk, self.want_lp = n_spans, chunk, want_lp
         self.in_dtype = in_dtype
-        grid = cfg.featurizer.hop_length * encoder_stride(cfg.encoder)
+        grid = cfg.featurizer.hop_length * frame_stride(cfg)
         self.step = chunk - 2 * overlap
         self.ov_f = overlap // grid        # chunk/overlap: grid multiples
         self.chunk_f = chunk // grid
@@ -164,9 +169,10 @@ class _LongformProgram:
                           device=x.device)
         lens[-1] = last_len
         feats, flens = tr._featurize(chunks, lens)
-        lp, enc_lens = quartznet_apply(
-            tr.variables, feats, flens, cfg=tr.cfg.encoder,
-            compute_dtype=tr.compute_dtype, block_impl=tr.opts.block_impl)
+        kwargs = {"block_impl": tr.opts.block_impl} \
+            if tr.cfg.architecture == "quartznet" else {}
+        lp, enc_lens = model_apply(tr.variables, feats, flens, cfg=tr.cfg,
+                                   compute_dtype=tr.compute_dtype, **kwargs)
         tc = lp.shape[1]
         stitched = lp.reshape(self.n_spans * tc, lp.shape[2]).index_select(
             0, self._stitch_index(tc))
@@ -265,7 +271,6 @@ def transcribe_long_batch(
     model's (resampled on the device). int16 arrays are PCM, uint8 arrays
     G.711 wire bytes (signal_encoding 'ulaw' or 'alaw'); both are uploaded
     as they are and converted on the device."""
-    _refuse_conformer(transcriber)
     chunk, overlap, _ = _longform_grid(transcriber, chunk_seconds,
                                        overlap_seconds)
     decoder = transcriber.opts.decoder
@@ -302,7 +307,6 @@ def transcribe_long(
     log-probs (the beam kernel on the GPU), or the host `beam`. Input
     formats as in transcribe_long_batch (converted on the device on the
     fused path, on the host on the grouped one)."""
-    _refuse_conformer(transcriber)
     chunk, overlap, _ = _longform_grid(transcriber, chunk_seconds,
                                        overlap_seconds)
     decoder = transcriber.opts.decoder
@@ -359,9 +363,8 @@ def long_form_log_probs(transcriber, signal: np.ndarray, *,
     go through the encoder max_batch at a time (rows past the last chunk
     have length 0). device=True keeps the posterior on the device (a
     tensor); else numpy. Returns (log_probs, T_total)."""
-    _refuse_conformer(transcriber)
     hop = transcriber.cfg.featurizer.hop_length
-    enc_stride = encoder_stride(transcriber.cfg.encoder)
+    enc_stride = frame_stride(transcriber.cfg)
     chunk, overlap, _ = _longform_grid(transcriber, chunk_seconds,
                                        overlap_seconds)
     spans = chunk_spans(len(signal), chunk, overlap)

@@ -3,9 +3,12 @@ newest (counterpart of vietasr_tpu/train/checkpoint.py).
 
 The port writes `state-STEP-<n>.pt`: params, batch stats, the optimizer's
 state_dict, step and skipped_steps, by torch.save (an atomic rename, so a
-crash never leaves a torn file). `restore_variables` also reads the JAX
+crash never leaves a torn file). Both restores also read the JAX
 package's `state-STEP-<n>.msgpack` (flax's serialized TrainState) through
-the port's own msgpack decoder, for params and batch stats only.
+the port's own msgpack decoder: `restore` the whole TrainState (params,
+batch stats, step, skipped steps and the optax state of any optimizer
+the JAX package's make_optimizer builds, models/convert.py
+assign_jax_opt_state), `restore_variables` params and batch stats only.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from typing import List, Optional
 
 import torch
 
-from vietasr_tpu_torch.models.convert import msgpack_restore, params_from_jax
+from vietasr_tpu_torch.models.convert import (assign_jax_opt_state,
+                                              msgpack_restore,
+                                              params_from_jax)
 from vietasr_tpu_torch.models.quartznet import assign_tree, map_tree
 from vietasr_tpu_torch.utils.device import resolve_device
 
@@ -80,15 +85,15 @@ class CheckpointManager:
         return path
 
     def restore(self, state, step: Optional[int] = None):
-        """Load the newest (or the given) port checkpoint into `state` (a
-        TrainState with the same tree and optimizer kind), in place.
-        Returns it, or None when the folder holds no checkpoint."""
+        """Load the newest (or the given) checkpoint, the port's or the JAX
+        package's, into `state` (a TrainState with the same tree and
+        optimizer kind), in place. Returns it, or None when the folder
+        holds no checkpoint."""
         path = self._pick(step)
         if path is None:
             return None
-        if not path.endswith(".pt"):
-            raise ValueError(f"{path}: a JAX checkpoint restores only its "
-                             "variables (restore_variables)")
+        if path.endswith(".msgpack"):
+            return self._restore_jax(state, path)
         payload = torch.load(path, map_location=self.device,
                              weights_only=True)
         with torch.no_grad():
@@ -97,6 +102,22 @@ class CheckpointManager:
             state.step.fill_(payload["step"])
             state.skipped_steps.fill_(payload["skipped_steps"])
         state.optimizer.load_state_dict(payload["optimizer"])
+        return state
+
+    def _restore_jax(self, state, path: str):
+        with open(path, "rb") as f:
+            raw = _lists_from_state_dict(msgpack_restore(f.read()))
+        variables = params_from_jax({"params": raw["params"],
+                                     "batch_stats": raw["batch_stats"]},
+                                    device=self.device)
+        step, skipped = int(raw["step"]), int(raw["skipped_steps"])
+        with torch.no_grad():
+            assign_tree(state.params, variables["params"])
+            assign_tree(state.batch_stats, variables["batch_stats"])
+            state.step.fill_(step)
+            state.skipped_steps.fill_(skipped)
+        assign_jax_opt_state(state, raw["opt_state"],
+                             applied_updates=step - skipped)
         return state
 
     def restore_variables(self, step: Optional[int] = None

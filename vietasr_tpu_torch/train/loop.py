@@ -42,17 +42,21 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vietasr_tpu_torch.config import ModelConfig
 from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
                                                       make_fused_featurizer)
 from vietasr_tpu_torch.frontend.features import make_featurizer
 from vietasr_tpu_torch.models import model_apply
-from vietasr_tpu_torch.models.quartznet import assign_tree
+from vietasr_tpu_torch.models.quartznet import assign_tree, tree_paths
 from vietasr_tpu_torch.ops.ctc_loss import CTC_IMPLS, ctc_loss
 from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
                                           ids_to_text)
 from vietasr_tpu_torch.ops.specaug import apply_spec_augment
+from vietasr_tpu_torch.parallel.distributed import (gather_eval_results,
+                                                    is_main_process)
+from vietasr_tpu_torch.parallel.tp import conformer_tp_spec
 from vietasr_tpu_torch.train.metrics import levenshtein, word_error_rate
 from vietasr_tpu_torch.train.optim import global_norm
 from vietasr_tpu_torch.train.state import TrainState
@@ -80,7 +84,8 @@ def make_train_featurizer(cfg: ModelConfig, device: torch.device):
 
 def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
-                 ctc_impl: str = "auto", device=None, remat: bool = False):
+                 ctc_impl: str = "auto", device=None, remat: bool = False,
+                 group=None, tp_group=None):
     """loss_fn(params, batch_stats, batch, generator, training, sched=None)
     -> (loss, (new_stats, log_probs, enc_lens)).
 
@@ -90,15 +95,27 @@ def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
     rows (signal_lens == 0) and CTC-infeasible rows (the ~1e30 sentinel)
     are masked per sample, torch CTCLoss(zero_infinity=True) semantics, and
     the loss is the mean over the remaining rows. `remat` recomputes each
-    Conformer block in the backward pass (a QuartzNet refuses it)."""
+    Conformer block in the backward pass (a QuartzNet refuses it).
+
+    With a data-parallel process `group` the batch is this rank's rows of
+    a global batch: the training-mode BN statistics are the global batch's
+    and the loss is this rank's share of the global mean, the sum of its
+    valid rows over the all-reduced count of valid rows (the shares sum
+    to the one-process loss on the global batch, whichever rank holds
+    the padding rows). `tp_group` runs a Conformer tensor-parallel over
+    its ranks (parallel/tp.py); `params` is then this rank's shard."""
     if ctc_impl not in CTC_IMPLS:
         raise ValueError(f"ctc_impl must be one of {CTC_IMPLS}, "
                          f"got {ctc_impl!r}")
     if remat and cfg.architecture != "conformer":
         raise ValueError("remat applies to the Conformer only")
+    if tp_group is not None and cfg.architecture != "conformer":
+        raise ValueError("tensor parallelism applies to the Conformer only")
     featurize = make_train_featurizer(cfg, resolve_device(device))
     blank = cfg.num_classes
     extra = {"remat": True} if remat else {}
+    if tp_group is not None:
+        extra["tp_group"] = tp_group
 
     def loss_fn(params, batch_stats, batch, generator, training: bool,
                 sched=None):
@@ -113,9 +130,11 @@ def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
                 active_freq=sched.get("specaug_freq_masks"),
                 active_time=sched.get("specaug_time_masks"))
         variables = {"params": params, "batch_stats": batch_stats}
+        groups = {"bn_group": group} if training and group is not None \
+            else {}
         out = model_apply(variables, feats, flens, cfg=cfg,
                           compute_dtype=compute_dtype, training=training,
-                          generator=generator, **extra)
+                          generator=generator, **groups, **extra)
         log_probs, enc_lens = out[:2]
         new_stats = out[2] if training else batch_stats
         per_sample = ctc_loss(log_probs, batch["tokens"], enc_lens,
@@ -125,7 +144,12 @@ def make_loss_fn(cfg: ModelConfig, *, use_specaug: bool = True,
             & (per_sample < 1e25)
         per_sample = torch.where(valid, per_sample,
                                  torch.zeros_like(per_sample))
-        loss = per_sample.sum() / torch.clamp_min(valid.sum(), 1)
+        if group is None:
+            count = valid.sum()
+        else:
+            count = valid.sum().to(per_sample.dtype)
+            dist.all_reduce(count, group=group)
+        loss = per_sample.sum() / torch.clamp_min(count, 1)
         return loss, (new_stats, log_probs, enc_lens)
 
     return loss_fn
@@ -137,14 +161,27 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                     compute_dtype: Optional[torch.dtype] = None,
                     ctc_impl: str = "auto", device=None,
                     value_schedules: Optional[dict] = None,
-                    remat: bool = False):
+                    remat: bool = False, group=None, tp_group=None):
     """train_step(state, batch, generator) -> (state, metrics): one update
     of `state` (in place) from a batch of tensors; metrics are device
     tensors (loss, grad_norm, lr with a schedule, and each value
-    schedule's value at the step count before the update)."""
+    schedule's value at the step count before the update).
+
+    Data parallelism: with a process `group` the batch is this rank's rows
+    and the step equals the one-process step on the global batch (the
+    union of the ranks' rows; with grad_accum > 1, microbatch k of the
+    global batch is the union of the ranks' microbatches k). The loss
+    (make_loss_fn) and the BN statistics are global, and after
+    accumulation the gradients and the loss are sum-all-reduced once, in
+    one flat fp32 bucket, so the NaN/inf guard sees the same loss and
+    gradient norm on every rank and every rank skips the same steps.
+    `tp_group` runs a Conformer tensor-parallel (parallel/tp.py): the
+    state holds this rank's shard, and the guard's norm and every
+    per-tensor norm of the optimizer are taken over the whole tensors."""
     loss_fn = make_loss_fn(cfg, use_specaug=use_specaug,
                            compute_dtype=compute_dtype, ctc_impl=ctc_impl,
-                           device=device, remat=remat)
+                           device=device, remat=remat, group=group,
+                           tp_group=tp_group)
 
     def grads_of(state: TrainState, stats, batch, generator, sched):
         loss, (new_stats, _, _) = loss_fn(state.params, stats, batch,
@@ -176,12 +213,26 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
             loss, new_stats, grads = grads_of(state, state.batch_stats, batch,
                                               generator, sched)
 
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [loss.reshape(1).to(torch.float32)])
+            dist.all_reduce(flat, group=group)
+            loss = flat[-1]
+            grads = [a.view_as(g) for a, g in zip(
+                flat[:-1].split([g.numel() for g in grads]), grads)]
+        params = state.param_list()
         # a masked NaN row can leave the loss finite while the gradients are
         # NaN (it still reaches the BN batch stats), so guard both
-        grad_norm = global_norm(grads)
+        if tp_group is not None:
+            sharded = [conformer_tp_spec(p) is not None
+                       for p in tree_paths(state.params)]
+            state.optimizer.tensor_parallel(
+                [p for p, s in zip(params, sharded) if s], tp_group)
+            grad_norm = global_norm(grads, sharded, tp_group)
+        else:
+            grad_norm = global_norm(grads)
         finite = torch.isfinite(loss) & (loss < 1e25) \
             & torch.isfinite(grad_norm)
-        params = state.param_list()
         for p, g in zip(params, grads):
             p.grad = torch.where(finite, g, torch.zeros_like(g))
         state.optimizer.step(finite=finite)
@@ -267,7 +318,14 @@ class Trainer:
     Trainer's fields, less `optimizer`, which the TrainState holds here;
     plus `remat` for the Conformer). Callbacks are plain callables
     fn(trainer, metrics_dict) invoked every `log_every` steps.
-    `device=None` means CUDA, and raises without a GPU."""
+    `device=None` means CUDA, and raises without a GPU.
+
+    `process_group` trains data-parallel over its ranks (make_train_step):
+    each rank's batcher yields its rows of the same global batches, so
+    every rank takes the same steps; SpecAugment, dither and dropout draw
+    from a generator seeded with seed + 1000 x rank; only rank 0 writes
+    checkpoints; `evaluate` sums every rank's counts over its own shard
+    of the eval set."""
 
     cfg: ModelConfig
     grad_accum: int = 1
@@ -296,6 +354,7 @@ class Trainer:
     # recompute each Conformer block in the backward pass
     remat: bool = False
     device: Optional[object] = None
+    process_group: Optional[object] = None
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
@@ -306,7 +365,8 @@ class Trainer:
             use_specaug=self.use_specaug, lr_schedule=self.lr_schedule,
             compute_dtype=_DTYPES[self.compute_dtype],
             ctc_impl=self.ctc_impl, device=self.device,
-            value_schedules=self.value_schedules, remat=self.remat)
+            value_schedules=self.value_schedules, remat=self.remat,
+            group=self.process_group)
         self._profiler = None
         self._eval_step = make_eval_step(self.cfg, ctc_impl=self.ctc_impl,
                                          device=self.device)
@@ -317,7 +377,9 @@ class Trainer:
             num_epochs: int = 1, eval_batcher: Optional[Iterable] = None
             ) -> TrainState:
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.seed)
+        rank = 0 if self.process_group is None \
+            else dist.get_rank(self.process_group)
+        generator.manual_seed(self.seed + 1000 * rank)
         step = int(state.step)
         for epoch in range(num_epochs):
             t_epoch = time.time()
@@ -346,6 +408,7 @@ class Trainer:
                         and step % self.eval_every == 0):
                     self.evaluate(state, eval_batcher)
                 if (self.checkpoint_manager is not None
+                        and is_main_process()
                         and self.checkpoint_every
                         and step % self.checkpoint_every == 0):
                     self.checkpoint_manager.save(state, step)
@@ -399,8 +462,11 @@ class Trainer:
                 "sample_hyp": hyps[0], "sample_ref": refs[0]}
 
     def evaluate(self, state: TrainState, batcher: Iterable) -> dict:
-        """Greedy-decode eval with corpus WER/CER (one process; the JAX
-        package's multi-host sum waits for parallel/, ROADMAP A.9)."""
+        """Greedy-decode eval with corpus WER/CER. In a multi-process run
+        each process decodes its own shard of the eval set and the counts
+        (word and char edits and tokens, utterances, loss sum and batches)
+        are summed over the processes (gather_eval_results), so WER, CER
+        and num_utts are the whole set's."""
         hyps, refs, losses = [], [], []
         for batch in batcher:
             h, r, loss = self._decode(state, batch)
@@ -418,11 +484,18 @@ class Trainer:
             return edits, tokens
 
         (w_e, w_t), (c_e, c_t) = counts(False), counts(True)
+        local = np.asarray(
+            [w_e, w_t, c_e, c_t, len(hyps),
+             float(np.sum(losses)) if losses else 0.0, len(losses)],
+            np.float64)
+        total = np.asarray(gather_eval_results(local))
+        if total.ndim == 2:        # (processes, 7) in multi-process runs
+            total = total.sum(axis=0)
         result = {
-            "eval_loss": float(np.sum(losses)) / max(len(losses), 1),
-            "wer": w_e / w_t if w_t else float("inf"),
-            "cer": c_e / c_t if c_t else float("inf"),
-            "num_utts": len(hyps),
+            "eval_loss": float(total[5] / max(total[6], 1)),
+            "wer": float(total[0] / total[1]) if total[1] else float("inf"),
+            "cer": float(total[2] / total[3]) if total[3] else float("inf"),
+            "num_utts": int(total[4]),
         }
         self.history.append(result)
         return result

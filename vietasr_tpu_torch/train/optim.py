@@ -40,6 +40,7 @@ import functools
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def _assign(dst: torch.Tensor, value: torch.Tensor,
@@ -47,17 +48,28 @@ def _assign(dst: torch.Tensor, value: torch.Tensor,
     dst.copy_(value if finite is None else torch.where(finite, value, dst))
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(t.float()))
-                                   for t in tensors]).sum())
+def global_norm(tensors, sharded=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm).
+    Under tensor parallelism (`sharded`, per tensor: is it this rank's
+    slice of a tensor split over `group`?) the sharded tensors' sum of
+    squares is all-reduced over `group` first, so every rank gets the norm
+    of the whole tensors."""
+    if group is None or not any(sharded):
+        return torch.sqrt(torch.stack([torch.sum(torch.square(t.float()))
+                                       for t in tensors]).sum())
+    sq = [torch.sum(torch.square(t.float())) for t in tensors]
+    split = torch.stack([a for a, s in zip(sq, sharded) if s]).sum()
+    dist.all_reduce(split, group=group)
+    whole = [a for a, s in zip(sq, sharded) if not s]
+    return torch.sqrt(torch.stack(whole).sum() + split if whole else split)
 
 
 def trust_ratio(p: torch.Tensor, u: torch.Tensor,
-                coefficient: float = 1.0) -> torch.Tensor:
+                coefficient: float = 1.0, norm=torch.linalg.norm
+                ) -> torch.Tensor:
     """optax.scale_by_trust_ratio's factor: coefficient * |p| / |u|, or 1
-    where either norm is 0."""
-    p_norm, u_norm = torch.linalg.norm(p), torch.linalg.norm(u)
+    where either norm is 0 (`norm` takes a tensor's norm)."""
+    p_norm, u_norm = norm(p), norm(u)
     ratio = coefficient * p_norm / u_norm
     return torch.where((p_norm == 0) | (u_norm == 0),
                        torch.ones_like(ratio), ratio)
@@ -94,6 +106,28 @@ class _GuardedOptimizer(torch.optim.Optimizer):
         super().__init__(params, defaults)
         self.learning_rate = learning_rate
         self.grad_clip_norm = grad_clip_norm
+        self._sharded: set = set()
+        self._shard_group = None
+
+    def tensor_parallel(self, sharded_params, group) -> None:
+        """Mark `sharded_params` as this rank's slices of tensors split
+        over `group`: every per-tensor norm of them (Novograd's second
+        moment and LUC, LAMB's and LARC's trust ratios, the clipping
+        norm) is then taken over the whole tensor by an all-reduce of the
+        sum of squares."""
+        self._sharded = {id(p) for p in sharded_params}
+        self._shard_group = group
+
+    def _sum_sq(self, t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        s = torch.sum(torch.square(t).to(torch.float32))
+        if id(p) in self._sharded:
+            dist.all_reduce(s, group=self._shard_group)
+        return s
+
+    def _norm(self, t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        if id(p) in self._sharded:
+            return torch.sqrt(self._sum_sq(t, p))
+        return torch.linalg.norm(t)
 
     def _lr(self, step: torch.Tensor):
         lr = self.learning_rate
@@ -131,7 +165,9 @@ class _GuardedOptimizer(torch.optim.Optimizer):
                      else torch.where(gate, p.grad, torch.zeros_like(p.grad))
                      for p, gate in live]
             if self.grad_clip_norm:
-                norm = global_norm(grads)
+                norm = global_norm(grads, [id(p) in self._sharded
+                                           for p, _ in live],
+                                   self._shard_group)
                 grads = [torch.where(norm < self.grad_clip_norm, g,
                                      (g / norm) * self.grad_clip_norm)
                          for g in grads]
@@ -173,7 +209,7 @@ class Novograd(_GuardedOptimizer):
         beta1, beta2 = group["betas"]
         lr = self._lr(count + 1)
         m, v = state["exp_avg"], state["exp_avg_sq"]
-        norm_sq = torch.sum(torch.square(g).to(torch.float32))
+        norm_sq = self._sum_sq(g, p)
         v_new = torch.where(v == 0, norm_sq, beta2 * v + (1 - beta2) * norm_sq)
         g_hat = g / (torch.sqrt(v_new) + group["eps"])
         if group["weight_decay"]:
@@ -182,8 +218,8 @@ class Novograd(_GuardedOptimizer):
             g_hat = g_hat * (1 - beta1)
         m_new = beta1 * m + g_hat
         if group["luc"]:
-            factor = group["luc_trust"] * torch.linalg.norm(p) \
-                / (torch.linalg.norm(m_new) + group["luc_eps"])
+            factor = group["luc_trust"] * self._norm(p, p) \
+                / (self._norm(m_new, p) + group["luc_eps"])
             update = -torch.minimum(factor, torch.as_tensor(
                 lr, dtype=factor.dtype, device=factor.device)) * m_new
         else:
@@ -234,7 +270,7 @@ class Lamb(Adam):
                          grad_clip_norm=grad_clip_norm)
 
     def _rescale(self, p, u):
-        return u * trust_ratio(p, u)
+        return u * trust_ratio(p, u, norm=lambda t: self._norm(t, p))
 
 
 class SGD(_GuardedOptimizer):
@@ -254,7 +290,8 @@ class SGD(_GuardedOptimizer):
 
     def _update(self, p, g, state, group, count):
         if group["larc_eta"] is not None:
-            g = g * trust_ratio(p, g, group["larc_eta"])
+            g = g * trust_ratio(p, g, group["larc_eta"],
+                                norm=lambda t: self._norm(t, p))
         if group["weight_decay"]:
             g = g + group["weight_decay"] * p
         trace = g + group["momentum"] * state["momentum_buffer"]
