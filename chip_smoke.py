@@ -185,6 +185,40 @@ Phases, each of which raises on failure:
      s, 1 beam launch, the beam kernel bit for bit with the plain search
      on the 45 s posterior. path_launches gain dp_train, dp_train_nccl1,
      tp_forward, export_forward and conformer_longform
+  14. the rest of the JAX package (after 13), on the anchor in bf16 with
+     BN folded. (a) Kaldi features into CTC: phase 5's 16 signals
+     featurized in one padded batch (1 frontend launch), written as an FM
+     ark + scp and a CM ark with a `text` of VI_CORPUS lines, read back
+     through KaldiFeatureDataset, padded to the in-memory frames and
+     forwarded (13 repeat launches, each held to its plain version on
+     this batch), decoded by greedy_transcripts: the FM round trip and
+     its log-probs bit for bit with the in-memory forward, the CM decode
+     error within half a code step of each column's widest segment plus
+     the header's fp32 rounding, the CM path's argmax agreement with the
+     FM path, ms of each read and of the forward, audio-s/s. (b) speech
+     classification: 64 seeded 1 s PCM16 clips with Speech Commands v2's
+     35 labels through AudioLabelDataset into one B = 64 batch, the
+     log-mel (1 frontend launch), crop_or_pad_spectrogram to 128 frames,
+     the anchor's encoder output through the pw_fn hook (per-op blocks: 0
+     repeat launches), the classifier head 1024 -> 35 (seed 0) with avg
+     and max pooling, cross entropy, top-1 / top-5 accuracy: bf16 logits
+     vs the fp32 path (max |d|, argmax agreement), ms a batch. (c) LAS at
+     width 512 on phase 5's B = 8 x 16.7 s batch (1 frontend launch, the
+     encoder output through the pw_fn hook): the connector 1024 -> 512,
+     a GRU encoder and the attention decoder (vocab 93), seed 0;
+     greedy_generate and beam_generate (W = 8, 200 steps), las_evaluate
+     against VI_CORPUS; in fp32 the teacher-forced log-probs within 1e-4
+     of the same call on the CPU and the greedy tokens against the CPU's
+     (the first divergence printed); ms a generator and a step. (d) the
+     seq2seq copy task trained on the card: loss < 0.3, greedy and beam
+     accuracy > 0.8. (e) the spectrogram and MFCCs (64) on phase 5's B =
+     8 x 16.7 s batch vs the same calls on the CPU (power within 1e-5 of
+     each frame's largest, features within 2e-4 on bins >= 1e-6 of it,
+     MFCCs within 2e-4; the power of each within 1e-5 of an fp64 chain's,
+     the log power's distance from it printed), ms beside the frontend
+     kernel's log-mel. Each path's
+     launches of all six kernels are counted (0 where not named):
+     path_launches gain kaldi_ctc, classify and las
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -1912,6 +1946,57 @@ def add_path_launches(kernels, path: str, launches: dict) -> None:
             k.setdefault("path_launches", {})[path] = launches[k["name"]]
 
 
+def hold_frontend(torch, cfg, sig, lens, feats, flens, what) -> float:
+    """The frontend kernel's output on a path (feats, flens) against its
+    plain version on the same signals; returns max|d|."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import (
+        fused_log_mel_features_plain)
+
+    want, want_len = fused_log_mel_features_plain(sig, lens, cfg=cfg)
+    check(feats.shape == want.shape and bool((flens == want_len).all())
+          and bool(torch.isfinite(feats).all()),
+          f"{what}: frontend shape, seq_len or finiteness")
+    err = float((feats - want).abs().max())
+    check(err < FRONTEND_TOL, f"{what}: frontend max|d| {err}")
+    return err
+
+
+def record_repeat_calls(qn):
+    """Wrap the encoder's repeat-block entry point: returns (calls, undo);
+    each call's (args, kwargs, output) is appended to calls."""
+    calls, real = [], qn.fused_repeat_block
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    qn.fused_repeat_block = record
+
+    def undo():
+        qn.fused_repeat_block = real
+
+    return calls, undo
+
+
+def hold_repeat(calls, what) -> float:
+    """Each recorded repeat-block call against its plain version on the
+    same inputs, within REPEAT_TOL_REL of the largest output; returns the
+    worst max|d| / max|want|."""
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block_plain
+
+    worst = 0.0
+    for args, kw, got in calls:
+        want = fused_repeat_block_plain(*args, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(err <= REPEAT_TOL_REL * scale, f"{what}: repeat "
+              f"{tuple(args[0].shape)} max|d| {err} > {REPEAT_TOL_REL} * "
+              f"{scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
 def conversion_checks(np, torch, dev, pcm8, ulaw8):
     """Device G.711 / int16 decode and resampling vs the host path, TF32 off
     (this script's setting) and at PyTorch's defaults (cuDNN TF32 on)."""
@@ -1965,7 +2050,6 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
     from vietasr_tpu_torch.models.convert import load_anchor
     from vietasr_tpu_torch.ops.device_beam import device_beam_search
     from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
-    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block_plain
     from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
 
     sigs, pcm8, ulaw8 = longform_signals(np)
@@ -2030,28 +2114,12 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
 
     # the repeat kernel at the long-form batch (B = 27 rows of 15 s) vs
     # its plain version, inputs captured from the forward
-    calls = []
-    real = qn.fused_repeat_block
-
-    def record(*args, **kw):
-        out = real(*args, **kw)
-        calls.append((args, kw, out))
-        return out
-
-    qn.fused_repeat_block = record
+    calls, undo = record_repeat_calls(qn)
     try:
         lf._run_fused(tr, preps[3], chunk, overlap, True)
     finally:
-        qn.fused_repeat_block = real
-    worst_rep = 0.0
-    for args, kw, got in calls:
-        want = fused_repeat_block_plain(*args, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        shape = tuple(args[0].shape)
-        check(err <= REPEAT_TOL_REL * scale, f"long-form repeat {shape}: "
-              f"max|d| {err} > {REPEAT_TOL_REL} * {scale}")
-        worst_rep = max(worst_rep, err / scale)
+        undo()
+    worst_rep = hold_repeat(calls, "long-form")
     rep_ms, seen, _ = kernel_ms(
         lambda: lf._run_fused(tr, preps[3], chunk, overlap, True),
         "repeat_kernel", reps=5, launches=13)
@@ -3201,9 +3269,7 @@ def path_kernel_check(torch, dev, cfg, variables, batch, what, dtype):
     import dataclasses
 
     from vietasr_tpu_torch.frontend.cuda_frontend import (
-        fft_tables, fused_log_mel_features, fused_log_mel_features_plain)
-    from vietasr_tpu_torch.frontend.features import (_mel_matrix,
-                                                     _windowed_dft_matrix)
+        fft_tables, fused_log_mel_features)
     from vietasr_tpu_torch.train.loop import batch_to_tensors, make_loss_fn
 
     fcfg = dataclasses.replace(cfg.featurizer, dither=0.0)
@@ -3211,15 +3277,7 @@ def path_kernel_check(torch, dev, cfg, variables, batch, what, dtype):
     sig, lens = t["signal"], t["signal_lens"]
     got, got_len = fused_log_mel_features(sig, lens, cfg=fcfg,
                                           tables=fft_tables(fcfg, dev))
-    want, want_len = fused_log_mel_features_plain(
-        sig, lens, cfg=fcfg,
-        dft_matrix=torch.as_tensor(_windowed_dft_matrix(fcfg), device=dev),
-        mel_matrix=torch.as_tensor(_mel_matrix(fcfg), device=dev))
-    check(bool(torch.isfinite(got).all()) and got.shape == want.shape
-          and bool((got_len == want_len).all()),
-          f"{what}: frontend shape, seq_len or finiteness")
-    f_err = float((got - want).abs().max())
-    check(f_err < FRONTEND_TOL, f"{what}: frontend max|d| {f_err}")
+    f_err = hold_frontend(torch, fcfg, sig, lens, got, got_len, what)
 
     loss_fn = make_loss_fn(cfg, use_specaug=False, compute_dtype=dtype,
                            device=dev)
@@ -4145,6 +4203,651 @@ def phase13(np, torch, dev, kernels):
         conformer_longform_phase(np, torch, dev, kernels, tmp)
 
 
+COPY_VOCAB, COPY_HIDDEN, COPY_LEN = 8, 32, 5
+COPY_STEPS = 150
+COPY_LOSS_MAX, COPY_ACC_MIN = 0.3, 0.8
+
+
+def copy_task(np, torch, dev):
+    """The seq2seq copy task (the JAX package's convergence check in
+    tests/test_seq2seq.py): a GRU encoder over embedded ids 3..7 of
+    length 5 and the attention decoder learn to emit the same ids, 150
+    Adam steps (lr 5e-3) of B = 16 with the port's make_optimizer, weights
+    from torch.Generator seed 0, batches from RandomState(0). Returns the
+    final loss and the greedy and beam (W = 4) token accuracy on 4 held-out
+    sequences each."""
+    from vietasr_tpu_torch.models import seq2seq as s2s
+    from vietasr_tpu_torch.models.quartznet import tree_leaves
+    from vietasr_tpu_torch.ops.losses import sequence_loss
+    from vietasr_tpu_torch.train.optim import make_optimizer
+
+    v, h, n = COPY_VOCAB, COPY_HIDDEN, COPY_LEN
+    bos, eos = 1, 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"enc": s2s.init_encoder_rnn(gen, h, h, device=dev),
+              "dec": s2s.init_decoder_rnn(gen, v, h, device=dev),
+              "in_emb": 0.1 * torch.randn((v, h), generator=gen, device=dev)}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = make_optimizer("adam", 5e-3)(leaves)
+    rng = np.random.RandomState(0)
+
+    def encode(seq):
+        lens = torch.full((seq.shape[0],), n, dtype=torch.int32, device=dev)
+        enc_out, state = s2s.encoder_rnn_apply(params["enc"],
+                                               params["in_emb"][seq], lens)
+        return enc_out, state, lens
+
+    loss = None
+    for _ in range(COPY_STEPS):
+        seq = torch.from_numpy(rng.randint(3, v, size=(16, n))
+                               .astype(np.int64)).to(dev)
+        enc_out, state, lens = encode(seq)
+        tgt_in = torch.cat([torch.full_like(seq[:, :1], bos), seq[:, :-1]],
+                           dim=1)
+        lps = s2s.decoder_rnn_apply(params["dec"], tgt_in, state, enc_out,
+                                    lens)
+        loss = sequence_loss(lps, seq, lens, pad_id=0)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    out = {"loss": float(loss.detach())}
+    with torch.no_grad():
+        for name, seed in (("greedy", 7), ("beam", 8)):
+            seq = torch.from_numpy(np.random.RandomState(seed).randint(
+                3, v, size=(4, n)).astype(np.int64)).to(dev)
+            enc_out, state, lens = encode(seq)
+            kw = dict(bos_id=bos, eos_id=eos, max_len=n)
+            if name == "greedy":
+                toks, _ = s2s.greedy_generate(params["dec"], state, enc_out,
+                                              lens, **kw)
+            else:
+                toks, scores = s2s.beam_generate(params["dec"], state,
+                                                 enc_out, lens,
+                                                 beam_width=4, **kw)
+                out["beam_scores_finite"] = bool(torch.isfinite(scores)
+                                                 .all())
+            out[f"{name}_acc"] = float((toks[:, :n].long() == seq)
+                                       .float().mean())
+    return out
+
+
+# phase 14: the tail of the JAX package on the card (Kaldi features into
+# CTC, speech classification, LAS, the copy task, featurizer variants)
+
+# Speech Commands v2's 35 words (the class count of its recipes)
+SPEECH_COMMANDS = (
+    "backward bed bird cat dog down eight five follow forward four go "
+    "happy house learn left marvin nine no off on one right seven sheila "
+    "six stop three tree two up visual wow yes zero").split()
+CLASSIFY_CLIPS = 64
+CLASSIFY_FRAMES = 128      # speech-command recipes crop or pad to 128
+LAS_HIDDEN = 512           # a cut: the repo ships no LAS configuration
+LAS_SPECIALS = 3           # pad 0, bos 1, eos 2, then the anchor's labels
+LAS_BEAM, LAS_MAX_LEN = 8, 200
+LAS_TF_TOL = 1e-4          # teacher-forced log-probs, card vs CPU, fp32
+# spectrogram / MFCC, card vs CPU (tests/test_torch_variants.py's bars):
+# power within 1e-5 of each frame's largest (and so is each from an fp64
+# chain); features within 2e-4 on the bins at or above 1e-6 of their
+# frame's largest power
+VARIANT_POWER_RTOL, VARIANT_TOL, VARIANT_WELL = 1e-5, 2e-4, 1e-6
+KERNEL_NAMES = ("log_mel_frontend", "frontend_fast", "repeat_block",
+                "beam_search", "ctc_alpha", "ctc_beta")
+
+
+def _kernel_wrappers():
+    from vietasr_tpu_torch.frontend import cuda_frontend as cf
+    from vietasr_tpu_torch.ops import fused_ctc as fc
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+
+    return dict(zip(KERNEL_NAMES, (
+        cf.fused_log_mel_features, cf.log_mel_tiles_fast_cuda,
+        fused_repeat_block, fused_beam_search, fc.fused_ctc_alpha,
+        fc.fused_ctc_beta)))
+
+
+def reset_all_launches():
+    for f in _kernel_wrappers().values():
+        f.launches = 0
+
+
+def all_launches() -> dict:
+    return {k: f.launches for k, f in _kernel_wrappers().items()}
+
+
+def check_launches(kernels, path: str, launches: dict, want: dict) -> None:
+    """`launches` of every kernel equal `want` (0 where not named); then
+    recorded as the kernels' path_launches[path]."""
+    full = {k: want.get(k, 0) for k in KERNEL_NAMES}
+    check(launches == full, f"{path}: launches {launches}, want {full}")
+    add_path_launches(kernels, path, launches)
+
+
+def padded_batch(np, signals, samples):
+    batch = np.zeros((len(signals), samples), np.float32)
+    for row, s in enumerate(signals):
+        batch[row, :len(s)] = s[:samples]
+    return batch, np.array([min(len(s), samples) for s in signals], np.int32)
+
+
+def encoder_output(variables, ecfg, compute_dtype, feats, flens):
+    """A QuartzNet encoder's last block output (B, T', C), taken at the
+    head's 1x1 call site through the `pw_fn` hook (JAX offers no other
+    way to it); the per-op blocks run, as in JAX, since the fused route
+    needs the default pw_fn. Returns (encoded, enc_lens)."""
+    from vietasr_tpu_torch.models.layers import pointwise_conv
+    from vietasr_tpu_torch.models.quartznet import quartznet_apply
+
+    seen = {}
+
+    def capture(tag, x, w):
+        if tag == "dec":
+            seen["enc"] = x
+        return pointwise_conv(x, w)
+
+    _, enc_lens = quartznet_apply(variables, feats, flens, cfg=ecfg,
+                                  compute_dtype=compute_dtype, pw_fn=capture)
+    return seen["enc"], enc_lens
+
+
+def cm_scp(path, records) -> str:
+    """An scp for a CM ark written by write_compressed_ark: each record's
+    offset, past its "key " (the CM record's layout: "\\0BCM ", 16 bytes of
+    global header, 8 per column, one per element)."""
+    lines, pos = [], 0
+    for key, mat in records.items():
+        pos += len(key.encode("utf-8")) + 1
+        lines.append(f"{key} {path}:{pos}")
+        rows, cols = mat.shape
+        pos += 5 + 16 + 8 * cols + rows * cols
+    scp = path + ".scp"
+    with open(scp, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return scp
+
+
+def cm_error_bounds(np, ark):
+    """Per record and column, half a code step of the widest of the three
+    CM segments as the file's header decodes them, and the header's own
+    fp32 rounding: {key: (cols,) bound}."""
+    import struct
+
+    out = {}
+    with open(ark, "rb") as f:
+        data = f.read()
+    pos = 0
+    while pos < len(data):
+        sp = data.index(b" ", pos)
+        key = data[pos:sp].decode("utf-8")
+        pos = sp + 1 + 5
+        mn, rng = struct.unpack("<ff", data[pos:pos + 8])
+        rows, cols = struct.unpack("<ii", data[pos + 8:pos + 16])
+        pos += 16
+        hdr = np.frombuffer(data[pos:pos + 8 * cols], "<u2").reshape(cols, 4)
+        pos += 8 * cols + rows * cols
+        p = mn + rng * hdr.astype(np.float64) / 65535.0
+        half = np.maximum.reduce([(p[:, 1] - p[:, 0]) / 128.0,
+                                  (p[:, 2] - p[:, 1]) / 256.0,
+                                  (p[:, 3] - p[:, 2]) / 126.0])
+        out[key] = half + 4 * 2.0 ** -24 * (abs(mn) + abs(rng))
+    return out
+
+
+def kaldi_ctc_phase(np, torch, dev, signals, kernels, tmp):
+    """Phase 14a: phase 5's 16 signals featurized in one padded batch on
+    the frontend kernel, written as an FM ark + scp and a CM ark with a
+    text file of VI_CORPUS lines, read back through KaldiFeatureDataset,
+    padded to the in-memory batch's frames and forwarded through the anchor
+    on the repeat kernel, decoded by greedy_transcripts."""
+    from vietasr_tpu_torch.audio import kaldi
+    from vietasr_tpu_torch.audio.tokenizer import CharTokenizer
+    from vietasr_tpu_torch.models import quartznet as qn
+    from vietasr_tpu_torch.ops.greedy import greedy_transcripts
+    from vietasr_tpu_torch.pipeline import Transcriber
+
+    tr = Transcriber(CONFIG, checkpoint=ANCHOR)
+    fcfg, ecfg = tr.cfg.featurizer, tr.cfg.encoder
+    labels = tr.cfg.labels
+    batch, lens_np = padded_batch(np, signals, tr.buckets[-1])
+    sig = torch.from_numpy(batch).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    audio_s = float(lens_np.sum()) / fcfg.sample_rate
+
+    def forward(feats, flens):
+        return qn.quartznet_apply(tr.variables, feats, flens, cfg=ecfg,
+                                  compute_dtype=tr.compute_dtype)
+
+    tr._featurize(sig, lens)
+    forward(*tr._featurize(sig, lens))          # warm-up
+    torch.cuda.synchronize()
+    reset_all_launches()
+    feats, flens = tr._featurize(sig, lens)
+    front_launches = all_launches()
+    records = {f"utt{i:02d}": feats[i, :int(flens[i])].cpu().numpy()
+               for i in range(len(signals))}
+    check(not bool(torch.stack([feats[i, int(flens[i]):].abs().sum()
+                                for i in range(len(signals))]).any()),
+          "kaldi_ctc: the in-memory features are not zero past seq_len")
+    fm_ark = os.path.join(tmp, "feats.ark")
+    fm_scp = os.path.join(tmp, "feats.scp")
+    cm_ark = os.path.join(tmp, "feats_cm.ark")
+    text = os.path.join(tmp, "text")
+    kaldi.write_ark(fm_ark, records, fm_scp)
+    kaldi.write_compressed_ark(cm_ark, records)
+    with open(text, "w", encoding="utf-8") as f:
+        f.writelines(f"{k} {VI_CORPUS[i]}\n" for i, k in enumerate(records))
+    tok = CharTokenizer(labels)
+
+    def read(scp):
+        t0 = time.perf_counter()
+        ds = kaldi.KaldiFeatureDataset(scp, text, tok)
+        t = feats.shape[1]
+        x = np.zeros((len(ds), t, feats.shape[2]), np.float32)
+        n = np.zeros((len(ds),), np.int32)
+        for row in range(len(ds)):
+            _, m, _ = ds[row]
+            x[row, :len(m)] = m
+            n[row] = len(m)
+        out = (torch.from_numpy(x).to(dev), torch.from_numpy(n).to(dev))
+        return ds, out, (time.perf_counter() - t0) * 1e3
+
+    ds, (x_fm, n_fm), read_ms = read(fm_scp)
+    check(len(ds) == len(records) and ds.num_dropped == 0,
+          f"kaldi_ctc: the FM dataset holds {len(ds)}, dropped "
+          f"{ds.num_dropped}")
+    check(all(np.array_equal(ds[i][1], records[k])
+              and ds[i][0] == k and tok.decode(ds[i][2]) == VI_CORPUS[i]
+              for i, k in enumerate(records)),
+          "kaldi_ctc: the FM round trip is not bit for bit")
+    check(torch.equal(x_fm, feats) and torch.equal(n_fm, flens),
+          "kaldi_ctc: the padded FM batch differs from the in-memory one")
+    calls, undo = record_repeat_calls(qn)
+    try:
+        lp_fm, el_fm = forward(x_fm, n_fm)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check_launches(kernels, "kaldi_ctc", launches,
+                   {"log_mel_frontend": 1, "repeat_block": 13})
+    check(front_launches["log_mel_frontend"] == 1,
+          f"kaldi_ctc: featurizing launched {front_launches}")
+    f_err = hold_frontend(torch, fcfg, sig, lens, feats, flens, "kaldi_ctc")
+    r_err = hold_repeat(calls, "kaldi_ctc")
+    check(len(calls) == 13, f"kaldi_ctc: {len(calls)} repeat calls")
+    lp_mem, el_mem = forward(feats, flens)
+    check(torch.equal(lp_fm, lp_mem) and torch.equal(el_fm, el_mem),
+          "kaldi_ctc: log-probs from the FM ark differ from the in-memory "
+          "features'")
+    texts = greedy_transcripts(lp_fm, el_fm, labels)
+
+    ds_cm, (x_cm, n_cm), read_cm_ms = read(cm_scp(cm_ark, records))
+    bounds = cm_error_bounds(np, cm_ark)
+    worst = 0.0
+    for i, k in enumerate(records):
+        err = np.abs(ds_cm[i][1] - records[k]).max(axis=0)
+        worst = max(worst, float((err / bounds[k]).max()))
+    check(worst <= 1.0, f"kaldi_ctc: CM decode error {worst} x its bound")
+    lp_cm, el_cm = forward(x_cm, n_cm)
+    agree_cm = float(sum((lp_cm[i, :n].argmax(-1) == lp_fm[i, :n].argmax(-1))
+                         .sum() for i, n in enumerate(el_fm.tolist()))
+                     / float(el_fm.sum()))
+    cm_texts = greedy_transcripts(lp_cm, el_cm, labels)
+
+    fwd_ms = interleaved_ms(torch, {"fwd": lambda: forward(x_fm, n_fm)},
+                            rounds=3, reps=5)["fwd"]
+    print(f"phase 14a kaldi -> CTC: 16 signals ({audio_s:.1f} audio-s) -> "
+          f"features {tuple(feats.shape)}; FM ark + scp and CM ark of "
+          f"{os.path.getsize(fm_ark)} / {os.path.getsize(cm_ark)} bytes; "
+          f"FM round trip bit for bit, log-probs from the FM ark equal the "
+          f"in-memory forward's: True; launches {launches}; frontend vs "
+          f"plain max|d| {f_err:.3e} (tol {FRONTEND_TOL}), repeat max|d| / "
+          f"max|want| {r_err:.3e} (tol {REPEAT_TOL_REL:.3e}) over 13 "
+          f"launches at B = {x_fm.shape[0]} x T = {x_fm.shape[1]}")
+    print(f"phase 14a CM: decode error max {worst:.4f} x (half a code step "
+          f"of the column's widest segment + fp32 header rounding); frame "
+          f"argmax agreement with the FM path {agree_cm:.4f}; transcripts "
+          f"equal {sum(a == b for a, b in zip(texts, cm_texts))}/"
+          f"{len(texts)}; ms: FM read {read_ms:.2f}, CM read "
+          f"{read_cm_ms:.2f}, forward {fwd_ms:.3f} (host clock, median); "
+          f"{audio_s / ((read_ms + fwd_ms) / 1e3):.1f} audio-s/s read + "
+          f"forward, {audio_s / (fwd_ms / 1e3):.1f} forward alone")
+    return tr
+
+
+def write_commands(np, folder):
+    """CLASSIFY_CLIPS seeded 1 s PCM16 WAVs named for SPEECH_COMMANDS
+    labels (every label at least once): [ManifestEntry]."""
+    from scipy.io import wavfile
+
+    from vietasr_tpu_torch.audio.manifest import ManifestEntry
+
+    rng = np.random.RandomState(14)
+    names = list(SPEECH_COMMANDS) + list(rng.choice(
+        SPEECH_COMMANDS, CLASSIFY_CLIPS - len(SPEECH_COMMANDS)))
+    entries = []
+    for i, name in enumerate(names):
+        path = os.path.join(folder, f"cmd{i:02d}.wav")
+        x = (rng.randn(16000) * 0.1 * 32767).clip(-32768, 32767)
+        wavfile.write(path, 16000, x.astype(np.int16))
+        entries.append(ManifestEntry(path, 1.0, name))
+    return entries
+
+
+def classify_phase(np, torch, dev, tr, kernels, tmp):
+    """Phase 14b: 64 clips through AudioLabelDataset into one B = 64 batch,
+    the log-mel on the frontend kernel, crop_or_pad_spectrogram to 128
+    frames, the anchor's encoder output (pw_fn capture: per-op blocks, no
+    repeat launch), the classifier head (1024 -> 35, seed 0) with avg and
+    max pooling, cross entropy and top-1 / top-5 accuracy; bf16 against
+    the same path in fp32."""
+    from vietasr_tpu_torch.audio.dataset import AudioLabelDataset
+    from vietasr_tpu_torch.frontend.variants import crop_or_pad_spectrogram
+    from vietasr_tpu_torch.models.classifier import (classification_accuracy,
+                                                     classifier_apply,
+                                                     init_classifier_head)
+    from vietasr_tpu_torch.ops.losses import cross_entropy_loss
+    from vietasr_tpu_torch.utils.device import strict_fp32
+
+    ds = AudioLabelDataset(write_commands(np, tmp), SPEECH_COMMANDS)
+    check(len(ds) == CLASSIFY_CLIPS and ds.num_dropped == 0,
+          f"classify: dataset of {len(ds)}, dropped {ds.num_dropped}")
+    items = [ds[i] for i in range(len(ds))]
+    batch, lens_np = padded_batch(np, [s for s, _ in items], 16000)
+    sig = torch.from_numpy(batch).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    target = torch.tensor([l for _, l in items], device=dev)
+    c = tr.variables["params"]["decoder"]["w"].shape[0]
+    head = init_classifier_head(torch.Generator(device=dev).manual_seed(0),
+                                c, len(SPEECH_COMMANDS), device=dev)
+
+    def run(variables=tr.variables, dtype=tr.compute_dtype):
+        feats, flens = tr._featurize(sig, lens)
+        feats, flens = crop_or_pad_spectrogram(
+            feats, flens, audio_length=CLASSIFY_FRAMES)
+        enc, enc_lens = encoder_output(variables, tr.cfg.encoder, dtype,
+                                       feats, flens)
+        out = {"feats": feats, "flens": flens}
+        for pooling in ("avg", "max"):
+            logits = classifier_apply(head, enc.float(), enc_lens,
+                                      pooling=pooling)
+            out[pooling] = (logits, cross_entropy_loss(logits, target),
+                            classification_accuracy(logits, target, (1, 5)))
+        return out
+
+    run()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check_launches(kernels, "classify", launches, {"log_mel_frontend": 1})
+    feats, flens = tr._featurize(sig, lens)     # the kernel vs its plain
+    f_err = hold_frontend(torch, tr.cfg.featurizer, sig, lens, feats, flens,
+                          "classify")
+    check(got["feats"].shape == (CLASSIFY_CLIPS, CLASSIFY_FRAMES,
+                                 tr.cfg.featurizer.features)
+          and bool((got["flens"] == CLASSIFY_FRAMES).all()),
+          f"classify: crop_or_pad gave {tuple(got['feats'].shape)}")
+    with strict_fp32():
+        ref = run(tr._float_variables, None)
+    ms = interleaved_ms(torch, {"batch": run}, rounds=3, reps=3)["batch"]
+    for pooling in ("avg", "max"):
+        logits, loss, acc = got[pooling]
+        ref_logits = ref[pooling][0]
+        check(bool(torch.isfinite(loss)) and bool(torch.isfinite(logits)
+                                                  .all()),
+              f"classify {pooling}: loss {float(loss)}")
+        d = float((logits - ref_logits).abs().max())
+        agree = float((logits.argmax(-1) == ref_logits.argmax(-1))
+                      .float().mean())
+        print(f"phase 14b classify ({pooling} pooling): B = "
+              f"{CLASSIFY_CLIPS} x 1 s -> {CLASSIFY_FRAMES} frames, logits "
+              f"{tuple(logits.shape)}; bf16 vs fp32 max|d logit| {d:.4e}, "
+              f"argmax agreement {agree:.4f}; cross entropy "
+              f"{float(loss):.4f} (fp32 {float(ref[pooling][1]):.4f}); "
+              f"top-1 / top-5 accuracy {acc[0]:.4f} / {acc[1]:.4f} (random "
+              f"weights)")
+    print(f"phase 14b classify: launches {launches}; frontend vs plain "
+          f"max|d| {f_err:.3e}; {ms:.3f} ms a batch (featurize, crop, "
+          f"encoder, both heads, loss and accuracy; host clock, median)")
+
+
+def las_parts(torch, gen, c_in, vocab, dev):
+    from vietasr_tpu_torch.models import seq2seq as s2s
+
+    return {"conn": s2s.init_jasper_rnn_connector(gen, c_in, LAS_HIDDEN,
+                                                  device=dev),
+            "enc": s2s.init_encoder_rnn(gen, LAS_HIDDEN, LAS_HIDDEN,
+                                        device=dev),
+            "dec": s2s.init_decoder_rnn(gen, vocab, LAS_HIDDEN, device=dev)}
+
+
+def las_encode(parts, encoded, enc_lens):
+    from vietasr_tpu_torch.models import seq2seq as s2s
+
+    x, _ = s2s.jasper_rnn_connector_apply(parts["conn"], encoded, enc_lens)
+    return s2s.encoder_rnn_apply(parts["enc"], x, enc_lens)
+
+
+def las_phase(np, torch, dev, tr, signals, kernels):
+    """Phase 14c: phase 5's B = 8 x 16.7 s batch on the frontend kernel,
+    the anchor's encoder output (pw_fn capture), the connector 1024 ->
+    512 (eval), a GRU encoder 512 -> 512 and the attention decoder
+    (hidden 512, vocab 93), seed 0; greedy_generate and beam_generate
+    (W = 8, max_len 200) and las_evaluate against VI_CORPUS; the
+    teacher-forced log-probs and greedy tokens in fp32 against the same
+    calls on the CPU."""
+    from vietasr_tpu_torch.models import seq2seq as s2s
+    from vietasr_tpu_torch.models.quartznet import map_tree
+    from vietasr_tpu_torch.utils.device import strict_fp32
+
+    labels = tr.cfg.labels
+    vocab = LAS_SPECIALS + len(labels)
+    bos, eos = 1, 2
+    batch, lens_np = padded_batch(np, signals[:8], tr.buckets[-1])
+    sig = torch.from_numpy(batch).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    refs = VI_CORPUS[:8]
+    c = tr.variables["params"]["decoder"]["w"].shape[0]
+    parts = las_parts(torch, torch.Generator(device=dev).manual_seed(0), c,
+                      vocab, dev)
+
+    def encode():
+        feats, flens = tr._featurize(sig, lens)
+        enc, enc_lens = encoder_output(tr.variables, tr.cfg.encoder,
+                                       tr.compute_dtype, feats, flens)
+        return feats, flens, enc.float(), enc_lens
+
+    encode()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    feats, flens, enc, enc_lens = encode()
+    with torch.no_grad():
+        outs, h = las_encode(parts, enc, enc_lens)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check_launches(kernels, "las", launches, {"log_mel_frontend": 1})
+    f_err = hold_frontend(torch, tr.cfg.featurizer, sig, lens, feats, flens,
+                          "las")
+    kw = dict(bos_id=bos, eos_id=eos, max_len=LAS_MAX_LEN)
+    times = {}
+    with torch.no_grad():
+        for name in ("greedy", "beam"):
+            extra = {"beam_width": LAS_BEAM} if name == "beam" else {}
+            fn = s2s.greedy_generate if name == "greedy" \
+                else s2s.beam_generate
+            fn(parts["dec"], h, outs, enc_lens, **kw, **extra)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, second = fn(parts["dec"], h, outs, enc_lens, **kw, **extra)
+            torch.cuda.synchronize()
+            times[name] = ((time.perf_counter() - t0) * 1e3, toks, second)
+    ev = s2s.las_evaluate(times["beam"][1], refs,
+                          [""] * LAS_SPECIALS + list(labels), eos_id=eos)
+    check(all(np.isfinite([ev["wer"], ev["cer"]])),
+          f"las: WER / CER {ev['wer']} / {ev['cer']}")
+
+    # fp32 on the card vs the same calls on the CPU
+    ids = [[bos] + [LAS_SPECIALS + labels.index(ch) for ch in r]
+           for r in refs]
+    width = max(map(len, ids))
+    tgt = torch.tensor([r + [0] * (width - len(r)) for r in ids],
+                       dtype=torch.int32)
+    cpu = torch.device("cpu")
+    parts_cpu = map_tree(lambda t: t.to(cpu), parts)
+    with torch.no_grad(), strict_fp32():
+        outs_d, h_d = las_encode(parts, enc, enc_lens)
+        lp_d = s2s.decoder_rnn_apply(parts["dec"], tgt.to(dev), h_d, outs_d,
+                                     enc_lens)
+        greedy_d, glen_d = s2s.greedy_generate(parts["dec"], h_d, outs_d,
+                                               enc_lens, **kw)
+    with torch.no_grad():
+        outs_c, h_c = las_encode(parts_cpu, enc.cpu(), enc_lens.cpu())
+        lp_c = s2s.decoder_rnn_apply(parts_cpu["dec"], tgt, h_c, outs_c,
+                                     enc_lens.cpu())
+        greedy_c, glen_c = s2s.greedy_generate(parts_cpu["dec"], h_c, outs_c,
+                                               enc_lens.cpu(), **kw)
+    tf_err = float((lp_d.cpu() - lp_c).abs().max())
+    check(tf_err <= LAS_TF_TOL, f"las: teacher-forced log-probs card vs CPU "
+          f"max|d| {tf_err} > {LAS_TF_TOL}")
+    same = torch.equal(greedy_d.cpu(), greedy_c)
+    if same:
+        diverge = "none"
+    else:
+        diff = (greedy_d.cpu() != greedy_c).any(0).nonzero()
+        diverge = f"step {int(diff[0])}"
+    g_ms, b_ms = times["greedy"][0], times["beam"][0]
+    print(f"phase 14c LAS: encoder output {tuple(enc.shape)} (frames "
+          f"{int(enc_lens.min())}-{int(enc_lens.max())}) -> connector "
+          f"{c} -> {LAS_HIDDEN} -> GRU {LAS_HIDDEN} -> decoder {LAS_HIDDEN} "
+          f"x {vocab}; launches {launches}; frontend vs plain max|d| "
+          f"{f_err:.3e}; greedy {g_ms:.1f} ms ({g_ms / LAS_MAX_LEN:.3f} ms "
+          f"a step), beam W = {LAS_BEAM} {b_ms:.1f} ms "
+          f"({b_ms / LAS_MAX_LEN:.3f} ms a step), {LAS_MAX_LEN} steps; "
+          f"greedy lengths {times['greedy'][2].tolist()}; las_evaluate on "
+          f"the beam: WER {ev['wer']:.3f} CER {ev['cer']:.3f} (random "
+          f"weights, a smoke value)")
+    print(f"phase 14c LAS fp32 card vs CPU: teacher-forced log-probs "
+          f"{tuple(lp_d.shape)} max|d| {tf_err:.3e} (tol {LAS_TF_TOL}); "
+          f"greedy tokens equal: {same} (first divergence: {diverge}); "
+          f"greedy lengths equal: {torch.equal(glen_d.cpu(), glen_c)}")
+
+
+def copy_task_phase(np, torch, dev):
+    """Phase 14d: the copy task trained on the card."""
+    t0 = time.perf_counter()
+    out = copy_task(np, torch, dev)
+    check(out["loss"] < COPY_LOSS_MAX and out["greedy_acc"] > COPY_ACC_MIN
+          and out["beam_acc"] > COPY_ACC_MIN and out["beam_scores_finite"],
+          f"copy task: {out}")
+    print(f"phase 14d copy task on the card: {COPY_STEPS} Adam steps, loss "
+          f"{out['loss']:.4f} (< {COPY_LOSS_MAX}), greedy accuracy "
+          f"{out['greedy_acc']:.3f}, beam (W = 4) {out['beam_acc']:.3f} "
+          f"(> {COPY_ACC_MIN}), {time.perf_counter() - t0:.1f} s")
+
+
+def variants_phase(np, torch, dev, tr, signals):
+    """Phase 14e: the spectrogram and MFCCs (64 coefficients) at the
+    anchor's featurizer on phase 5's B = 8 x 16.7 s batch, card vs CPU,
+    timed beside the frontend kernel's log-mel."""
+    from vietasr_tpu_torch.frontend import variants
+    from vietasr_tpu_torch.frontend.features import (_windowed_dft_matrix,
+                                                     preemphasize_and_pad)
+    from vietasr_tpu_torch.utils.device import strict_fp32
+
+    cfg = tr.cfg.featurizer
+    batch, lens_np = padded_batch(np, signals[:8], tr.buckets[-1])
+    sig_c, lens_c = torch.from_numpy(batch), torch.from_numpy(lens_np)
+    sig, lens = sig_c.to(dev), lens_c.to(dev)
+    spec = variants.make_spectrogram_featurizer(cfg, device=dev)
+    mfcc = variants.make_mfcc_featurizer(cfg, 64, device=dev)
+    with strict_fp32():
+        s_d, s_len = spec(sig, lens)
+        m_d, _ = mfcc(sig, lens)
+        dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
+        p_d = variants._power_spectrum(sig, cfg, dft)
+        spec64 = preemphasize_and_pad(sig.double(), cfg).unfold(
+            1, cfg.fft_length, cfg.hop_length) @ dft.double()
+        n_bins = cfg.fft_length // 2 + 1
+        p64 = spec64[..., :n_bins] ** 2 + spec64[..., n_bins:] ** 2
+    s_c, _ = variants.make_spectrogram_featurizer(cfg, device="cpu")(sig_c,
+                                                                     lens_c)
+    m_c, _ = variants.make_mfcc_featurizer(cfg, 64, device="cpu")(sig_c,
+                                                                  lens_c)
+    p_c = variants._power_spectrum(sig_c, cfg, dft.cpu())
+    p64 = p64.cpu()
+    scale = p64.max(dim=-1, keepdim=True).values
+    valid = (torch.arange(p64.shape[1])[None, :, None]
+             < s_len.cpu()[:, None, None]).expand(p64.shape)
+    p_err = float(((p_d.cpu() - p_c).abs() / scale.float())[valid].max())
+    check(p_err <= VARIANT_POWER_RTOL, f"variants: power {p_err}")
+    well = valid & (p64 >= VARIANT_WELL * scale)
+    s_err = (s_d.cpu() - s_c).abs()
+    check(float(s_err[well].max()) <= VARIANT_TOL,
+          f"variants: spectrogram {float(s_err[well].max())}")
+    m_err = float((m_d.cpu() - m_c).abs().max())
+    check(m_err <= VARIANT_TOL, f"variants: MFCC {m_err}")
+    # the fp32 power and the unnormalized log power vs an fp64 chain, card
+    # and CPU: the power is held (relative to each frame's largest); the
+    # log's largest distance sits at the odd bin ~1e-8 of its frame's
+    # largest power, where either fp32 product's last bits decide it, and
+    # is printed
+    import dataclasses
+
+    p64_err = {k: float(((p.cpu().double() - p64).abs() / scale)[valid]
+                        .max()) for k, p in (("card", p_d), ("cpu", p_c))}
+    check(max(p64_err.values()) <= VARIANT_POWER_RTOL,
+          f"variants: power vs fp64 {p64_err}")
+    raw = dataclasses.replace(cfg, normalize="")
+    with strict_fp32():
+        r_d, _ = variants.spectrogram_features(sig, lens, cfg=raw,
+                                               dft_matrix=dft)
+    r_c, _ = variants.spectrogram_features(sig_c, lens_c, cfg=raw,
+                                           dft_matrix=dft.cpu())
+    ref = torch.log(p64 + raw.log_zero_guard_value).float()
+    d_card = float((r_d.cpu() - ref).abs()[valid].max())
+    d_cpu = float((r_c - ref).abs()[valid].max())
+    with strict_fp32():
+        ms = {"spectrogram": event_ms(lambda: spec(sig, lens), reps=10),
+              "mfcc": event_ms(lambda: mfcc(sig, lens), reps=10),
+              "log_mel": event_ms(lambda: tr._featurize(sig, lens),
+                                  reps=10)}
+        ms["kernel"], seen, _ = kernel_ms(lambda: tr._featurize(sig, lens),
+                                          "logmel_kernel", reps=10)
+    how = "CUPTI" if seen == 1 else \
+        f"events: the trace saw {seen:g} of its 1 launch a call"
+    print(f"phase 14e variants at B = 8 x 16.7 s: spectrogram "
+          f"{tuple(s_d.shape)}, MFCC {tuple(m_d.shape)}; card vs CPU: power "
+          f"max|d| / frame max {p_err:.3e} (tol {VARIANT_POWER_RTOL}), "
+          f"spectrogram max|d| {float(s_err[well].max()):.3e} on bins >= "
+          f"{VARIANT_WELL} of the frame max ({float(s_err[valid].max()):.3e}"
+          f" on all), MFCC max|d| {m_err:.3e} (tol {VARIANT_TOL}); from an "
+          f"fp64 chain: power / frame max card {p64_err['card']:.3e}, CPU "
+          f"{p64_err['cpu']:.3e}, log power max|d| card {d_card:.3e}, CPU "
+          f"{d_cpu:.3e}; ms (CUDA events): "
+          f"spectrogram {ms['spectrogram']:.4f}, MFCC {ms['mfcc']:.4f}, the "
+          f"fused featurizer's log-mel {ms['log_mel']:.4f} (its frontend "
+          f"kernel alone {ms['kernel']:.4f}, {how})")
+
+
+def phase14(np, torch, dev, signals, kernels):
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = kaldi_ctc_phase(np, torch, dev, signals, kernels, tmp)
+        print(f"phase 14a done in {time.perf_counter() - t0:.1f} s")
+        classify_phase(np, torch, dev, tr, kernels, tmp)
+        print(f"phase 14b done in {time.perf_counter() - t0:.1f} s")
+    las_phase(np, torch, dev, tr, signals, kernels)
+    print(f"phase 14c done in {time.perf_counter() - t0:.1f} s")
+    copy_task_phase(np, torch, dev)
+    print(f"phase 14d done in {time.perf_counter() - t0:.1f} s")
+    variants_phase(np, torch, dev, tr, signals)
+    print(f"phase 14e done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4207,6 +4910,8 @@ def main() -> int:
     print(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     phase13(np, torch, dev, kernels)
     print(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
+    phase14(np, torch, dev, signals, kernels)
+    print(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -332,8 +332,32 @@ def case_tp(rank, world, store, payload):
     return out
 
 
+def case_logging(rank, world, store, payload):
+    """utils/logging.py and utils/exp_manager.py under a process group: the
+    logger's rank, its console and per-rank file, and an ExpManager with
+    a timestamp every rank shares, written by rank 0 only."""
+    import logging
+
+    from vietasr_tpu_torch.utils import ExpManager, get_logger
+    from vietasr_tpu_torch.utils.logging import _process_index
+
+    os.environ["RANK"] = "7"         # the group's rank takes precedence
+    _join(store, rank, world)
+    logger = get_logger(log_file=os.path.join(payload["dir"], "log-%r.txt"))
+    logger.info("hello from rank %d", rank)
+    for h in logger.handlers:
+        h.flush()
+    exp = ExpManager(os.path.join(payload["dir"], "exp"))
+    exp.log_metrics({"loss": 1.5 + rank}, step=rank)
+    exp.close()
+    return {"rank": _process_index(),
+            "console": sum(type(h) is logging.StreamHandler
+                           for h in logger.handlers),
+            "work_dir": exp.work_dir, "is_main": exp.is_main}
+
+
 CASES = {"helpers": case_helpers, "dp": case_dp, "cli": case_cli,
-         "tp": case_tp}
+         "tp": case_tp, "logging": case_logging}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Manifest dataset and the static-shape bucketing batcher (counterpart of
-vietasr_tpu/audio/dataset.py; its label and transcript datasets come with
-the heads that use them).
+"""Manifest datasets and the static-shape bucketing batcher (counterpart of
+vietasr_tpu/audio/dataset.py): audio + transcript, audio + class label
+(models/classifier.py) and tokenized text lines.
 
 The host side stays numpy, as in the JAX package, with the same seeded
 `np.random.RandomState` shuffle, so the same manifest and seed give the
@@ -253,6 +253,69 @@ class RankBatcher(BucketBatcher):
         lo = self.rank * self.local_batch
         return super()._make_batch(indices[lo: lo + self.local_batch],
                                    bucket_idx, rows=self.local_batch)
+
+
+class AudioLabelDataset:
+    """Audio + one class label (speech commands, language ID). A manifest
+    entry's text, stripped, names its label; entries whose label is not in
+    `labels` are dropped and counted in `num_dropped`."""
+
+    def __init__(self, entries: Sequence[ManifestEntry],
+                 labels: Sequence[str], *, sample_rate: int = 16000,
+                 trim: bool = False, augmentor=None):
+        self.labels = list(labels)
+        self.label2id = {l: i for i, l in enumerate(self.labels)}
+        self.sample_rate = sample_rate
+        self.trim = trim
+        self.augmentor = augmentor
+        self.entries: List[ManifestEntry] = []
+        self.label_ids: List[int] = []
+        self.num_dropped = 0
+        for e in entries:
+            lid = self.label2id.get(e.text.strip())
+            if lid is None:
+                self.num_dropped += 1
+                continue
+            self.entries.append(e)
+            self.label_ids.append(lid)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:
+        e = self.entries[i]
+        samples, _ = read_audio(
+            e.audio_file, target_sr=self.sample_rate,
+            offset=e.offset or 0.0, duration=e.duration, trim=self.trim)
+        if self.augmentor is not None:
+            samples = self.augmentor(samples, self.sample_rate)
+        return samples.astype(np.float32), self.label_ids[i]
+
+
+class TranscriptDataset:
+    """Tokenized text lines, one item a line (empty lines skipped), with
+    `bos_id` / `eos_id` prepended / appended when given."""
+
+    def __init__(self, path: str, tokenizer: CharTokenizer, *,
+                 bos_id: Optional[int] = None,
+                 eos_id: Optional[int] = None):
+        self.items: List[List[int]] = []
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                ids = tokenizer.encode(line.strip())
+                if not ids:
+                    continue
+                if bos_id is not None:
+                    ids = [bos_id] + ids
+                if eos_id is not None:
+                    ids = ids + [eos_id]
+                self.items.append(ids)
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, i: int) -> List[int]:
+        return self.items[i]
 
 
 def batch_sample_stats(batcher: BucketBatcher) -> dict:

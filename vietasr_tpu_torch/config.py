@@ -5,7 +5,8 @@ Conformer config needs).
 Reads the section-per-component YAML shape (`AudioToTextDataLayer`,
 `AudioToMelSpectrogramPreprocessor`, `SpectrogramAugmentation`,
 `JasperEncoder` or `ConformerEncoder`, `labels`), so the same file loads
-here and in the JAX package.
+here and in the JAX package, and writes it back (`config_to_dict`,
+`save_config`) as the JAX package writes it.
 """
 
 from __future__ import annotations
@@ -165,6 +166,37 @@ def load_config(path: str) -> ModelConfig:
     with open(path, "r", encoding="utf-8") as f:
         raw = yaml.safe_load(f)
     return config_from_dict(raw)
+
+
+def config_to_dict(cfg: ModelConfig) -> dict:
+    """The sectioned dict of `cfg`, in the JAX package's section and key
+    order; config_from_dict(config_to_dict(cfg)) == cfg."""
+    raw = {
+        "model": cfg.name,
+        "AudioToTextDataLayer": dataclasses.asdict(cfg.data),
+        "AudioToMelSpectrogramPreprocessor":
+            dataclasses.asdict(cfg.featurizer),
+        "SpectrogramAugmentation": dataclasses.asdict(cfg.spec_augment),
+        "JasperEncoder": {
+            "activation": cfg.encoder.activation,
+            "conv_mask": cfg.encoder.conv_mask,
+            "residual_mode": cfg.encoder.residual_mode,
+            "normalization_mode": cfg.encoder.normalization_mode,
+            "init_mode": cfg.encoder.init_mode,
+            "jasper": [dataclasses.asdict(b) for b in cfg.encoder.blocks],
+        },
+        "labels": list(cfg.labels),
+    }
+    if cfg.conformer is not None:
+        raw["ConformerEncoder"] = dataclasses.asdict(cfg.conformer)
+    return raw
+
+
+def save_config(cfg: ModelConfig, path: str) -> None:
+    """Write `cfg` as sectioned YAML (the bytes the JAX package writes)."""
+    with open(path, "w", encoding="utf-8") as f:
+        yaml.safe_dump(config_to_dict(cfg), f, allow_unicode=True,
+                       sort_keys=False)
 
 
 def config_from_dict(raw: dict) -> ModelConfig:

@@ -1,7 +1,7 @@
 from vietasr_tpu_torch.models.conformer import (conformer_apply,
                                                 init_conformer)
 from vietasr_tpu_torch.models.convert import load_anchor, params_from_jax
-from vietasr_tpu_torch.models.quartznet import (fold_batchnorm,
+from vietasr_tpu_torch.models.quartznet import (QuartzNet, fold_batchnorm,
                                                 init_quartznet,
                                                 quartznet_apply)
 
@@ -28,6 +28,6 @@ def model_apply(variables, feats, feat_lens, *, cfg, **kwargs):
                            **kwargs)
 
 
-__all__ = ["load_anchor", "params_from_jax", "fold_batchnorm",
+__all__ = ["QuartzNet", "load_anchor", "params_from_jax", "fold_batchnorm",
            "quartznet_apply", "init_quartznet", "init_conformer",
            "conformer_apply", "model_init", "model_apply"]

@@ -469,3 +469,27 @@ def cast_matmul_weights(variables: dict, compute_dtype: Optional[torch.dtype]
     return {"params": {"encoder": enc,
                        "decoder": variables["params"]["decoder"]},
             "batch_stats": variables.get("batch_stats", {})}
+
+
+class QuartzNet:
+    """An object facade over the functional API: init, apply and fold.
+    `apply` returns what `quartznet_apply` returns, (log_probs, out_lens)
+    in eval mode, where the JAX package's returns a third item, the
+    unchanged batch stats; with training=True both return three."""
+
+    def __init__(self, cfg: EncoderConfig, num_classes: int):
+        self.cfg = cfg
+        self.num_classes = num_classes
+
+    def init(self, generator: Optional[torch.Generator], *,
+             device=None) -> dict:
+        return init_quartznet(generator, self.cfg, self.num_classes,
+                              device=device)
+
+    def apply(self, variables: dict, feats: torch.Tensor,
+              feat_lens: torch.Tensor, **kw):
+        return quartznet_apply(variables, feats, feat_lens, cfg=self.cfg,
+                               **kw)
+
+    def fold(self, variables: dict) -> dict:
+        return fold_batchnorm(variables, self.cfg)

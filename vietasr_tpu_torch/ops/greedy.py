@@ -55,3 +55,10 @@ def ctc_collapse(pred_ids: Sequence[int], *, blank: int,
             out.append(int(p))
         prev = p
     return out
+
+
+def greedy_transcripts(log_probs: torch.Tensor, lengths: torch.Tensor,
+                       labels: Sequence[str]) -> List[str]:
+    """Greedy transcripts of a padded (B, T, len(labels) + 1) batch."""
+    preds, keep = greedy_decode(log_probs, lengths, blank=len(labels))
+    return [ids_to_text(ids, labels) for ids in collapse_batch(preds, keep)]

@@ -301,6 +301,18 @@ class SGD(_GuardedOptimizer):
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
 
+def novograd(learning_rate, betas=(0.95, 0.98), eps: float = 1e-8,
+             weight_decay: float = 0.0, grad_averaging: bool = False,
+             luc: bool = False, luc_trust: float = 1e-3,
+             luc_eps: float = 1e-8) -> OptimizerFactory:
+    """The JAX package's `novograd(...)` signature: a constructor of the
+    Novograd optimizer, to call on the parameters."""
+    return functools.partial(Novograd, lr=learning_rate, betas=betas,
+                             eps=eps, weight_decay=weight_decay,
+                             grad_averaging=grad_averaging, luc=luc,
+                             luc_trust=luc_trust, luc_eps=luc_eps)
+
+
 def make_optimizer(name: str, learning_rate, *, weight_decay: float = 0.0,
                    betas=None, momentum: float = 0.9,
                    grad_clip_norm: Optional[float] = None,

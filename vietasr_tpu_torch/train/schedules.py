@@ -52,6 +52,9 @@ def warmup_cosine(initial_lr: float, total_steps: int, *,
                         hold_steps, tail)
 
 
+warmup_hold_cosine = warmup_cosine
+
+
 def square_annealing(initial_lr: float, total_steps: int, *,
                      warmup_steps: int = 0, min_lr: float = 0.0) -> Schedule:
     def tail(step):

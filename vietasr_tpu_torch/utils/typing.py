@@ -50,6 +50,22 @@ def assert_labels(tokens, lengths=None, *, port: str = "targets"):
         _fail(f"{port}.lengths", f"({tokens.shape[0]},) int", lengths)
 
 
+def assert_features(feats, *, n_features: Optional[int] = None,
+                    port: str = "features"):
+    """(B, T, D) float features, channels last. A (B, D, T) tensor passed
+    by mistake is named as transposed."""
+    if feats.ndim != 3 or not _dtype_name(feats).startswith(
+            ("float", "bfloat")):
+        _fail(port, "(B, T, D) float features", feats)
+    if n_features is not None and feats.shape[2] != n_features:
+        if feats.shape[1] == n_features:
+            raise ContractError(
+                f"port {port!r}: axes look TRANSPOSED — expected channels "
+                f"last (B, T, {n_features}), got {tuple(feats.shape)} "
+                "(channels-first, the reference's torch layout)")
+        _fail(port, f"(B, T, {n_features}) features", feats)
+
+
 def assert_log_probs(log_probs, *, num_classes: Optional[int] = None,
                      port: str = "log_probs"):
     """(B, T, V+1) float log-probabilities (blank = last class)."""
