@@ -34,7 +34,14 @@ Phases, each of which raises on failure:
      and at two R > 1 shapes, at ragged and at full lengths: the rows per
      block and column groups each launch chose, the blocks it skipped as
      padding, its time; the library composition (cuDNN depthwise, two
-     cuBLAS bf16 matmuls) printed beside it as composition_ms
+     cuBLAS bf16 matmuls) printed beside it as composition_ms. R > 1
+     blocks take the whole-block kernel (csrc/repeat_whole_block.cu, one
+     launch a block over a cluster of up to 8 blocks): at QuartzNet15x5's
+     six R = 5 shapes (B = 8, T = 840), ragged and full lengths, it is
+     held to the plain version and timed beside the bound and the chain
+     of 5 one-repeat launches (a yardstick, held too), each launch's plan
+     printed (tile rows, cluster, blocks, skipped as padding, shared
+     memory, clusters the card holds at once)
   5. end to end: Transcriber on the anchor checkpoint in bf16 over 16
      seeded signals of 1.5-16.5 s, with the launch counters read around the
      run; log-probs held against a plain-path Transcriber on the same card.
@@ -217,8 +224,23 @@ Phases, each of which raises on failure:
      MFCCs within 2e-4; the power of each within 1e-5 of an fp64 chain's,
      the log power's distance from it printed), ms beside the frontend
      kernel's log-mel. Each path's
-     launches of all six kernels are counted (0 where not named):
+     launches of all seven kernels are counted (0 where not named):
      path_launches gain kaldi_ctc, classify and las
+  15. QuartzNet15x5 at full width (after 11): its YAML written into a
+     temporary directory (quartznet12x1_vi.yaml's sections with the
+     encoder of the QuartzNet paper's Table 1: C1 k33 s2, B1-B5 x 3
+     blocks of R = 5 at k 33-75, C2 k87 dilation 2, C3 k1 1024), the
+     Transcriber's seeded init (BN folded, bf16) over phase 5's 16
+     signals: greedy, 1 frontend and 15 whole-block launches a forward and
+     no one-repeat launch, every whole-block launch held to its plain
+     version on its own inputs, log-probs within E2E_LOGP_TOL of the
+     plain route, audio-s/s and idle share, then the same with the
+     R-launch chain patched in for the whole-block kernel (a yardstick,
+     75 one-repeat launches a forward); R = 5 blocks the whole-block plan
+     cannot take (16 -> 512, 512 -> 1024) run per op with no repeat
+     launch; decoder="device_beam" at W = 100 with the word 3-gram, 1
+     beam launch a call, the raw result bit for bit with the plain
+     search. path_launches gain qn15x5_greedy and qn15x5_device_beam
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -774,13 +796,15 @@ def repeat_bound_ms(bsz, t, c_in, c_out, k, r, has_res, rows):
 # QuartzNet12x1 at the 16.7 s bucket with B = 8 (the 64-row grids); the
 # 512-wide blocks at the grids of phase 5's three small forwards (B = 2 x
 # 6 s, B = 4 x 8 s, B = 2 x 11 s: 32-row blocks whose output columns split
-# over two blocks per tile); then two multi-repeat shapes
+# over two blocks per tile) and two 256-wide ones (32-row blocks, one
+# column group); then two multi-repeat shapes (the whole-block kernel)
 REPEAT_SHAPES = [(256, 256, 33, 1, 8, 840, 3), (256, 256, 39, 1, 8, 840, 3),
                  (256, 512, 51, 1, 8, 840, 1), (512, 512, 51, 1, 8, 840, 2),
                  (512, 512, 63, 1, 8, 840, 3), (512, 512, 75, 1, 8, 840, 1),
                  *((c_in, 512, k, 1, bsz, t, 0)
                    for bsz, t in ((2, 304), (4, 408), (2, 552))
                    for c_in, k in ((256, 51), (512, 63), (512, 75))),
+                 (256, 256, 33, 1, 2, 304, 0), (256, 256, 39, 1, 4, 408, 0),
                  (64, 64, 9, 3, 8, 100, 0), (32, 48, 7, 2, 8, 70, 0)]
 
 
@@ -810,20 +834,32 @@ def repeat_inputs(np, torch, dev, c_in, c_out, k, r, t, bsz=8, full=False):
 
 
 def repeat_launches(bsz, t, c_in, c_out, k, r, lens):
-    """[(time rows per block, column groups, blocks, blocks skipped as
-    padding)] of each of the block's R launches, as the kernel plans them
-    on this card."""
-    from vietasr_tpu_torch.ops.repeat_block import launch_plan
+    """R = 1: [(time rows per block, column groups, blocks, blocks skipped
+    as padding)] of the one-repeat kernel's launch, as it plans it on this
+    card. R >= 2: the whole-block kernel's one launch, [(tile rows, cluster
+    size, blocks, blocks skipped as padding, shared-memory bytes a block,
+    clusters the card holds at once)]."""
+    from vietasr_tpu_torch.ops.repeat_block import (
+        launch_plan, whole_block_clusters_at_once, whole_block_kernel_smem,
+        whole_block_plan)
 
     valid = lens.clamp(0, t).tolist()
-    out = []
-    for i in range(r):
-        tt, groups = launch_plan(i == 0, bsz, t, c_in if i == 0 else c_out,
-                                 c_out, c_in, i == r - 1, k)
-        tiles = -(-t // tt)
-        out.append((tt, groups, tiles * bsz * groups,
-                    groups * sum(tiles - -(-n // tt) for n in valid)))
-    return out
+    if r > 1:
+        plan = whole_block_plan(
+            bsz, t, c_in, c_out, k, r,
+            clusters_at_once=whole_block_clusters_at_once)
+        check(whole_block_kernel_smem(plan, k, r) == plan.smem_bytes,
+              f"whole-block plan {plan}: the kernel counts other shared "
+              "memory")
+        tt, n = plan.tile_rows, plan.cluster
+        return [(tt, n, plan.tiles * bsz * n,
+                 n * sum(plan.tiles - -(-v // tt) for v in valid),
+                 plan.smem_bytes,
+                 whole_block_clusters_at_once(n, plan.smem_bytes))]
+    tt, groups = launch_plan(True, bsz, t, c_in, c_out, c_in, True, k)
+    tiles = -(-t // tt)
+    return [(tt, groups, tiles * bsz * groups,
+             groups * sum(tiles - -(-n // tt) for n in valid))]
 
 
 def repeat_composition(torch, x, mask, dw_conv, pw, b, res_w, res_b, k):
@@ -869,10 +905,11 @@ def repeat_phase(np, torch, dev):
                   f"{what}: max|d| {err} > {REPEAT_TOL_REL} * {scale}")
             worst = max(worst, err)
             plan = repeat_launches(bsz, t, c_in, c_out, k, r, args[1])
-            plans.update(p[:2] for p in plan)
+            if r == 1:
+                plans.update(p[:2] for p in plan)
             ms, seen, ev_ms = kernel_ms(
-                lambda: fused_repeat_block(*args, kernel=k), "repeat_kernel",
-                launches=r)
+                lambda: fused_repeat_block(*args, kernel=k),
+                "repeat_kernel" if r == 1 else "whole_block_kernel")
             rows = int(args[1].clamp(0, t).sum())
             bound, bound_by = repeat_bound_ms(bsz, t, c_in, c_out, k, r,
                                               True, rows)
@@ -882,8 +919,7 @@ def repeat_phase(np, torch, dev):
                     f"({rows} valid rows): max|d| {err:.3e} (max|want| "
                     f"{scale:.3f}), {ms:.4f} ms ({seen:g} traced per call; "
                     f"events {ev_ms:.4f}), bound {bound:.4f} ms by "
-                    f"{bound_by}; launches (rows per block, column groups, "
-                    f"blocks, skipped as padding) {plan}")
+                    f"{bound_by}; launches {plan}")
             if not full:
                 plain_ms = device_ms(lambda: fused_repeat_block_plain(
                     *args, kernel=k))
@@ -912,6 +948,10 @@ def repeat_phase(np, torch, dev):
     check({(64, 1), (32, 1), (32, 2)} <= plans,
           f"repeat: phase 4 held only the launch plans {sorted(plans)} "
           "against the plain version")
+    print("repeat launches: R = 1 (rows per block, column groups, blocks, "
+          "skipped as padding); R > 1 the whole-block kernel (tile rows, "
+          "cluster, blocks, skipped as padding, smem bytes a block, clusters "
+          "the card holds at once)")
     print(f"composition_ms (F.conv1d fp32 + 2 bf16 matmuls + bias + ReLU, "
           f"13 blocks of one forward, ragged lengths): "
           f"{tot['composition_ms']:.4f}")
@@ -926,6 +966,109 @@ def repeat_phase(np, torch, dev):
             "bound_by": "/".join(sorted(bound_by_main)), "library_ms": None}
 
 
+# (C_in, C_out, K, blocks per forward): QuartzNet15x5's R = 5 blocks at the
+# 16.7 s bucket with B = 8 (T = 840 encoder frames)
+QN15X5_REPEAT_SHAPES = ((256, 256, 33, 3), (256, 256, 39, 3),
+                        (256, 512, 51, 1), (512, 512, 51, 2),
+                        (512, 512, 63, 3), (512, 512, 75, 3))
+
+
+def repeat_whole_phase(np, torch, dev):
+    """Phase 4 at R = 5: the whole-block kernel at QuartzNet15x5's six
+    block shapes (B = 8, T = 840), at ragged and at full lengths, held to
+    the plain version; its time beside the bound and beside the R-launch
+    chain of the one-repeat kernel (a yardstick, held too)."""
+    from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
+                                                    fused_repeat_block_plain,
+                                                    repeat_chain_cuda,
+                                                    repeat_whole_block_cuda)
+
+    bsz, t, r = 8, 840, 5
+    worst = 0.0
+    tot = dict.fromkeys(("ms", "full_length_ms", "plain_ms", "chain_ms",
+                         "chain_full_length_ms", "bound_ms",
+                         "bound_full_ms"), 0.0)
+    by_shape, bound_by = {}, set()
+    for c_in, c_out, k, per_fwd in QN15X5_REPEAT_SHAPES:
+        for full in (False, True):
+            args = repeat_inputs(np, torch, dev, c_in, c_out, k, r, t, bsz,
+                                 full)
+            what = f"whole block ({c_in},{c_out},{k},R={r}) B={bsz} T={t} " \
+                f"full={full}"
+            launches = repeat_whole_block_cuda.launches
+            got = fused_repeat_block(*args, kernel=k)
+            torch.cuda.synchronize()
+            check(repeat_whole_block_cuda.launches == launches + 1,
+                  f"{what}: not one whole-block launch")
+            want = fused_repeat_block_plain(*args, kernel=k)
+            chain = repeat_chain_cuda(*args, kernel=k)
+            torch.cuda.synchronize()
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            chain_err = float((chain.float() - want.float()).abs().max())
+            check(got.shape == want.shape and got.dtype == torch.bfloat16,
+                  f"{what}: shape or dtype differs from the plain version")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{what}: non-finite")
+            check(err <= REPEAT_TOL_REL * scale,
+                  f"{what}: max|d| {err} > {REPEAT_TOL_REL} * {scale}")
+            check(chain_err <= REPEAT_TOL_REL * scale,
+                  f"{what}: the chain's max|d| {chain_err} > "
+                  f"{REPEAT_TOL_REL} * {scale}")
+            worst = max(worst, err)
+            plan = repeat_launches(bsz, t, c_in, c_out, k, r, args[1])
+            ms, seen, ev_ms = kernel_ms(
+                lambda: fused_repeat_block(*args, kernel=k),
+                "whole_block_kernel")
+            chain_ms, cseen, cev_ms = kernel_ms(
+                lambda: repeat_chain_cuda(*args, kernel=k), "repeat_kernel",
+                launches=r)
+            rows = int(args[1].clamp(0, t).sum())
+            bound, by = repeat_bound_ms(bsz, t, c_in, c_out, k, r, True,
+                                        rows)
+            entry = {"ms": ms, "chain_ms": chain_ms, "bound_ms": bound,
+                     "plan": plan[0]}
+            line = (f"whole block (C_in {c_in}, C_out {c_out}, K {k}, R {r})"
+                    f" B={bsz} T={t} {'full' if full else 'ragged'} lengths "
+                    f"({rows} valid rows): max|d| {err:.3e} (chain "
+                    f"{chain_err:.3e}, max|want| {scale:.3f}), {ms:.4f} ms "
+                    f"({seen:g} traced per call; events {ev_ms:.4f}), chain "
+                    f"of {r} launches {chain_ms:.4f} ms ({cseen:g} traced; "
+                    f"events {cev_ms:.4f}), whole / chain "
+                    f"{ms / chain_ms:.3f}, bound {bound:.4f} ms by {by}; "
+                    f"launch {plan[0]}")
+            if full:
+                tot["full_length_ms"] += per_fwd * ms
+                tot["chain_full_length_ms"] += per_fwd * chain_ms
+                tot["bound_full_ms"] += per_fwd * bound
+            else:
+                plain_ms = device_ms(lambda: fused_repeat_block_plain(
+                    *args, kernel=k))
+                entry["plain_ms"] = plain_ms
+                line += f", plain {plain_ms:.4f} ms"
+                tot["ms"] += per_fwd * ms
+                tot["chain_ms"] += per_fwd * chain_ms
+                tot["plain_ms"] += per_fwd * plain_ms
+                tot["bound_ms"] += per_fwd * bound
+                bound_by.add(by)
+            by_shape[f"{c_in}-{c_out}-{k}{'-full' if full else ''}"] = entry
+            print(line + f", x{per_fwd} per 15x5 forward")
+    print(f"whole-block kernel, 15 launches of one QuartzNet15x5 forward at "
+          f"B=8 x 16.7 s: ragged lengths {tot['ms']:.4f} ms (bound "
+          f"{tot['bound_ms']:.4f}, chain of 75 launches "
+          f"{tot['chain_ms']:.4f}, whole / chain "
+          f"{tot['ms'] / tot['chain_ms']:.3f}), full lengths "
+          f"{tot['full_length_ms']:.4f} ms (chain "
+          f"{tot['chain_full_length_ms']:.4f}), plain {tot['plain_ms']:.4f} "
+          "ms")
+    return {"name": "repeat_whole_block", "route": "cuda",
+            "source": "vietasr_tpu_torch/csrc/repeat_whole_block.cu",
+            "replaces": "vietasr_tpu/ops/pallas_repeat.py:57",
+            "launches": 0, "max_abs_err": worst, **tot,
+            "bound_by": "/".join(sorted(bound_by)), "library_ms": None,
+            "ms_by_shape": by_shape}
+
+
 def mixed_signals(np, sr=16000):
     """16 seeded signals (x 0.1): 8 of 11.5-16.5 s fill one B = 8 batch of
     the 16.7 s bucket; 8 of 1.5-10.5 s spread over the shorter buckets."""
@@ -938,7 +1081,8 @@ def mixed_signals(np, sr=16000):
 def end_to_end_phase(np, torch, dev, kernels):
     from vietasr_tpu_torch.frontend.cuda_frontend import fused_log_mel_features
     from vietasr_tpu_torch.models.convert import load_anchor
-    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
+                                                    repeat_whole_block_cuda)
     from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
 
     sr = 16000
@@ -958,9 +1102,11 @@ def end_to_end_phase(np, torch, dev, kernels):
 
     fused_log_mel_features.launches = 0
     fused_repeat_block.launches = 0
+    repeat_whole_block_cuda.launches = 0
     texts = tr.transcribe_batch(signals)               # the main path
     launches = {"log_mel_frontend": fused_log_mel_features.launches,
-                "repeat_block": fused_repeat_block.launches}
+                "repeat_block": fused_repeat_block.launches,
+                "repeat_whole_block": repeat_whole_block_cuda.launches}
     print(f"main path: {len(signals)} signals, {forwards} forwards, "
           f"launches {launches}")
     check(launches["log_mel_frontend"] == forwards,
@@ -969,8 +1115,12 @@ def end_to_end_phase(np, torch, dev, kernels):
     check(launches["repeat_block"] == 13 * forwards,
           f"repeat kernel launched {launches['repeat_block']} times, want "
           f"13 x {forwards}")
+    check(launches["repeat_whole_block"] == 0,
+          "the whole-block kernel launched on QuartzNet12x1 (R = 1)")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] != "repeat_whole_block":     # its main path: phase 15
+            k["launches"] = launches[k["name"]]
+    add_path_launches(kernels, "greedy", launches)
 
     ref_texts = ref.transcribe_batch(signals)
     worst = 0.0
@@ -4293,19 +4443,20 @@ LAS_TF_TOL = 1e-4          # teacher-forced log-probs, card vs CPU, fp32
 # frame's largest power
 VARIANT_POWER_RTOL, VARIANT_TOL, VARIANT_WELL = 1e-5, 2e-4, 1e-6
 KERNEL_NAMES = ("log_mel_frontend", "frontend_fast", "repeat_block",
-                "beam_search", "ctc_alpha", "ctc_beta")
+                "repeat_whole_block", "beam_search", "ctc_alpha", "ctc_beta")
 
 
 def _kernel_wrappers():
     from vietasr_tpu_torch.frontend import cuda_frontend as cf
     from vietasr_tpu_torch.ops import fused_ctc as fc
     from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
-    from vietasr_tpu_torch.ops.repeat_block import fused_repeat_block
+    from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
+                                                    repeat_whole_block_cuda)
 
     return dict(zip(KERNEL_NAMES, (
         cf.fused_log_mel_features, cf.log_mel_tiles_fast_cuda,
-        fused_repeat_block, fused_beam_search, fc.fused_ctc_alpha,
-        fc.fused_ctc_beta)))
+        fused_repeat_block, repeat_whole_block_cuda, fused_beam_search,
+        fc.fused_ctc_alpha, fc.fused_ctc_beta)))
 
 
 def reset_all_launches():
@@ -4848,6 +4999,256 @@ def phase14(np, torch, dev, signals, kernels):
     print(f"phase 14e done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: QuartzNet15x5 served at full width through the whole-block kernel
+
+
+def qn15x5_jasper() -> list:
+    """QuartzNet15x5's block list at its published widths (Kriman et al.
+    2019, "QuartzNet", Table 1, https://arxiv.org/abs/1910.10261; NeMo's
+    quartznet15x5.yaml), in the YAML's form: C1 k33 s2 at 256 channels,
+    B1-B5 x 3 blocks of R = 5 (k 33 / 39 / 51 / 63 / 75 at 256 / 256 / 512 /
+    512 / 512), C2 k87 dilation 2 at 512, C3 k1 at 1024."""
+    def block(filters, kernel, repeat=1, stride=1, dilation=1,
+              residual=False, separable=True):
+        return {"filters": filters, "repeat": repeat, "kernel": [kernel],
+                "stride": [stride], "dilation": [dilation], "dropout": 0.0,
+                "residual": residual, "separable": separable}
+
+    blocks = [block(256, 33, stride=2)]
+    for filters, kernel in ((256, 33), (256, 39), (512, 51), (512, 63),
+                            (512, 75)):
+        blocks += [block(filters, kernel, repeat=5, residual=True)
+                   for _ in range(3)]
+    return blocks + [block(512, 87, dilation=2),
+                     block(1024, 1, separable=False)]
+
+
+def write_qn15x5_yaml(folder: str) -> str:
+    """quartznet12x1_vi.yaml's sections (featurizer, data, Vietnamese
+    labels) with QuartzNet15x5's encoder, written into `folder` (a test
+    fixture: the repo ships no 15x5 config). Returns its path."""
+    import yaml
+
+    with open(CONFIG, encoding="utf-8") as f:
+        raw = yaml.safe_load(f)
+    raw["model"] = "quartznet15x5_vi"
+    raw["JasperEncoder"]["jasper"] = qn15x5_jasper()
+    path = os.path.join(folder, "quartznet15x5_vi.yaml")
+    with open(path, "w", encoding="utf-8") as f:
+        yaml.safe_dump(raw, f, allow_unicode=True, sort_keys=False)
+    return path
+
+
+def qn15x5_chain_numbers(np, torch, tr, signals, forwards, texts):
+    """The yardstick end to end: the same greedy path with the R-launch
+    chain (repeat_chain_cuda) patched in for the whole-block kernel here
+    only (no route of the package takes the chain): 75 one-repeat launches
+    a forward, the transcripts those of the whole-block route, audio-s/s
+    and device busy time as path_numbers gives them."""
+    from vietasr_tpu_torch.ops import repeat_block as rb
+
+    real = rb.repeat_whole_block_cuda
+    rb.repeat_whole_block_cuda = rb.repeat_chain_cuda
+    try:
+        tr.transcribe_batch(signals)                   # warm-up
+        rb.fused_repeat_block.launches = real.launches = 0
+        chain_texts = tr.transcribe_batch(signals)
+        launches = {"repeat_block": rb.fused_repeat_block.launches,
+                    "repeat_whole_block": real.launches}
+        check(launches == {"repeat_block": 75 * forwards,
+                           "repeat_whole_block": 0},
+              f"15x5 greedy path with the chain: launches {launches}")
+        same = sum(a == b for a, b in zip(chain_texts, texts))
+        print(f"15x5 greedy path with the R-launch chain in place of the "
+              f"whole-block kernel (yardstick, not a route): launches "
+              f"{launches}, transcripts equal to the whole-block route's "
+              f"{same}/{len(texts)}")
+        audio_s, busy_ms, idle = path_numbers(
+            np, torch, tr, signals, "15x5 greedy path, chain yardstick")
+    finally:
+        rb.repeat_whole_block_cuda = real
+    return {"audio_s_per_s": audio_s, "busy_ms": busy_ms, "idle": idle}
+
+
+def wide_block_check(torch, dev):
+    """R = 5 blocks the whole-block plan cannot take (16 -> 512: 2 input
+    channels a block; 512 -> 1024: 16 blocks of 64 columns) run per op on
+    the default route, as JAX's default path runs them: no repeat-kernel
+    launch, the log-probs of block_impl="plain" (both per op: the same
+    operations, within 1e-4 for any reordering of a library's sums)."""
+    from vietasr_tpu_torch.config import BlockConfig, EncoderConfig
+    from vietasr_tpu_torch.models import quartznet as qn
+
+    ecfg = EncoderConfig(feat_in=64, blocks=(
+        BlockConfig(filters=16, kernel=11, stride=2, residual=False,
+                    separable=True),
+        BlockConfig(filters=512, repeat=5, kernel=9, residual=True,
+                    separable=True),
+        BlockConfig(filters=1024, repeat=5, kernel=33, residual=True,
+                    separable=True),
+        BlockConfig(filters=32, kernel=1, residual=False, separable=False)))
+    v = qn.cast_matmul_weights(qn.fold_batchnorm(qn.init_quartznet(
+        torch.Generator(device=dev).manual_seed(0), ecfg, 10, device=dev),
+        ecfg), torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    feats = torch.randn(4, 400, 64, device=dev, generator=g)
+    lens = torch.tensor([400, 399, 123, 1], device=dev)
+    reset_all_launches()
+    lp, out_lens = qn.quartznet_apply(v, feats, lens, cfg=ecfg,
+                                      compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want, _ = qn.quartznet_apply(v, feats, lens, cfg=ecfg,
+                                 compute_dtype=torch.bfloat16,
+                                 block_impl="plain")
+    d = float((lp - want).abs().max())
+    print(f"16 -> 512 and 512 -> 1024 R = 5 blocks on the default route: "
+          f"launches {launches}, log-probs {tuple(lp.shape)}, max|d| vs "
+          f"block_impl='plain' {d:.3e}")
+    check(not any(launches.values()) and bool(torch.isfinite(lp).all())
+          and d <= 1e-4, "wide R = 5 blocks did not run per op")
+
+
+def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
+    """Phase 15: Transcriber on QuartzNet15x5 at full width (seeded
+    init_quartznet, BN folded, bf16) over phase 5's 16 signals, greedy and
+    device beam (W = 100, the word 3-gram): 1 frontend and 15 whole-block
+    launches a forward, no one-repeat launch, each whole-block launch held
+    to its plain version on its own inputs, the log-probs to the plain
+    route's; the chain yardstick end to end (qn15x5_chain_numbers); the
+    wide blocks per op (wide_block_check); the beam kernel's raw result
+    bit for bit with the plain search."""
+    import torch.nn.functional as F
+
+    from vietasr_tpu_torch.models import quartznet as qn
+    from vietasr_tpu_torch.models.quartznet import tree_leaves
+    from vietasr_tpu_torch.ops.device_beam import (best_path_from_raw,
+                                                   device_beam_search)
+    from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    whole = next(k for k in kernels if k["name"] == "repeat_whole_block")
+    with tempfile.TemporaryDirectory() as tmp:
+        config = write_qn15x5_yaml(tmp)
+        tr = Transcriber(config)
+        ref = Transcriber(config, options=TranscriberOptions(
+            fused_frontend="off", block_impl="plain"))
+        trb = Transcriber(config, options=TranscriberOptions(
+            decoder="device_beam", lm_path=lm_paths[3]))
+    n_par = sum(p.numel() for p in tree_leaves(tr._float_variables["params"]))
+    blocks = tr.cfg.encoder.blocks
+    check(len(blocks) == 18 and sum(b.repeat == 5 for b in blocks) == 15,
+          f"the 15x5 fixture has {len(blocks)} blocks")
+    forwards = n_forwards(tr, signals)
+    tr.transcribe_batch(signals)                       # warm-up
+    calls, undo = record_repeat_calls(qn)
+    try:
+        reset_all_launches()
+        texts = tr.transcribe_batch(signals)           # the main path
+        launches = all_launches()
+    finally:
+        undo()
+    print(f"QuartzNet15x5 greedy path ({n_par} parameters with BN folded, "
+          f"bf16, init_quartznet seed 0): {len(signals)} signals, "
+          f"{forwards} forwards, launches {launches}")
+    check_launches(kernels, "qn15x5_greedy", launches,
+                   {"log_mel_frontend": forwards,
+                    "repeat_whole_block": 15 * forwards})
+    whole["launches"] = launches["repeat_whole_block"]
+    check(len(calls) == 15 * forwards and all(len(a[2]) == 5
+                                              for a, _, _ in calls),
+          f"{len(calls)} recorded repeat-block calls")
+    worst = hold_repeat(calls, "qn15x5 greedy")
+    print(f"each of the {len(calls)} whole-block launches vs its plain "
+          f"version: worst max|d| / max|want| {worst:.3e} (bar "
+          f"{REPEAT_TOL_REL})")
+    del calls
+
+    # the kernel route vs the plain route (plain frontend, plain blocks)
+    worst_lp, agree = 0.0, []
+    for sig in signals:
+        lp, el = tr.log_probs(sig)
+        lp_ref, el_ref = ref.log_probs(sig)
+        check(lp.shape == lp_ref.shape and np.isfinite(lp).all()
+              and np.array_equal(el, el_ref),
+              "15x5 log-probs: shape, finiteness or lengths")
+        check(np.allclose(np.exp(lp).sum(-1), 1.0, atol=1e-3),
+              "15x5 log-probs do not normalise")
+        worst_lp = max(worst_lp, float(np.abs(lp - lp_ref).max()))
+        agree.append(agreement(lp, lp_ref))
+    ref_texts = ref.transcribe_batch(signals)
+    same = sum(a == b for a, b in zip(texts, ref_texts))
+    print(f"15x5 kernel route vs plain route: max|d log p| {worst_lp:.4e} "
+          f"(tol {E2E_LOGP_TOL}), frame argmax agreement min "
+          f"{min(agree):.4f} mean {sum(agree) / len(agree):.4f}, transcripts "
+          f"equal {same}/{len(texts)} (random weights)")
+    check(worst_lp <= E2E_LOGP_TOL, f"15x5 kernel route vs plain route: "
+          f"max|d log p| {worst_lp} > {E2E_LOGP_TOL}")
+    del ref
+    audio_s, busy_ms, idle = path_numbers(np, torch, tr, signals,
+                                          "15x5 greedy path")
+    whole["qn15x5_greedy"] = {"audio_s_per_s": audio_s, "busy_ms": busy_ms,
+                              "idle": idle}
+    whole["qn15x5_greedy_chain"] = qn15x5_chain_numbers(np, torch, tr,
+                                                        signals, forwards,
+                                                        texts)
+    del tr
+    wide_block_check(torch, dev)
+
+    # device beam, W = 100, the word 3-gram: one beam launch a call
+    check(trb._device_word_lm is not None, "the word LM was not sniffed")
+    labels = trb.cfg.labels
+    trb.transcribe_batch(signals)                      # warm-up
+    batches = forward_batches(np, torch, trb, signals)
+    calls, undo = record_repeat_calls(qn)
+    try:
+        reset_all_launches()
+        btexts = trb.transcribe_batch(signals)
+        launches = all_launches()
+    finally:
+        undo()
+    print(f"QuartzNet15x5 device beam path (W={trb.opts.beam_width}, word "
+          f"3-gram): launches {launches}")
+    check_launches(kernels, "qn15x5_device_beam", launches,
+                   {"log_mel_frontend": forwards,
+                    "repeat_whole_block": 15 * forwards, "beam_search": 1})
+    hold_repeat(calls, "qn15x5 device beam")
+    del calls
+    t_max = max(lp.shape[1] for _, lp, _ in batches)
+    lp = torch.cat([F.pad(lp, (0, 0, 0, t_max - lp.shape[1]))
+                    for _, lp, _ in batches])
+    el = torch.cat([e for _, _, e in batches])
+    order = [g for group, _, _ in batches for g in group]
+    kw = dict(beam_width=trb.opts.beam_width, space=labels.index(" "),
+              word_lm=trb._device_word_lm, wlm_probes=trb._device_wlm_probes,
+              **BEAM_KW)
+    raw_k = fused_beam_search(lp, el, blank=len(labels), return_raw=True,
+                              **kw)
+    raw_p = device_beam_search(lp, el, blank=len(labels), return_raw=True,
+                               **kw)
+    torch.cuda.synchronize()
+    raw_equal = all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+    ids, n = best_path_from_raw(*raw_p, word_lm=kw["word_lm"],
+                                alpha=BEAM_KW["alpha"], beta=BEAM_KW["beta"],
+                                wlm_probes=kw["wlm_probes"])
+    plain_texts = [None] * len(signals)
+    for g, text in zip(order, render(labels, ids, n)):
+        plain_texts[g] = text
+    same = sum(a == b for a, b in zip(btexts, plain_texts))
+    print(f"15x5 device beam: B={lp.shape[0]} T={t_max} raw state / "
+          f"backpointers equal to the plain search {raw_equal}; transcripts "
+          f"equal {same}/{len(btexts)}")
+    check(raw_equal, "15x5 device beam: the kernel's raw result differs "
+          "from the plain search")
+    check(same == len(btexts), "15x5 device beam transcripts differ from "
+          "the plain search's")
+    audio_s, busy_ms, idle = path_numbers(np, torch, trb, signals,
+                                          "15x5 device beam path")
+    whole["qn15x5_device_beam"] = {"audio_s_per_s": audio_s,
+                                   "busy_ms": busy_ms, "idle": idle}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4881,7 +5282,8 @@ def main() -> int:
     front = frontend_phase(np, torch, dev)
     fast = frontend_fast_phase(np, torch, dev)
     print(f"phases 1-3b done at {time.perf_counter() - t0:.1f} s")
-    kernels = [front, repeat_phase(np, torch, dev)]
+    kernels = [front, repeat_phase(np, torch, dev),
+               repeat_whole_phase(np, torch, dev)]
     signals = end_to_end_phase(np, torch, dev, kernels)
     fast["launches"] = fast_int8_phase(np, torch, dev, signals)
     kernels.insert(1, fast)
@@ -4901,7 +5303,9 @@ def main() -> int:
         print(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
         conformer_offline_phase(np, torch, dev, signals, lm_paths, kernels)
         conformer_streaming_phase(np, torch, dev, lm_paths, kernels)
-    print(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
+        print(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
+        qn15x5_phase(np, torch, dev, signals, lm_paths, kernels)
+    print(f"phase 15 done at {time.perf_counter() - t0:.1f} s")
     kernels += ctc_phase(np, torch, dev)
     print(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     train_phase(np, torch, dev, kernels)

@@ -47,7 +47,11 @@ from vietasr_tpu_torch.ops.lm import (NGramLM, train_ngram_arpa,
                                       word_lm_tables)
 from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
                                                 fused_repeat_block_cuda,
-                                                fused_repeat_block_plain)
+                                                fused_repeat_block_plain,
+                                                repeat_chain_cuda,
+                                                repeat_whole_block_cuda,
+                                                whole_block_kernel_smem,
+                                                whole_block_plan)
 
 torch.set_num_threads(1)
 
@@ -384,10 +388,12 @@ def _repeat_case(c_in, c_out, k, r, last_act=False, t=200, bsz=3, lens=None,
                         id=name or f"{c_in}-{c_out}-{k}-{r}-{last_act}")
 
 
-# the kernel takes 64-row tiles, or 32-row ones when their grid fits in
-# one wave on the card (B = 2 and B = 3 here), splits the output columns
-# of a small 32-row grid over two blocks, and skips the tiles that start
-# at or past a row's length
+# R = 1: the one-repeat kernel takes 64-row tiles, or 32-row ones when
+# their grid fits in one wave on the card (B = 2 and B = 3 here), splits
+# the output columns of a small 32-row grid over two blocks, and skips the
+# tiles that start at or past a row's length. R >= 2: the whole-block
+# kernel, one launch a block, over a cluster of 1-8 blocks
+# (whole_block_plan)
 REPEAT_CASES = [
     _repeat_case(256, 512, 51, 1), _repeat_case(512, 512, 75, 1),
     _repeat_case(64, 64, 9, 3), _repeat_case(64, 128, 9, 2, True),
@@ -420,6 +426,24 @@ REPEAT_CASES = [
     _repeat_case(64, 64, 9, 3, True, t=840, bsz=8,
                  lens=_phase4_lens(64, 64, 9, 3, 840),
                  name="R3-last_act-64-row-tiles"),
+] + [
+    # QuartzNet15x5's six R = 5 block shapes at B = 8 x 16.7 s (clusters of
+    # 4 and 8, 224 / 144 / 112-row tiles), ragged
+    _repeat_case(c_in, c_out, k, 5, t=840, bsz=8,
+                 lens=_phase4_lens(c_in, c_out, k, 5, 840),
+                 name=f"15x5-{c_in}-{c_out}-{k}")
+    for c_in, c_out, k in ((256, 256, 33), (256, 256, 39), (256, 512, 51),
+                           (512, 512, 51), (512, 512, 63), (512, 512, 75))
+] + [
+    # a halo (5 x 37 rows a side) wider than T, a zero-length row and a
+    # length-1 row; 16-row tiles of a small grid
+    _repeat_case(512, 512, 75, 5, t=40, bsz=3, lens=[40, 0, 1],
+                 name="15x5-K75-halo-wider-than-T"),
+    _repeat_case(256, 512, 51, 5, t=1, bsz=2, lens=[1, 0], name="R5-T1"),
+    _repeat_case(256, 256, 33, 5, t=200, bsz=3, lens=[200, 17, 0],
+                 x_dtype=torch.float32, name="R5-fp32"),
+    _repeat_case(512, 512, 63, 5, True, t=300, bsz=2, lens=[300, 131],
+                 name="R5-last_act"),
 ]
 
 
@@ -432,12 +456,56 @@ def test_repeat_kernel_matches_plain(c_in, c_out, k, r, last_act, t, bsz,
     args = [a.cuda() if torch.is_tensor(a) else [w.cuda() for w in a]
             for a in _block_operands(c_in, c_out, k, r, t, bsz, lens=lens,
                                      x_dtype=x_dtype)]
-    launches = fused_repeat_block.launches
+    launches = (fused_repeat_block.launches,
+                repeat_whole_block_cuda.launches)
     got = fused_repeat_block(*args, kernel=k, last_act=last_act).float()
     want = fused_repeat_block_plain(*args, kernel=k,
                                     last_act=last_act).float()
     torch.cuda.synchronize()
-    assert fused_repeat_block.launches == launches + r
+    # one launch a block: the one-repeat kernel at R = 1, else the whole
+    assert (fused_repeat_block.launches, repeat_whole_block_cuda.launches) \
+        == (launches[0] + (r == 1), launches[1] + (r > 1))
+    assert float((got - want).abs().max()) \
+        <= REPEAT_REL_TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_whole_block_plan_matches_the_built_kernel():
+    """The plan's shared-memory count is the kernel's own, for every
+    15x5 shape, and the launch fits it."""
+    _need_gpu()
+    for c_in, c_out, k in ((256, 256, 33), (256, 256, 39), (256, 512, 51),
+                           (512, 512, 51), (512, 512, 63), (512, 512, 75)):
+        for bsz, t in ((8, 840), (2, 100)):
+            plan = whole_block_plan(bsz, t, c_in, c_out, k, 5)
+            assert whole_block_kernel_smem(plan, k, 5) == plan.smem_bytes
+
+
+@pytest.mark.cuda
+def test_whole_block_raises_and_never_falls_back():
+    """An R >= 2 shape no plan takes raises ValueError naming the shape;
+    nothing is launched, neither the chain nor the plain version."""
+    _need_gpu()
+    args = [a.cuda() if torch.is_tensor(a) else [w.cuda() for w in a]
+            for a in _block_operands(512, 1024, 9, 2, 40)]
+    launches = (fused_repeat_block.launches,
+                repeat_whole_block_cuda.launches)
+    with pytest.raises(ValueError, match="C_out=1024"):
+        fused_repeat_block(*args, kernel=9)
+    assert (fused_repeat_block.launches,
+            repeat_whole_block_cuda.launches) == launches
+
+
+@pytest.mark.cuda
+def test_repeat_chain_matches_plain():
+    """The yardstick chip_smoke.py times (R launches of the one-repeat
+    kernel) computes the same block."""
+    _need_gpu()
+    args = [a.cuda() if torch.is_tensor(a) else [w.cuda() for w in a]
+            for a in _block_operands(256, 512, 51, 5, 300, bsz=2,
+                                     lens=[300, 77])]
+    got = repeat_chain_cuda(*args, kernel=51).float()
+    want = fused_repeat_block_plain(*args, kernel=51).float()
     assert float((got - want).abs().max()) \
         <= REPEAT_REL_TOL * float(want.abs().max())
 

@@ -26,8 +26,8 @@ from typing import Dict, Iterable
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("frontend", "frontend_fast", "repeat_block", "beam_search",
-           "ctc")
+SOURCES = ("frontend", "frontend_fast", "repeat_block",
+           "repeat_whole_block", "beam_search", "ctc")
 SMEM_LIMIT = 232448    # bytes of shared memory one H100 block may use
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")

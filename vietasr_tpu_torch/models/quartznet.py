@@ -16,18 +16,23 @@ the end without a residual, on each residual pane with one), dense
 residual panes over every earlier dense block's input, `residual_mode=
 "max"`, and relu / hardtanh / selu.
 
-Block routing. A block goes through the fused repeat block kernel
+Block routing. A block goes through the fused repeat block
 (ops/repeat_block.py) when `block_impl` is "auto" or "kernel" and
 `kernel_route` holds: JAX's fused conditions (bf16, relu, add,
 conv_mask, the default pw_fn, no dense residual, the block input the only
 earlier output) and `block_eligible` (separable, stride 1, folded BN: blocks
-1-13 of QuartzNet12x1). This is the encoder's main-path kernel on the GPU
-(in the JAX package the Pallas block was opt-in, through
+1-13 of QuartzNet12x1, B1-B5's 15 blocks of QuartzNet15x5). On the GPU
+that is one kernel launch a block: the one-repeat kernel for R = 1 (12x1),
+the whole-block kernel for R >= 2 (15x5's R = 5), whose intermediates stay
+on chip as in the Pallas kernel. This is the encoder's main-path route on
+the GPU (in the JAX package the Pallas block was opt-in, through
 `block_impl="pallas"`). `block_impl="plain"` runs the same blocks through
-the kernel's plain PyTorch version. Every other block takes the per-op path
+the kernels' plain PyTorch version. Every other block takes the per-op path
 (`_apply_block_ops`), as JAX's default XLA path does: blocks 0 (stride 2)
-and 14 (dense 1x1) of 12x1, every Jasper block, and every block in
-training, where BN is unfolded and uses batch statistics.
+and 14 (dense 1x1) of 12x1, 15x5's C1-C3, every Jasper block, an R >= 2
+block whose widths the whole-block kernel cannot split (`whole_block_takes`:
+1024 channels, say), and every block in training, where BN is unfolded and
+uses batch statistics.
 
 bf16 semantics follow the JAX package: convolutions take bf16 operands,
 1x1 products accumulate in fp32 and return fp32, a grouped or dense conv
@@ -62,7 +67,8 @@ from vietasr_tpu_torch.models.layers import (activation_fn,
                                              xavier_uniform)
 from vietasr_tpu_torch.ops.repeat_block import (block_eligible,
                                                 fused_repeat_block,
-                                                fused_repeat_block_plain)
+                                                fused_repeat_block_plain,
+                                                whole_block_takes)
 
 BLOCK_IMPLS = ("auto", "kernel", "plain")
 
@@ -277,15 +283,24 @@ def kernel_route(xs: list, params, bcfg: BlockConfig, cfg: EncoderConfig,
     JAX's own fused conditions hold (bf16, relu, add, conv_mask, the
     default pw_fn, no dense residual, and the block input is the only
     earlier output: after a dense-residual block pane 0 reads xs[0], not
-    the block input) and `block_eligible` accepts the block."""
-    return (compute_dtype == torch.bfloat16
+    the block input), `block_eligible` accepts the block and, for R >= 2,
+    the whole-block kernel takes its widths (`whole_block_takes`; a
+    1024-wide R = 5 block, say, runs per op as JAX's default path runs
+    it)."""
+    if not (compute_dtype == torch.bfloat16
             and cfg.activation == "relu"
             and cfg.residual_mode == "add"
             and cfg.conv_mask
             and pw_fn is _default_pw
             and not bcfg.residual_dense
             and len(xs) == 1
-            and block_eligible(bcfg, params, training))
+            and block_eligible(bcfg, params, training)):
+        return False
+    subs = params["sub"]
+    if len(subs) < 2:
+        return True
+    k, c_in = subs[0]["dw_w"].shape
+    return whole_block_takes(c_in, subs[-1]["pw_w"].shape[1], k, len(subs))
 
 
 def _apply_block(xs, lens, params, stats, bcfg: BlockConfig,

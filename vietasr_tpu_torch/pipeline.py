@@ -2,8 +2,10 @@
 
 waveform -> log-mel (the fused frontend kernel on the GPU; with
 `fused_frontend="fast"` its bf16 tensor-core kernel) -> the encoder:
-folded-BN QuartzNet (the fused repeat-block kernel on blocks 1-13 in bf16;
-after `calibrate_int8`, int8 pointwise GEMMs with every block per-op) or
+folded-BN QuartzNet (in bf16, one repeat-block kernel launch per eligible
+block: the one-repeat kernel on 12x1's blocks 1-13, the whole-block kernel
+on 15x5's R = 5 blocks; after `calibrate_int8`, int8 pointwise GEMMs with
+every block per-op) or
 the Conformer (models/conformer.py, per op, BN unfolded as in JAX) -> CTC
 head log-softmax -> one of three decoders:
 - greedy collapse on the device (the default);
@@ -98,7 +100,7 @@ class TranscriberOptions:
     # error on spectral-floor bins)
     fused_frontend: str = "auto"
     # eligible encoder blocks in bf16: "auto" / "kernel" = the fused
-    # repeat-block kernel, "plain" = its plain PyTorch version
+    # repeat-block kernels, "plain" = their plain PyTorch version
     # (models/quartznet.py)
     block_impl: str = "auto"
 
