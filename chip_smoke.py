@@ -41,7 +41,11 @@ Phases, each of which raises on failure:
      held to the plain version and timed beside the bound and the chain
      of 5 one-repeat launches (a yardstick, held too), each launch's plan
      printed (tile rows, cluster, blocks, skipped as padding, shared
-     memory, clusters the card holds at once)
+     memory, clusters the card holds at once); its weights packed once per
+     weight tensor (11 packs at a shape's first launch, none over its timed
+     launches); then held untimed at the CPU mirror's added shapes
+     (WHOLE_EXTRA_SHAPES: clusters of 1-8, partial chunks, fp32 x, split
+     16-channel pairs)
   5. end to end: Transcriber on the anchor checkpoint in bf16 over 16
      seeded signals of 1.5-16.5 s, with the launch counters read around the
      run; log-probs held against a plain-path Transcriber on the same card.
@@ -232,7 +236,8 @@ Phases, each of which raises on failure:
      blocks of R = 5 at k 33-75, C2 k87 dilation 2, C3 k1 1024), the
      Transcriber's seeded init (BN folded, bf16) over phase 5's 16
      signals: greedy, 1 frontend and 15 whole-block launches a forward and
-     no one-repeat launch, every whole-block launch held to its plain
+     no one-repeat launch, no weight packed after the warm-up, every
+     whole-block launch held to its plain
      version on its own inputs, log-probs within E2E_LOGP_TOL of the
      plain route, audio-s/s and idle share, then the same with the
      R-launch chain patched in for the whole-block kernel (a yardstick,
@@ -971,13 +976,65 @@ def repeat_phase(np, torch, dev):
 QN15X5_REPEAT_SHAPES = ((256, 256, 33, 3), (256, 256, 39, 3),
                         (256, 512, 51, 1), (512, 512, 51, 2),
                         (512, 512, 63, 3), (512, 512, 75, 3))
+# (C_in, C_out, K, R, T, lengths, x dtype, last_act): the shapes the CPU
+# mirror's cases add (tests/test_torch_repeat_block.py), held untimed:
+# clusters of 1, 2, 4 and 8 blocks, repeats that end in a partial 128-row
+# chunk, fp32 x, 8-channel halves of a 16-channel pair split between
+# blocks (C_in / 8 = 8 channels a block), last_act
+WHOLE_EXTRA_SHAPES = ((64, 64, 9, 2, 300, (300, 150, 299), "bf16", False),
+                      (64, 128, 17, 5, 130, (130, 5, 64), "bf16", True),
+                      (256, 256, 33, 5, 200, (200, 17, 0), "fp32", False),
+                      (512, 512, 9, 2, 40, (40, 17, 1), "bf16", False),
+                      (64, 512, 9, 2, 50, (50, 0, 26), "fp32", False))
+
+
+def whole_extra_check(np, torch, dev):
+    """Phase 4's untimed holds of the whole-block kernel at
+    WHOLE_EXTRA_SHAPES (B = 3): each within REPEAT_TOL_REL * max|want| of
+    the plain version, its plan printed. Returns the worst max|d|."""
+    from vietasr_tpu_torch.ops.repeat_block import (
+        fused_repeat_block, fused_repeat_block_plain, repeat_whole_block_cuda,
+        whole_block_clusters_at_once, whole_block_plan)
+
+    worst = 0.0
+    for c_in, c_out, k, r, t, lens, xdt, last_act in WHOLE_EXTRA_SHAPES:
+        x, _, dws, pws, bs, res_w, res_b = repeat_inputs(
+            np, torch, dev, c_in, c_out, k, r, t, bsz=len(lens))
+        if xdt == "fp32":
+            x = x.float()
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (x, ln, dws, pws, bs, res_w, res_b)
+        launches = repeat_whole_block_cuda.launches
+        got = fused_repeat_block(*args, kernel=k, last_act=last_act)
+        want = fused_repeat_block_plain(*args, kernel=k, last_act=last_act)
+        torch.cuda.synchronize()
+        what = (f"whole block ({c_in},{c_out},{k},R={r}) T={t} lens {lens} "
+                f"{xdt} last_act={last_act}")
+        check(repeat_whole_block_cuda.launches == launches + 1,
+              f"{what}: not one whole-block launch")
+        check(got.shape == want.shape and got.dtype == x.dtype
+              and bool(torch.isfinite(got.float()).all()),
+              f"{what}: shape, dtype or finiteness")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(err <= REPEAT_TOL_REL * scale,
+              f"{what}: max|d| {err} > {REPEAT_TOL_REL} * {scale}")
+        worst = max(worst, err)
+        plan = whole_block_plan(len(lens), t, c_in, c_out, k, r,
+                                x_bytes=x.element_size(),
+                                clusters_at_once=whole_block_clusters_at_once)
+        print(f"{what}: max|d| {err:.3e} (max|want| {scale:.3f}); plan "
+              f"{tuple(plan)}")
+    return worst
 
 
 def repeat_whole_phase(np, torch, dev):
     """Phase 4 at R = 5: the whole-block kernel at QuartzNet15x5's six
     block shapes (B = 8, T = 840), at ragged and at full lengths, held to
     the plain version; its time beside the bound and beside the R-launch
-    chain of the one-repeat kernel (a yardstick, held too)."""
+    chain of the one-repeat kernel (a yardstick, held too); its weights
+    packed once per weight tensor, not once per launch; then held untimed
+    at WHOLE_EXTRA_SHAPES (whole_extra_check)."""
     from vietasr_tpu_torch.ops.repeat_block import (fused_repeat_block,
                                                     fused_repeat_block_plain,
                                                     repeat_chain_cuda,
@@ -996,10 +1053,15 @@ def repeat_whole_phase(np, torch, dev):
             what = f"whole block ({c_in},{c_out},{k},R={r}) B={bsz} T={t} " \
                 f"full={full}"
             launches = repeat_whole_block_cuda.launches
+            packs = repeat_whole_block_cuda.packs
             got = fused_repeat_block(*args, kernel=k)
             torch.cuda.synchronize()
             check(repeat_whole_block_cuda.launches == launches + 1,
                   f"{what}: not one whole-block launch")
+            # 5 taps, 5 1x1s and the residual, packed at the first launch
+            check(repeat_whole_block_cuda.packs == packs + 2 * r + 1,
+                  f"{what}: {repeat_whole_block_cuda.packs - packs} weight "
+                  f"packs at the first launch, not {2 * r + 1}")
             want = fused_repeat_block_plain(*args, kernel=k)
             chain = repeat_chain_cuda(*args, kernel=k)
             torch.cuda.synchronize()
@@ -1017,9 +1079,15 @@ def repeat_whole_phase(np, torch, dev):
                   f"{REPEAT_TOL_REL} * {scale}")
             worst = max(worst, err)
             plan = repeat_launches(bsz, t, c_in, c_out, k, r, args[1])
+            packs = repeat_whole_block_cuda.packs
+            launches = repeat_whole_block_cuda.launches
             ms, seen, ev_ms = kernel_ms(
                 lambda: fused_repeat_block(*args, kernel=k),
                 "whole_block_kernel")
+            check(repeat_whole_block_cuda.packs == packs,
+                  f"{what}: {repeat_whole_block_cuda.packs - packs} weight "
+                  f"packs over {repeat_whole_block_cuda.launches - launches}"
+                  " timed launches of the same weights")
             chain_ms, cseen, cev_ms = kernel_ms(
                 lambda: repeat_chain_cuda(*args, kernel=k), "repeat_kernel",
                 launches=r)
@@ -1053,6 +1121,7 @@ def repeat_whole_phase(np, torch, dev):
                 bound_by.add(by)
             by_shape[f"{c_in}-{c_out}-{k}{'-full' if full else ''}"] = entry
             print(line + f", x{per_fwd} per 15x5 forward")
+    worst = max(worst, whole_extra_check(np, torch, dev))
     print(f"whole-block kernel, 15 launches of one QuartzNet15x5 forward at "
           f"B=8 x 16.7 s: ragged lengths {tot['ms']:.4f} ms (bound "
           f"{tot['bound_ms']:.4f}, chain of 75 launches "
@@ -5123,6 +5192,7 @@ def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
 
     from vietasr_tpu_torch.models import quartznet as qn
     from vietasr_tpu_torch.models.quartznet import tree_leaves
+    from vietasr_tpu_torch.ops import repeat_block as rb
     from vietasr_tpu_torch.ops.device_beam import (best_path_from_raw,
                                                    device_beam_search)
     from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
@@ -5143,15 +5213,19 @@ def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
     forwards = n_forwards(tr, signals)
     tr.transcribe_batch(signals)                       # warm-up
     calls, undo = record_repeat_calls(qn)
+    packs = rb.repeat_whole_block_cuda.packs
     try:
         reset_all_launches()
         texts = tr.transcribe_batch(signals)           # the main path
         launches = all_launches()
     finally:
         undo()
+    packs = rb.repeat_whole_block_cuda.packs - packs
     print(f"QuartzNet15x5 greedy path ({n_par} parameters with BN folded, "
           f"bf16, init_quartznet seed 0): {len(signals)} signals, "
-          f"{forwards} forwards, launches {launches}")
+          f"{forwards} forwards, launches {launches}, weight packs {packs}")
+    check(packs == 0, f"15x5 greedy path: {packs} weight packs after the "
+          "warm-up (the weights are packed once, at their first launch)")
     check_launches(kernels, "qn15x5_greedy", launches,
                    {"log_mel_frontend": forwards,
                     "repeat_whole_block": 15 * forwards})

@@ -9,15 +9,17 @@ Copies DIR's vietasr_tpu_torch (default: this checkout) to a temporary
 directory, takes the named phases out of that copy's kernel (never out of
 the shipped source), and times one launch at each of QuartzNet15x5's six
 R = 5 block shapes (B = 8, T = 840, chip_smoke.py phase 4's ragged
-lengths) by chip_smoke.event_ms. Cuts: `dw` (the depthwise taps), `dsmem`
-(the 1x1's A chunks read from the block's own depthwise output in place
-of the cluster's), `mma` (the 1x1s' ldmatrix + mma.sync steps), `csync`
-(the cluster barriers, as block barriers). Outputs are then wrong; only
-the times mean anything. `--tile-rows` launches every shape with that
-many rows a tile in place of whole_block_plan's choice, where it fits.
-It prints one JSON line: the cuts, the card, and per shape the plan
-(tile rows, cluster, tiles, shared memory, clusters the card holds at
-once) and ms.
+lengths) by chip_smoke.event_ms. Cuts: `dw` (the depthwise warps' taps
+loop), `dsmem` (each consumer warp loads its A fragments from its own
+block's chunk stage in place of the owners'), `gather` (no A fragment
+loads at all), `wgmma` (no 1x1 or residual wgmma issued), `war` (an
+epilogue no longer waits for the next chunk's depthwise in every block of
+the cluster: the cross-cluster wait on the in-place hazard). Outputs are
+then wrong; only the times mean anything. `--tile-rows` launches every
+shape with that many rows a tile in place of whole_block_plan's choice,
+where it fits. It prints one JSON line: the cuts, the card, and per shape
+the plan (tile rows, cluster, tiles, shared memory, clusters the card
+holds at once) and ms.
 """
 
 import argparse
@@ -29,12 +31,19 @@ import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUTS = {
-    "dw": [("        for (int j0 = 0; j0 < k; j0 += 8) {",
-            "        for (int j0 = 0; j0 < 0; j0 += 8) {")],
-    "dsmem": [("cluster.map_shared_rank(ybuf, p);", "ybuf;")],
-    "mma": [("        for (int kk = 0; kk < kw; kk += 16) {",
-             "        for (int kk = 0; kk < 0; kk += 16) {")],
-    "csync": [("    cluster.sync();", "    __syncthreads();")],
+    "dw": [("          for (int j0 = 0; j0 < k; j0 += 8) {",
+            "          for (int j0 = 0; j0 < 0; j0 += 8) {")],
+    "dsmem": [("        unsigned lbase = map_rank(stage, 0);",
+               "        unsigned lbase = map_rank(stage, rank);"),
+              ("                lbase = map_rank(stage, ++lp);",
+               "                lbase = map_rank(stage, rank + 0 * ++lp);")],
+    "gather": [("        auto load_a = [&](int kc, unsigned(&a)[16]) {\n",
+                "        auto load_a = [&](int kc, unsigned(&a)[16]) {\n"
+                "          if (kc >= 0) return;\n")],
+    "wgmma": [("              if (ks * 16 < kw)",
+               "              if (ks * 16 < 0)")],
+    "war": [("        if (j + 1 < nc)\n          wait_spin_cluster(",
+             "        if (false)\n          wait_spin_cluster(")],
 }
 
 
@@ -73,7 +82,8 @@ def main() -> int:
         with open(path) as f:
             src = f.read()
         with open(path, "w") as f:
-            f.write(cut_source(src, args.cut))
+            src = cut_source(src, args.cut)
+            f.write(src)
         sys.path.insert(0, tmp)
         from vietasr_tpu_torch.ops import repeat_block as rb
 

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// bulk asynchronous copies that complete on them, and wgmma with its
-// shared-memory descriptor. Each wraps one PTX instruction (or a wait loop
-// around one); a kernel includes this header and keeps its own layouts.
+// bulk asynchronous copies that complete on them, wgmma with its
+// shared-memory descriptor, and thread-block clusters (ranks, distributed
+// shared memory, mbarriers that other blocks of the cluster arrive on).
+// Each wraps one PTX instruction (or a wait loop around one); a kernel
+// includes this header and keeps its own layouts.
 
 #pragma once
 
@@ -111,6 +113,128 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], const unsigned* a,
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(SCALE_D));
+}
+
+// the same product, d += a * b, at n16, n48 and n64 (b 16 x N)
+__device__ __forceinline__ void wgmma_n16(float* d, const unsigned* a,
+                                          unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n48(float* d, const unsigned* a,
+                                          unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, "
+      "%28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n64(float* d, const unsigned* a,
+                                          unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+// --- thread-block clusters: ranks, distributed shared memory, mbarriers
+// that blocks of the cluster arrive on
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// every thread of every block of the cluster (release / acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+                   "memory");
+}
+
+// the shared::cluster address of `addr` (this block's shared memory) in the
+// block of rank `rank`
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ uint4 ld_cluster16(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint2 ld_cluster8(unsigned addr) {
+  uint2 v;
+  asm volatile("ld.shared::cluster.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool mbar_try_wait_cluster(unsigned bar,
+                                                      unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// mbar_wait for a barrier other blocks of the cluster arrive on: acquire at
+// cluster scope, so that what they wrote before arriving is seen
+__device__ __forceinline__ void mbar_wait_cluster(unsigned bar,
+                                                  unsigned parity) {
+  if (mbar_try_wait_cluster(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait_cluster(bar, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
 }
 
 }  // namespace

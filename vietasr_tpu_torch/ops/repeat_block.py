@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -120,8 +121,12 @@ def launch_plan(x_bf16: bool, bsz: int, t: int, cx: int, c_out: int,
 # the whole-block kernel's constants (csrc/repeat_whole_block.cu)
 WHOLE_MAX_R = 16            # repeats a launch takes
 WHOLE_MAX_CLUSTER = 8       # blocks a cluster (the portable size)
-_WHOLE_MR, _WHOLE_KC = 128, 64          # GEMM rows / depth a chunk
-_WHOLE_LDA, _WHOLE_LDW = 64 + 8, 64 + 8  # bf16 pitches of the two rings
+_WHOLE_MR, _WHOLE_KC = 128, 64          # rows a chunk / depth a weight tile
+_WHOLE_WSTAGES, _WHOLE_YSTAGES = 4, 2   # weight tiles / chunks in the rings
+_WHOLE_EPI_RING = 16        # epilogue mbarriers
+_WHOLE_MAX_CHUNKS = _WHOLE_EPI_RING - 2   # chunks of a repeat, at most
+_WHOLE_RPT = 16             # depthwise rows a thread takes at a time
+_WHOLE_BAR_BYTES = 256
 _WHOLE_CW_MAX = 64          # output columns a block owns, at most
 _H100_SMS = 132             # SMs of an H100 SXM
 
@@ -144,26 +149,30 @@ class WholeBlockPlan(NamedTuple):
 def whole_block_smem(tile_rows: int, kernel: int, repeats: int, cols: int,
                      in_cols: int, x_bytes: int = 2) -> int:
     """Shared-memory bytes of one block of the whole-block kernel, as
-    csrc/repeat_whole_block.cu::layout counts them: the GEMM's 2-deep A
-    ring and 3-deep weight ring; one region that holds first x's E0 halo'd
-    rows of the block's input channels, in x's type, then the repeats'
-    fp32 outputs over E1 = E0 - 2 * K/2 rows (pitch + 4 floats); the bf16
-    depthwise output over E1 rows."""
+    csrc/repeat_whole_block.cu::layout counts them: the mbarriers; the
+    4-deep weight ring (64 x cols bf16 a stage); the 2-deep ring of
+    depthwise chunks (128 rows x the block's channels in 16-channel pairs,
+    bf16); one repeat's taps (K x the block's channels, fp32, to 128 B);
+    the repeats' fp32 outputs over E1 = E0 - 2 * K/2 rows (pitch cols) with
+    x's E0 halo'd rows (in x's type) placed at E1 x (the two pitches'
+    difference) into them, so that the first repeat's output rows never
+    reach an x row still to be read."""
     k2 = kernel // 2
     e0 = tile_rows + 2 * repeats * k2
     e1 = e0 - 2 * k2
-    wmax = max(cols, in_cols)
-    return (2 * _WHOLE_MR * _WHOLE_LDA * 2 + 3 * _WHOLE_KC * _WHOLE_LDW * 2
-            + max(e1 * (wmax + 4) * 4, e0 * in_cols * x_bytes)
-            + e1 * wmax * 2)
+    cwm = max(cols, in_cols)
+    p, q = cols * 4, in_cols * x_bytes
+    acts = max(e1 * p, max(0, e1 * (p - q)) + e0 * q)
+    return (_WHOLE_BAR_BYTES + _WHOLE_WSTAGES * _WHOLE_KC * cols * 2
+            + _WHOLE_YSTAGES * (_WHOLE_MR // 16) * -(-cwm // 16) * 512
+            + -(-kernel * cwm * 4 // 128) * 128 + acts)
 
 
 def _clusters_at_once_model(cluster: int, smem_bytes: int) -> int:
-    """Clusters an H100 holds at once, without asking the card: as many
-    blocks an SM as fit its shared memory (at most 2: registers), whole
-    clusters of them."""
-    per_sm = min(2, max(1, _build.SMEM_LIMIT // (smem_bytes + 1024)))
-    return max(1, _H100_SMS * per_sm // cluster)
+    """Clusters an H100 holds at once, without asking the card: one block
+    an SM (a block's 512 threads take the registers), whole clusters of
+    them."""
+    return max(1, _H100_SMS // cluster)
 
 
 def whole_block_plan(bsz: int, t: int, c_in: int, c_out: int, kernel: int,
@@ -175,21 +184,29 @@ def whole_block_plan(bsz: int, t: int, c_in: int, c_out: int, kernel: int,
     C_out / N <= 64 output columns (a multiple of 16) and C_in / N
     first-repeat channels (a multiple of 8). x has `x_bytes` a value (2:
     bf16, 4: fp32; the block stages its rows in that type). The tile rows
-    are the multiple of 16 that fits `_build.SMEM_LIMIT` and minimises
-    waves x a tile's time, taken as its depthwise rows (R * TT + R(R-1) * K/2: the halo is
-    recomputed each repeat) plus its 1x1 rows in whole 128-row chunks, a
-    wave being `clusters_at_once(N, smem bytes)` clusters: the card's own
-    count where the wrapper asks it, else a model of an H100 (so the plan
-    needs no card). tools/whole_block_cuts.py --tile-rows times other
+    are the multiple of 16 that fits `_build.SMEM_LIMIT` (and at most 14
+    128-row chunks a repeat) and minimises waves x a tile's time. The
+    depthwise and the 1x1s run side by side in their own warps, so a
+    tile's time is the larger of the two: its depthwise, R * TT + R(R-1) *
+    K/2 rows (the halo is recomputed each repeat) x K taps x the block's
+    channels at 128 fp32 FMA a cycle, and its 1x1s, those rows in whole
+    64-row warpgroup tiles x C_x x the block's columns at 1,024 bf16 FMA a
+    cycle. A wave is `clusters_at_once(N, smem bytes)` clusters: the card's
+    own count where the wrapper asks it, else a model of an H100 (so the
+    plan needs no card). tools/whole_block_cuts.py --tile-rows times other
     choices. Raises ValueError naming the shape when no plan fits."""
     at_once = clusters_at_once or _clusters_at_once_model
     shape = (f"(B={bsz}, T={t}, C_in={c_in}, C_out={c_out}, K={kernel}, "
              f"R={repeats})")
+    # K/2 <= MR: a chunk's in-place epilogue may run beside the depthwise
+    # of the chunk two later, whose windows start MR - K/2 rows past its end
     if not 1 <= repeats <= WHOLE_MAX_R or kernel % 2 != 1 \
-            or c_in % 16 or c_out % 16 or bsz < 1 or t < 1:
+            or kernel // 2 > _WHOLE_MR or c_in % 16 or c_out % 16 \
+            or bsz < 1 or t < 1:
         raise ValueError(f"whole-block repeat kernel: no plan for {shape}: "
-                         f"needs 1 <= R <= {WHOLE_MAX_R}, an odd kernel and "
-                         "channel counts that are multiples of 16")
+                         f"needs 1 <= R <= {WHOLE_MAX_R}, an odd kernel of "
+                         f"at most {2 * _WHOLE_MR + 1} taps and channel "
+                         "counts that are multiples of 16")
     k2 = kernel // 2
     for n in range(1, WHOLE_MAX_CLUSTER + 1):
         if c_out % n or c_in % n:
@@ -198,25 +215,30 @@ def whole_block_plan(bsz: int, t: int, c_in: int, c_out: int, kernel: int,
         if cols % 16 or cols > _WHOLE_CW_MAX or in_cols % 8 \
                 or in_cols > _WHOLE_CW_MAX:
             continue
+
         def smem(tt):
             return whole_block_smem(tt, kernel, repeats, cols, in_cols,
                                     x_bytes)
 
         fits = [tt for tt in range(16, -(-t // 16) * 16 + 1, 16)
-                if smem(tt) <= _build.SMEM_LIMIT]
+                if smem(tt) <= _build.SMEM_LIMIT
+                and -(-(tt + 2 * (repeats - 1) * k2) // _WHOLE_MR)
+                <= _WHOLE_MAX_CHUNKS]
         if not fits:
             continue
 
         def cost(tt):
             # waves counted as a fraction (at least one): rows past their
-            # lengths skip whole tiles, so the last wave is seldom full. A
-            # tile's time: its depthwise rows, plus its 1x1 rows rounded up
-            # to whole MR-row chunks
+            # lengths skip whole tiles, so the last wave is seldom full
             per_wave = max(1, at_once(n, smem(tt)))
             waves = max(1.0, bsz * -(-t // tt) / per_wave)
             rows = [tt + 2 * (repeats - 1 - i) * k2 for i in range(repeats)]
-            chunks = sum(-(-e // _WHOLE_MR) * _WHOLE_MR for e in rows)
-            return waves * (sum(rows) + chunks), -tt
+            chans = [in_cols] + [cols] * (repeats - 1)
+            depth = [c_in] + [c_out] * (repeats - 1)
+            dw = sum(e * kernel * c for e, c in zip(rows, chans)) / 128
+            mm = sum(-(-e // 64) * 64 * cx * cols
+                     for e, cx in zip(rows, depth)) / 1024
+            return waves * max(dw, mm), -tt
 
         tt = min(fits, key=cost)
         return WholeBlockPlan(tt, n, cols, in_cols, smem(tt), -(-t // tt),
@@ -225,7 +247,8 @@ def whole_block_plan(bsz: int, t: int, c_in: int, c_out: int, kernel: int,
                      f"cluster of <= {WHOLE_MAX_CLUSTER} blocks gives each "
                      f"<= {_WHOLE_CW_MAX} columns (a multiple of 16) and "
                      "input channels (a multiple of 8) whose halo'd 16-row "
-                     f"tile fits {_build.SMEM_LIMIT} B of shared memory")
+                     f"tile fits {_build.SMEM_LIMIT} B of shared memory "
+                     f"in <= {_WHOLE_MAX_CHUNKS} chunks a repeat")
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,6 +279,64 @@ def _whole_lib() -> ctypes.CDLL:
     return lib
 
 
+def pack_whole_weights(w: torch.Tensor, cluster: int) -> torch.Tensor:
+    """A (C_x, C_out) 1x1 or residual weight for a cluster of `cluster`
+    blocks, as the whole-block kernel's weight ring holds it: bf16, per
+    (rank, 64-deep chunk) one tile of 64 input channels x C_out / cluster
+    columns (zero rows past C_x), each tile the wgmma B operand K-major
+    without swizzle, core matrices of 8 columns x 8 input channels (16
+    bytes a column) with the column groups of one 8-channel slice side by
+    side: (cluster, ceil(C_x / 64), 64 * C_out / cluster)."""
+    cx, c_out = w.shape
+    cw, nk = c_out // cluster, -(-cx // _WHOLE_KC)
+    wp = w.new_zeros((nk * _WHOLE_KC, c_out), dtype=torch.bfloat16)
+    wp[:cx] = w
+    return (wp.view(nk, _WHOLE_KC // 8, 8, cluster, cw // 8, 8)
+            .permute(3, 0, 1, 4, 5, 2).contiguous()
+            .view(cluster, nk, _WHOLE_KC * cw))
+
+
+def pack_whole_taps(dw: torch.Tensor, cluster: int) -> torch.Tensor:
+    """(K, C_x) fp32 depthwise taps -> (cluster, K, C_x / cluster): each
+    block's channels contiguous, one bulk copy a repeat."""
+    k, cx = dw.shape
+    return dw.to(torch.float32).view(k, cluster, cx // cluster) \
+        .permute(1, 0, 2).contiguous()
+
+
+# id(tensor) -> (weak reference, (data pointer, version), {(cluster, what):
+# packed}); an entry goes with its tensor
+_WHOLE_PACKED: dict = {}
+
+
+def _packed(t: torch.Tensor, cluster: int, what: str) -> torch.Tensor:
+    """`t` packed for the kernel (what: "w" pack_whole_weights, "dw"
+    pack_whole_taps), once per weight tensor: cached while the tensor
+    lives, its data pointer and version unchanged. A tensor made in
+    inference mode has no version (PyTorch refuses to change it in place
+    outside inference mode); its packs are kept while it lives, so replace
+    such a weight rather than change it in place. Packs are counted in
+    repeat_whole_block_cuda.packs."""
+    stamp = (t.data_ptr(), None if t.is_inference() else t._version)
+    key = id(t)
+    entry = _WHOLE_PACKED.get(key)
+    if entry is None or entry[0]() is not t or entry[1] != stamp:
+        entry = (weakref.ref(t, lambda ref, key=key: _forget(key, ref)),
+                 stamp, {})
+        _WHOLE_PACKED[key] = entry
+    packed = entry[2].get((cluster, what))
+    if packed is None:
+        fn = pack_whole_weights if what == "w" else pack_whole_taps
+        packed = entry[2][(cluster, what)] = fn(t, cluster)
+        repeat_whole_block_cuda.packs += 1
+    return packed
+
+
+def _forget(key: int, ref) -> None:
+    if _WHOLE_PACKED.get(key, (None,))[0] is ref:
+        del _WHOLE_PACKED[key]
+
+
 def whole_block_kernel_smem(plan: WholeBlockPlan, kernel: int,
                             repeats: int) -> int:
     """The shared-memory bytes the built kernel counts for `plan` (equal
@@ -282,6 +363,18 @@ def whole_block_clusters_at_once(cluster: int, smem_bytes: int,
     device (default: the current one) holds at once."""
     dev = torch.cuda.current_device() if device is None else device
     return _clusters_at_once(dev, bool(x_bf16), cluster, smem_bytes)
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_plan(device: int, bsz: int, t: int, c_in: int, c_out: int,
+                 kernel: int, repeats: int, x_bytes: int) -> WholeBlockPlan:
+    """whole_block_plan with the CUDA device's own cluster occupancy, once
+    per device and shape (a plan costs ~0.25 ms of host time, more than
+    the launch it plans)."""
+    at_once = functools.partial(whole_block_clusters_at_once,
+                                x_bf16=x_bytes == 2, device=device)
+    return whole_block_plan(bsz, t, c_in, c_out, kernel, repeats,
+                            x_bytes=x_bytes, clusters_at_once=at_once)
 
 
 def _need(name: str, tsr: torch.Tensor, device: torch.device, dtype,
@@ -399,31 +492,33 @@ def repeat_whole_block_cuda(x, lens, dw_ws, pw_ws, bs, res_w, res_b, *,
                             ) -> torch.Tensor:
     """The whole-block kernel (csrc/repeat_whole_block.cu): all R repeats
     and the residual in one launch, CUDA tensors only; launches counted in
-    `.launches`. Raises ValueError for a shape `whole_block_plan` cannot
+    `.launches`. The taps and the 1x1 and residual weights go in packed for
+    the plan's cluster, once per weight tensor (`_packed`; packs counted
+    in `.packs`). Raises ValueError for a shape `whole_block_plan` cannot
     take, RuntimeError for a failed build or launch."""
     x, lens, dws, pws, bss, res_w, res_b = _operands(
         x, lens, dw_ws, pw_ws, bs, res_w, res_b, kernel)
     bsz, t, c_in = x.shape
     c_out = pws[-1].shape[1]
     r = len(dws)
-    at_once = functools.partial(whole_block_clusters_at_once,
-                                x_bf16=x.dtype == torch.bfloat16,
-                                device=x.device.index)
-    plan = whole_block_plan(bsz, t, c_in, c_out, kernel, r,
-                            x_bytes=x.element_size(),
-                            clusters_at_once=at_once)
+    plan = _device_plan(x.device.index, bsz, t, c_in, c_out, kernel, r,
+                        x.element_size())
     out = torch.empty((bsz, t, c_out), dtype=x.dtype, device=x.device)
+    n = plan.cluster
+    dws = [_packed(a, n, "dw") for a in dws]
+    pws = [_packed(a, n, "w") for a in pws]
     ptrs = lambda ts: (ctypes.c_void_p * r)(*(a.data_ptr() for a in ts))  # noqa: E731
     has_res = res_w is not None
+    resw = _packed(res_w, n, "w") if has_res else None
     lib = _whole_lib()
     with torch.cuda.device(x.device):
         err = lib.vt_whole_forward(
             x.data_ptr(), int(x.dtype == torch.bfloat16), lens.data_ptr(),
             ptrs(dws), ptrs(pws), ptrs(bss), r,
-            res_w.data_ptr() if has_res else None,
+            resw.data_ptr() if has_res else None,
             res_b.data_ptr() if has_res else None,
             out.data_ptr(), bsz, t, c_in, c_out, kernel, int(last_act),
-            plan.tile_rows, plan.cluster,
+            plan.tile_rows, n,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "whole-block repeat kernel")
     repeat_whole_block_cuda.launches += 1
@@ -431,6 +526,7 @@ def repeat_whole_block_cuda(x, lens, dw_ws, pw_ws, bs, res_w, res_b, *,
 
 
 repeat_whole_block_cuda.launches = 0
+repeat_whole_block_cuda.packs = 0
 
 
 def fused_repeat_block_cuda(x, lens, dw_ws, pw_ws, bs, res_w, res_b, *,
