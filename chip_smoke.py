@@ -246,6 +246,26 @@ Phases, each of which raises on failure:
      launch; decoder="device_beam" at W = 100 with the word 3-gram, 1
      beam launch a call, the raw result bit for bit with the plain
      search. path_launches gain qn15x5_greedy and qn15x5_device_beam
+  16. the synthetic-language study (after 14; tools/synth_lang_run_torch.py,
+     cut short): its corpus (64 held-out word sequences of formant-coded
+     letters, written as WAVs), then 40 steps of the qn_v2 recipe
+     (QuartzNet12x1_vi, Novograd 0.01) and 20 of stack6_v2 (a 6-block
+     Conformer, AdamW 0.002) at full width, B = 32, bf16, on freshly
+     composed and augmented word sequences; each run's last 10 steps
+     resumed from its checkpoint under CUPTI: ms a step, idle share, 1
+     frontend, 1 alpha, 1 beta launch a step, finite losses, 0 skipped;
+     the frontend kernel and the CTC pair held to their plain versions
+     on the study's first batch (the frontend by its own outputs, phase
+     3's bars: log-mel no further from fp64 than the plain version's,
+     partials within 1e-5; the normalized features printed, not held:
+     the one-pass fp32 variance of the tones' nearly constant far mel
+     bins cancels); the held-out split decoded through the
+     fp32 loader (1 frontend launch a forward) and, on the QuartzNet,
+     through the kernel route (bf16: 1 frontend and 13 repeat launches a
+     forward, each repeat launch held to its plain version) against the
+     plain route (max |d log p| within E2E_LOGP_TOL); held-out WER
+     printed, not gated. path_launches gain study_<tag>_train,
+     study_<tag>_eval_fp32 and study_qn_v2_eval
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a GPU or
 without the package beside this file.
@@ -3478,13 +3498,68 @@ def json_lines(out: str) -> list:
     return [json.loads(l) for l in out.splitlines() if l.startswith("{")]
 
 
-def path_kernel_check(torch, dev, cfg, variables, batch, what, dtype):
+def hold_frontend_tiles(torch, cfg, sig, lens, what) -> float:
+    """The frontend kernel's own outputs on a path's signals, held as phase
+    3 holds them: the log-mel no further from an fp64 chain than its plain
+    version's, the partials within FRONTEND_PARTS_RTOL of their largest.
+    The features, which the plain epilogue shared by both routes
+    normalizes from the partials in one fp32 pass, are compared and
+    printed, not held: a nearly constant mel bin (the synthetic tones'
+    far bins) gets a variance of fp32 cancellation noise, and dividing by
+    its root amplifies any difference. Returns the log-mel's distance
+    from fp64."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import (
+        fft_tables, fused_log_mel_features, fused_log_mel_features_plain,
+        log_mel_tiles_cuda, log_mel_tiles_plain)
+    from vietasr_tpu_torch.frontend.features import (_mel_matrix,
+                                                     _windowed_dft_matrix,
+                                                     feature_seq_len,
+                                                     preemphasize_and_pad)
+
+    dev = sig.device
+    dft = torch.as_tensor(_windowed_dft_matrix(cfg), device=dev)
+    mel = torch.as_tensor(_mel_matrix(cfg), device=dev)
+    xp = preemphasize_and_pad(sig, cfg).contiguous()
+    seq_len = feature_seq_len(lens, cfg.hop_length)
+    lm_k, parts_k = log_mel_tiles_cuda(xp, seq_len, fft_tables(cfg, dev),
+                                       cfg=cfg)
+    lm_p, parts_p = log_mel_tiles_plain(xp, seq_len, dft, mel, cfg=cfg)
+    lm_64 = frontend_fp64_logmel(torch, xp, cfg, mel)
+    valid = (torch.arange(lm_k.shape[1], device=dev)[None, :]
+             < seq_len[:, None])[:, :, None]
+    k64 = float(((lm_k.double() - lm_64).abs() * valid).max())
+    p64 = float(((lm_p.double() - lm_64).abs() * valid).max())
+    p_err = float((parts_k - parts_p).abs().max() / parts_p.abs().max())
+    got, got_len = fused_log_mel_features(sig, lens, cfg=cfg,
+                                          tables=fft_tables(cfg, dev))
+    want, want_len = fused_log_mel_features_plain(sig, lens, cfg=cfg)
+    check(bool(torch.isfinite(lm_k).all()) and bool(torch.isfinite(got)
+                                                     .all())
+          and got.shape == want.shape and bool((got_len == want_len).all()),
+          f"{what}: frontend shape, seq_len or finiteness")
+    check(k64 <= p64, f"{what}: log-mel {k64} from fp64, further than the "
+          f"plain version's {p64}")
+    check(p_err <= FRONTEND_PARTS_RTOL, f"{what}: partials {p_err}")
+    d = (got - want).abs()
+    b, _, m = (int(i) for i in torch.unravel_index(d.argmax(), d.shape))
+    rows = lm_64[b, :int(seq_len[b]), m]
+    print(f"{what}: frontend kernel vs plain: log-mel from fp64 {k64:.3e} "
+          f"(plain {p64:.3e}), partials {p_err:.3e} of their largest (tol "
+          f"{FRONTEND_PARTS_RTOL}); features max|d| {float(d.max()):.3e} "
+          f"(phase 3's bar {FRONTEND_TOL}, not held here) at mel bin {m} "
+          f"of row {b}, whose fp64 log-mel has std {float(rows.std()):.3e}"
+          f" over {rows.numel()} frames")
+    return k64
+
+
+def path_kernel_check(torch, dev, cfg, variables, batch, what, dtype,
+                      tiles=False):
     """The kernels of a phase 12 path against their plain versions at that
     path's own shapes: the fp32 frontend on `batch`'s signals (padded rows
-    included, dither 0) at phase 3's tolerance, then the CTC pair on the
-    log-probs and targets that the loss gives this batch (eval mode,
-    `dtype`) through ctc_compare, phase 7's check. Raises on a
-    difference."""
+    included, dither 0) at phase 3's tolerance (with `tiles`, by
+    hold_frontend_tiles), then the CTC pair on the log-probs and targets
+    that the loss gives this batch (eval mode, `dtype`) through
+    ctc_compare, phase 7's check. Raises on a difference."""
     import dataclasses
 
     from vietasr_tpu_torch.frontend.cuda_frontend import (
@@ -3496,7 +3571,10 @@ def path_kernel_check(torch, dev, cfg, variables, batch, what, dtype):
     sig, lens = t["signal"], t["signal_lens"]
     got, got_len = fused_log_mel_features(sig, lens, cfg=fcfg,
                                           tables=fft_tables(fcfg, dev))
-    f_err = hold_frontend(torch, fcfg, sig, lens, got, got_len, what)
+    if tiles:
+        f_err = hold_frontend_tiles(torch, fcfg, sig, lens, what)
+    else:
+        f_err = hold_frontend(torch, fcfg, sig, lens, got, got_len, what)
 
     loss_fn = make_loss_fn(cfg, use_specaug=False, compute_dtype=dtype,
                            device=dev)
@@ -5323,6 +5401,169 @@ def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
                                    "busy_ms": busy_ms, "idle": idle}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the synthetic-language study (tools/synth_lang_run_torch.py),
+# cut short: its corpus, the first steps of two recipes at full width and
+# B = 32, the held-out split decoded through the kernel and plain routes
+
+# (tag, steps run here, recipe): qn_v2 and stack6_v2 as the JAX runs took
+# them (artifacts/study/synth_<tag>.json's meta)
+STUDY_RUNS = (
+    ("qn_v2", 40, dict(config=CONFIG, steps=2500, lr=0.01)),
+    ("stack6_v2", 20, dict(
+        config=os.path.join(HERE, "vietasr_tpu_torch", "configs",
+                            "conformer_ctc_vi_s.yaml"),
+        steps=4000, lr=0.002, optimizer="adamw", warmup=500,
+        num_blocks=6)))
+STUDY_TRACED = 10           # the last steps of each run, under CUPTI
+
+
+def study_tool():
+    """tools/synth_lang_run_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "synth_lang_run_torch",
+        os.path.join(HERE, "tools", "synth_lang_run_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def study_train(np, torch, tool, work, tag, steps, recipe, kernels):
+    """`steps` of a recipe through the tool's phase_train: all but the
+    last STUDY_TRACED untraced, then those resumed from the checkpoint
+    under CUPTI with the launch counters read around them. Returns
+    (ms a step over the traced steps, their idle share)."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    recipe = dict(recipe)
+    config, n = recipe.pop("config"), recipe.pop("steps")
+    lr = recipe.pop("lr")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tool.phase_train(work, config, tag, n, 32, lr, **recipe,
+                         max_steps=steps - STUDY_TRACED, log_every=1)
+        reset_all_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            summary = tool.phase_train(work, config, tag, n, 32, lr,
+                                       **recipe, max_steps=steps,
+                                       log_every=1)
+            torch.cuda.synchronize()
+        launches = all_launches()
+    # the trace also holds the init, the checkpoint's upload and its save
+    # (a few ms), so the busy share is an upper bound
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")) / 1e3
+    losses = [m["loss"] for m in json_lines(out.getvalue()) if "loss" in m]
+    check(summary["end_step"] == steps and summary["skipped_steps"] == 0,
+          f"study {tag}: {summary}")
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"study {tag}: losses {losses}")
+    check_launches(kernels, f"study_{tag}_train", launches,
+                   {"log_mel_frontend": STUDY_TRACED,
+                    "ctc_alpha": STUDY_TRACED, "ctc_beta": STUDY_TRACED})
+    wall_ms = summary["wall_s"] * 1e3
+    idle = 1 - busy / wall_ms
+    print(f"study {tag}: {steps} steps of B = 32 (recipe of "
+          f"{summary['recipe_steps']}), losses {losses[0]:.2f} -> "
+          f"{losses[-1]:.2f}; the last {STUDY_TRACED} resumed: "
+          f"{summary['step_ms']:.2f} ms a step, device busy {busy:.2f} ms "
+          f"of {wall_ms:.2f} ({100 * idle:.1f} % idle); launches "
+          f"{launches}")
+    return summary["step_ms"], idle
+
+
+def study_phase(np, torch, dev, kernels):
+    """Phase 16: the corpus, 40 steps of qn_v2 and 20 of stack6_v2, each
+    kernel of their path held to its plain version on the study's own
+    batch, and the held-out split decoded through the kernel route and
+    the plain route."""
+    import io
+
+    from vietasr_tpu_torch.models import quartznet as qn
+    from vietasr_tpu_torch.train.metrics import word_error_rate
+
+    tool = study_tool()
+    t0 = time.perf_counter()
+    numbers = {}
+    with tempfile.TemporaryDirectory() as work:
+        cfg = tool.study_config(CONFIG)
+        with contextlib.redirect_stdout(io.StringIO()):
+            tool.phase_corpus(work, 64, cfg.labels, "v2")
+        refs, sigs = tool.read_split(os.path.join(work,
+                                                  "heldout_manifest.json"))
+        print(f"study corpus: {len(sigs)} held-out utterances, "
+              f"{sum(len(s) for s in sigs) / 16000:.1f} audio-s, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for tag, steps, recipe in STUDY_RUNS:
+            step_ms, idle = study_train(np, torch, tool, work, tag, steps,
+                                        recipe, kernels)
+            run_dir = os.path.join(work, f"run_{tag}")
+            config = recipe["config"]
+            if recipe.get("num_blocks") is not None:
+                config = os.path.join(run_dir, "config.yaml")
+            rcfg = tool.study_config(config)
+            # the frontend kernel and the CTC pair on the study's first
+            # batch, the frontend by its own outputs
+            path_kernel_check(torch, dev, rcfg,
+                              tool.restore_variables(run_dir, dev),
+                              next(iter(tool.study_batcher(rcfg.labels,
+                                                           32))),
+                              f"study {tag}, first batch", torch.bfloat16,
+                              tiles=True)
+            # the loader's fp32 route (the JAX tool's eval)
+            fp32 = tool.load_transcriber(config, run_dir, device=dev)
+            fw = n_forwards(fp32, sigs)
+            reset_all_launches()
+            hyps = fp32.transcribe_batch(sigs)
+            check_launches(kernels, f"study_{tag}_eval_fp32", all_launches(),
+                           {"log_mel_frontend": fw})
+            wer = word_error_rate([h.strip() for h in hyps], refs)
+            line = (f"study {tag}: held-out offline WER {wer:.4f} (fp32, "
+                    f"{fw} forwards)")
+            numbers[tag] = {"step_ms": step_ms, "idle": idle,
+                            "heldout_wer_fp32": wer}
+            if rcfg.architecture == "quartznet":
+                # the kernel route (bf16: frontend kernel, 13 fused blocks)
+                # vs the plain route on the same weights and signals
+                kernel = tool.load_transcriber(config, run_dir, device=dev,
+                                               compute_dtype="bfloat16")
+                calls, undo = record_repeat_calls(qn)
+                reset_all_launches()
+                try:
+                    k_hyps = kernel.transcribe_batch(sigs)
+                finally:
+                    undo()
+                check_launches(kernels, f"study_{tag}_eval", all_launches(),
+                               {"log_mel_frontend": fw,
+                                "repeat_block": 13 * fw})
+                worst = hold_repeat(calls, f"study {tag} eval")
+                r = tool.kernel_route_check(config, run_dir, sigs,
+                                            device=dev)
+                check(r["hyps"] == [h.strip() for h in k_hyps],
+                      f"study {tag}: kernel route transcripts")
+                check(r["max_abs_dlogp"] <= E2E_LOGP_TOL,
+                      f"study {tag}: kernel vs plain route max|d log p| "
+                      f"{r['max_abs_dlogp']}")
+                k_wer = word_error_rate(r["hyps"], refs)
+                p_wer = word_error_rate(r["plain_hyps"], refs)
+                line += (f"; kernel route (bf16) {k_wer:.4f}, plain route "
+                         f"{p_wer:.4f}, transcripts equal {r['equal']}/"
+                         f"{len(sigs)}, max|d log p| "
+                         f"{r['max_abs_dlogp']:.4e} (tol {E2E_LOGP_TOL}); "
+                         f"{len(calls)} repeat launches held, worst "
+                         f"{worst:.3e} of max|want| (tol {REPEAT_TOL_REL})")
+                numbers[tag].update(heldout_wer_kernel=k_wer,
+                                    max_abs_dlogp=r["max_abs_dlogp"])
+            print(line)
+    print(f"phase 16: {json.dumps(numbers)}")
+    return numbers
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5390,6 +5631,8 @@ def main() -> int:
     print(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
     phase14(np, torch, dev, signals, kernels)
     print(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
+    study_phase(np, torch, dev, kernels)
+    print(f"phase 16 done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -101,8 +101,45 @@ def test_parallel_and_export_alone_and_one_process_is_a_no_op():
     assert out.stdout.strip() == "ok"
 
 
+STUDY_TOOL = r"""
+import importlib.util, os, sys
+spec = importlib.util.spec_from_file_location(
+    "synth_lang_run_torch", os.path.join("tools", "synth_lang_run_torch.py"))
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "vietasr_tpu"))
+assert not bad, bad
+import torch
+if not torch.cuda.is_available():
+    try:
+        tool.main(["--phase", "corpus", "--work-dir", sys.argv[1]])
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("the study ran without CUDA or --device cpu")
+    assert not os.listdir(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "vietasr_tpu"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_study_tool_imports_no_jax_and_wants_cuda(tmp_path):
+    """tools/synth_lang_run_torch.py, imported and run, loads no JAX,
+    flax or JAX-package module, and without --device cpu refuses to run
+    (here, without a GPU) before it writes anything."""
+    out = subprocess.run([sys.executable, "-c", STUDY_TOOL, str(tmp_path)],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_forbidden_import_in_sources():
-    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    sources = [os.path.join(ROOT, "chip_smoke.py"),
+               os.path.join(ROOT, "tools", "synth_lang_run_torch.py")]
     for dirpath, _, files in os.walk(PORT):
         sources += [os.path.join(dirpath, f) for f in files
                     if f.endswith(".py")]
