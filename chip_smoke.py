@@ -12,9 +12,17 @@ Phases, each of which raises on failure:
      16.7 s, 64 and 80 mels, ragged lengths with row 0 full: features
      within 2e-4 with equal seq_len, the log-mel no further from an fp64
      chain than the plain chain is, partials within 1e-5 of their largest;
-     the kernel's ms per shape, its bound (bytes vs a real FFT's
-     operations), the DFT-count bound, the plain version's ms and the
-     torch.stft + |X|^2 + mel + log composition's ms
+     the partials (sum, M2 about the tile's mean) plane by plane against
+     tile_partials of the kernel's own log-mel (hold_partials), and the
+     normalized features no further from the fp64 two-pass chain than
+     max(2e-4, the plain route's distance) plus one fp32 step of the
+     log-mel value, where the two fp32 routes tie (hold_features_fp64); the
+     kernel's ms per shape, its bound (bytes vs a real FFT's operations),
+     the DFT-count bound, the plain version's ms and the torch.stft +
+     |X|^2 + mel + log composition's ms. Then band-limited audio (8 kHz
+     noise x 0.01 upsampled on the card by make_device_resampler, its mel
+     bins above 4 kHz nearly constant) at B = 8 and 32 x 16.7 s, 64 and 80
+     mels: the log-mel, partials and features held by the same rules
   3b. the bf16 frontend kernel (fused_frontend="fast", frames @ DFT on
      wgmma and power @ mel on mma.sync) vs its plain PyTorch version at
      phase 3's 14 shapes, at the largest hop its launch plan takes with 64
@@ -27,7 +35,13 @@ Phases, each of which raises on failure:
      from the fp64 chain for the bf16 kernel, its plain version and the
      fp32 kernel; ms at every shape, the bound (bf16 operations vs bytes),
      and at B = 8 and 32 x 16.7 s the plain version's ms and a bf16
-     torch.matmul composition's ms
+     torch.matmul composition's ms; then phase 3's band-limited shapes:
+     mel power and partials held as above, the features within 2e-4 + one
+     fp32 log-mel step of an fp64 normalization of the kernel's own
+     log-mel (hold_epilogue), their distance from the fp64 two-pass chain
+     printed beside the plain route's (not held: on the bf16 spectral
+     floor both routes lie O(10) from it and differ by flipped bf16
+     roundings, which the 2^-7 mel-power bar bounds)
   4. repeat-block kernel vs its plain version at every QuartzNet12x1 block
      shape (T = 840, B = 8), at the 512-wide block shapes of phase 5's
      small forwards (B = 2 x T = 304, B = 4 x T = 408, B = 2 x T = 552)
@@ -106,7 +120,10 @@ Phases, each of which raises on failure:
      1 frontend and 13 repeat launches per utterance, counted); the
      stitched log-probs against the plain route (frontend and repeat
      plain) on the card, frame argmax agreement >= 0.99 and max|d log p|
-     within E2E_LOGP_TOL; the device int16 / G.711 decode and 8 -> 16 kHz
+     within E2E_LOGP_TOL; the mu-law utterance's features as the
+     Transcriber's fused route takes them (its 15 s spans, telephone
+     band) held by hold_features_fp64; the device int16 / G.711 decode
+     and 8 -> 16 kHz
      resampler against the host path within 1e-5, with cuDNN's TF32 flag
      off and at PyTorch's default; the repeat kernel at the 300 s batch
      (B = 27 x T = 752) against its plain version; audio-s/s and idle
@@ -257,9 +274,10 @@ Phases, each of which raises on failure:
      the frontend kernel and the CTC pair held to their plain versions
      on the study's first batch (the frontend by its own outputs, phase
      3's bars: log-mel no further from fp64 than the plain version's,
-     partials within 1e-5; the normalized features printed, not held:
-     the one-pass fp32 variance of the tones' nearly constant far mel
-     bins cancels); the held-out split decoded through the
+     partials within 1e-5 and plane by plane against its own log-mel's,
+     the normalized features held by hold_features_fp64, the tones'
+     nearly constant far mel bins included); the held-out split decoded
+     through the
      fp32 loader (1 frontend launch a forward) and, on the QuartzNet,
      through the kernel route (bf16: 1 frontend and 13 repeat launches a
      forward, each repeat launch held to its plain version) against the
@@ -303,10 +321,20 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 FRONTEND_TOL = 2e-4        # the JAX package's own fused-frontend tolerance
-# frontend partials (per-tile sums of up to 16 log-mel values and their
-# squares) vs the plain version's, relative to the largest: fp32 sums of the
-# same terms in another order
+# frontend partials (per-tile sums of up to 16 log-mel values, and their
+# M2 about the tile's mean) vs the plain version's, relative to the
+# largest: fp32 sums of the same terms in another order
 FRONTEND_PARTS_RTOL = 1e-5
+# a kernel's M2 plane vs tile_partials of the kernel's own log-mel (fp64,
+# rounded once), each element: the kernels sum <= 16 deviations from the
+# tile's first frame v0 and their squares in fp32, each term and sum
+# rounded, so within ~16 eps = 1e-6 of S = sum (v - v0)^2 <= 16 M2: 1e-5
+# of S
+FRONTEND_M2_RTOL = 1e-5
+# band-limited audio for the frontends: 8 kHz noise x this amplitude
+# upsampled to 16 kHz on the card, so that the mel bins above 4 kHz are
+# nearly constant (the telephone band of the long-form mu-law path)
+BAND_AMP = 0.01
 # repeat block: bf16 output; one bf16 rounding step at the output's largest
 # magnitude is 2^-8 * 2^ceil(log2 max); allow 2^-7 * max|want|, a quarter of
 # the JAX test's 0.03 * max|want|
@@ -491,6 +519,152 @@ def frontend_composition(torch, xp, cfg, window, mel):
     return torch.log(power @ mel + cfg.log_zero_guard_value)
 
 
+def fp64_normalize(torch, lm, seq_len, cfg):
+    """A log-mel's fp64 two-pass per-feature normalization with the fused
+    epilogue's n = max(seq_len, 1) and +1e-5 std guard, padded as the
+    featurizer pads: (feats, per-bin std (B, n_mels))."""
+    from vietasr_tpu_torch.frontend.features import mask_and_pad_time
+
+    lm = lm.double()
+    valid = (torch.arange(lm.shape[1], device=lm.device)[None, :]
+             < seq_len[:, None])[:, :, None]
+    n = torch.clamp_min(seq_len, 1).double()[:, None]
+    mean = torch.where(valid, lm, 0.0).sum(1) / n
+    dev = torch.where(valid, lm - mean[:, None], 0.0)
+    std = torch.sqrt((dev * dev).sum(1) / torch.clamp_min(n - 1.0, 1.0))
+    feats = (lm - mean[:, None]) / (std[:, None] + 1e-5) \
+        if cfg.normalize == "per_feature" else lm
+    return mask_and_pad_time(feats, seq_len, lm.shape[1], cfg), std
+
+
+def frontend_fp64_features(torch, sig, lens, cfg, mel):
+    """The features of the fp64 chain: frontend_fp64_logmel of the signals'
+    padded frames, then fp64_normalize. Returns (feats, per-bin fp64 std
+    (B, n_mels), the fp64 log-mel (B, t_out, n_mels))."""
+    from vietasr_tpu_torch.frontend.features import (feature_seq_len,
+                                                     preemphasize_and_pad)
+
+    xp = preemphasize_and_pad(sig.float(), cfg).contiguous()
+    seq_len = feature_seq_len(lens, cfg.hop_length)
+    lm = frontend_fp64_logmel(torch, xp, cfg, mel)
+    return (*fp64_normalize(torch, lm, seq_len, cfg), lm)
+
+
+def log_mel_step(torch, lm64, std):
+    """One fp32 step of each log-mel value in its feature's units: the
+    fp32 spacing at |lm64| over the bin's std + 1e-5, (B, t_out, n_mels).
+    No fp32 log-mel can come closer to the fp64 chain than half of it, so
+    two fp32 routes tie within it: on a bin at the log guard (|lm| ~
+    16.6, std ~3e-3) it is ~6e-4 of a feature."""
+    a = lm64.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a) \
+        .double() / (std[:, None, :] + 1e-5)
+
+
+def hold_features_fp64(torch, cfg, sig, lens, got, what, mel=None):
+    """The kernel route's features `got` on (sig, lens) against the fp64
+    chain (frontend_fp64_features): each no further from it than
+    max(FRONTEND_TOL, the plain route's distance), the plain route being
+    fused_log_mel_features_plain on the same signals, plus one fp32 step
+    of its log-mel value (log_mel_step: on nearly constant bins both
+    routes lie about that far from fp64). Prints both distances, the
+    worst bin's fp64 std and the worst element's share of its bar;
+    returns (kernel distance, plain distance)."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import (
+        fused_log_mel_features_plain)
+    from vietasr_tpu_torch.frontend.features import _mel_matrix
+
+    if mel is None:
+        mel = torch.as_tensor(_mel_matrix(cfg), device=sig.device)
+    want, _ = fused_log_mel_features_plain(sig, lens, cfg=cfg)
+    f64, std, lm64 = frontend_fp64_features(torch, sig, lens, cfg, mel)
+    check(got.shape == f64.shape == want.shape,
+          f"{what}: feature shapes {tuple(got.shape)} / {tuple(f64.shape)}")
+    t = lm64.shape[1]
+    d = (got.double() - f64).abs()[:, :t]
+    k64 = float(d.max())
+    p64 = float((want.double() - f64).abs().max())
+    share = d / (max(FRONTEND_TOL, p64) + log_mel_step(torch, lm64, std))
+    b, _, m = (int(i) for i in torch.unravel_index(d.argmax(), d.shape))
+    print(f"{what}: features vs the fp64 two-pass chain: kernel route "
+          f"{k64:.3e}, plain route {p64:.3e}; worst at mel bin {m} of row "
+          f"{b}, fp64 std {float(std[b, m]):.3e}; worst element at "
+          f"{float(share.max()):.3f} of its bar (max({FRONTEND_TOL}, plain)"
+          " + one fp32 log-mel step)")
+    check(float(share.max()) <= 1.0, f"{what}: features {k64} from the "
+          f"fp64 chain, an element further than max({FRONTEND_TOL}, the "
+          f"plain route's {p64}) + one fp32 log-mel step")
+    return k64, p64
+
+
+def hold_epilogue(torch, cfg, got, logmel, seq_len, what):
+    """The kernel route's features `got` against fp64_normalize of the
+    kernel's own log-mel, which isolates the epilogue and the partials
+    from the log-mel's rounding: each within FRONTEND_TOL + one fp32 step
+    of its log-mel value (the tile sums' fp32 rounding moves the mean by
+    up to half of one). Returns max|d|."""
+    want, std = fp64_normalize(torch, logmel, seq_len, cfg)
+    check(got.shape == want.shape, f"{what}: feature shapes")
+    t = logmel.shape[1]
+    d = (got.double() - want).abs()[:, :t]
+    share = d / (FRONTEND_TOL + log_mel_step(torch, logmel, std))
+    check(float(share.max()) <= 1.0, f"{what}: features {float(d.max())} "
+          "from the fp64 normalization of the kernel's own log-mel")
+    return float(d.max())
+
+
+def hold_partials(torch, parts, logmel, seq_len, what):
+    """A kernel's partials against tile_partials of its own log-mel, plane
+    by plane: the sums within FRONTEND_PARTS_RTOL of their largest, each
+    M2 within FRONTEND_M2_RTOL of its tile's sum (v - v0)^2 over the valid
+    frames, v0 the tile's first (0 where that is 0). Returns (sums' error
+    of their largest, M2's worst share of its bound)."""
+    from vietasr_tpu_torch.frontend.cuda_frontend import (FRAMES_PER_TILE,
+                                                          tile_partials)
+
+    own = tile_partials(logmel, seq_len)
+    check(parts.shape == own.shape, f"{what}: partials shape")
+    s_err = float((parts[:, :, 0] - own[:, :, 0]).abs().max()
+                  / own[:, :, 0].abs().max())
+    bsz, n_tiles, _, n_mels = own.shape
+    span = n_tiles * FRAMES_PER_TILE
+    rows = torch.nn.functional.pad(
+        logmel.double(), (0, 0, 0, span - logmel.shape[1])).reshape(
+            bsz, n_tiles, FRAMES_PER_TILE, n_mels)
+    valid = (torch.arange(span, device=logmel.device)[None, :]
+             < seq_len[:, None]).reshape(bsz, n_tiles, FRAMES_PER_TILE, 1)
+    scale = (torch.where(valid, rows - rows[:, :, :1], 0.0) ** 2).sum(2)
+    d2 = (parts[:, :, 1] - own[:, :, 1]).abs().double()
+    bar = FRONTEND_M2_RTOL * scale
+    check(bool((d2 <= bar).all()), f"{what}: partial M2 off by "
+          f"{float(d2.max())}, beyond {FRONTEND_M2_RTOL} of its tile's "
+          "sum of squared deviations from the first frame")
+    m2_share = float((d2 / bar.clamp_min(1e-300)).max())
+    check(s_err <= FRONTEND_PARTS_RTOL,
+          f"{what}: partial sums {s_err} of their largest")
+    return s_err, m2_share
+
+
+def band_limited(np, torch, dev, bsz, seconds, seed):
+    """(signals, lengths) on the card: seeded 8 kHz noise x BAND_AMP of
+    `seconds`, upsampled to 16 kHz by the port's device resampler; ragged
+    lengths with row 0 full, as phase 3's."""
+    from vietasr_tpu_torch.ops.resample import make_device_resampler
+
+    rng = np.random.RandomState(seed)
+    x8 = torch.from_numpy((rng.randn(bsz, int(seconds * 8000)) * BAND_AMP)
+                          .astype(np.float32)).to(dev)
+    sig = make_device_resampler(8000, 16000, device=dev)(x8).contiguous()
+    n = sig.shape[1]
+    lens = rng.randint(n // 4, n + 1, size=bsz).astype(np.int32)
+    lens[0] = n
+    return sig, torch.from_numpy(lens).to(dev)
+
+
+# the band-limited shapes of phases 3 and 3b: (mels, B, seconds)
+BAND_SHAPES = ((64, 8, 16.7), (64, 32, 16.7), (80, 8, 16.7), (80, 32, 16.7))
+
+
 def frontend_phase(np, torch, dev):
     from vietasr_tpu_torch.frontend.cuda_frontend import (
         FRAMES_PER_TILE, fft_tables, fused_log_mel_features,
@@ -502,7 +676,9 @@ def frontend_phase(np, torch, dev):
                                                      feature_seq_len,
                                                      preemphasize_and_pad)
 
-    worst = {"feats": 0.0, "fp64": 0.0, "plain_fp64": 0.0, "parts": 0.0}
+    worst = dict.fromkeys(("feats", "fp64", "plain_fp64", "parts", "sums",
+                           "m2", "feats_fp64", "band_feats_fp64",
+                           "band_plain_feats_fp64"), 0.0)
     by_shape, row = {}, None
     for n_mels in (64, 80):
         cfg = FeaturizerConfig(dither=0.0, features=n_mels)
@@ -548,8 +724,14 @@ def frontend_phase(np, torch, dev):
                           / parts_p.abs().max())
             check(p_err <= FRONTEND_PARTS_RTOL,
                   f"{what}: partials {p_err} of their largest")
+            s_err, m2_share = hold_partials(torch, parts_k, lm_k, seq_len,
+                                            what)
+            f64, _ = hold_features_fp64(torch, cfg, sig, lens, got, what,
+                                        mel)
             for key, v in (("feats", err), ("fp64", k64),
-                           ("plain_fp64", p64), ("parts", p_err)):
+                           ("plain_fp64", p64), ("parts", p_err),
+                           ("sums", s_err), ("m2", m2_share),
+                           ("feats_fp64", f64)):
                 worst[key] = max(worst[key], v)
 
             t_out = lm_k.shape[1]
@@ -583,16 +765,58 @@ def frontend_phase(np, torch, dev):
                 row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by, "dft_bound_ms": dft_bound,
                        "composition_ms": comp_ms}
+        # band-limited audio: nearly constant far bins, held by the kernel's
+        # own partials and the features' distance from the fp64 chain
+        for m, bsz, seconds in BAND_SHAPES:
+            if m != n_mels:
+                continue
+            what = f"frontend band-limited {n_mels} mels B={bsz} {seconds} s"
+            sig, lens = band_limited(np, torch, dev, bsz, seconds,
+                                     seed=8000 + bsz + n_mels)
+            got, got_len = fused_log_mel_features(sig, lens, cfg=cfg,
+                                                  tables=tables)
+            xp = preemphasize_and_pad(sig, cfg).contiguous()
+            seq_len = feature_seq_len(lens, cfg.hop_length)
+            lm_k, parts_k = log_mel_tiles_cuda(xp, seq_len, tables, cfg=cfg)
+            lm_p, _ = log_mel_tiles_plain(xp, seq_len, dft, mel, cfg=cfg)
+            lm_64 = frontend_fp64_logmel(torch, xp, cfg, mel)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all())
+                  and bool((got_len == seq_len).all()),
+                  f"{what}: non-finite features or seq_len")
+            k64 = float((lm_k.double() - lm_64).abs().max())
+            p64 = float((lm_p.double() - lm_64).abs().max())
+            check(k64 <= p64, f"{what}: log-mel {k64} from fp64, further "
+                  f"than the plain chain's {p64}")
+            s_err, m2_share = hold_partials(torch, parts_k, lm_k, seq_len,
+                                            what)
+            f64, plain64 = hold_features_fp64(torch, cfg, sig, lens, got,
+                                              what, mel)
+            print(f"{what}: log-mel vs fp64 kernel {k64:.3e}, plain "
+                  f"{p64:.3e}; partial sums {s_err:.3e} of their largest, "
+                  f"M2 at {m2_share:.3f} of its bound")
+            for key, v in (("sums", s_err), ("m2", m2_share),
+                           ("band_feats_fp64", f64),
+                           ("band_plain_feats_fp64", plain64)):
+                worst[key] = max(worst[key], v)
     print(f"frontend: worst features max|d| {worst['feats']:.3e} (tol "
           f"{FRONTEND_TOL}), log-mel vs fp64 kernel {worst['fp64']:.3e} / "
-          f"plain {worst['plain_fp64']:.3e}, partials {worst['parts']:.3e}")
+          f"plain {worst['plain_fp64']:.3e}, partials {worst['parts']:.3e}"
+          f" (sums {worst['sums']:.3e} of their largest, M2 at "
+          f"{worst['m2']:.3f} of its bound); band-limited features vs "
+          f"fp64 kernel {worst['band_feats_fp64']:.3e} / plain "
+          f"{worst['band_plain_feats_fp64']:.3e}")
     return {"name": "log_mel_frontend", "route": "cuda",
             "source": "vietasr_tpu_torch/csrc/frontend.cu",
             "replaces": "vietasr_tpu/frontend/pallas_frontend.py:51",
             "max_abs_err": worst["feats"], **row, "library_ms": None,
             "ms_by_shape": by_shape, "fp64_err": worst["fp64"],
             "plain_fp64_err": worst["plain_fp64"],
-            "parts_rel_err": worst["parts"]}
+            "parts_rel_err": worst["parts"],
+            "m2_share_of_bound": worst["m2"],
+            "feats_fp64_err": worst["feats_fp64"],
+            "band_feats_fp64_err": worst["band_feats_fp64"],
+            "band_plain_feats_fp64_err": worst["band_plain_feats_fp64"]}
 
 
 def frontend_fast_bound(cfg, tables, mel, bsz, sp, t_out, n_tiles):
@@ -665,7 +889,7 @@ def frontend_fast_phase(np, torch, dev):
         FRAMES_PER_TILE, fast_plan, fast_tables, fft_tables,
         fused_log_mel_features, fused_log_mel_features_plain,
         log_mel_tiles_cuda, log_mel_tiles_fast_cuda,
-        log_mel_tiles_fast_plain, tile_partials)
+        log_mel_tiles_fast_plain)
     from vietasr_tpu_torch.frontend.features import (FeaturizerConfig,
                                                      _mel_matrix,
                                                      _windowed_dft_matrix,
@@ -677,7 +901,8 @@ def frontend_fast_phase(np, torch, dev):
                                    (1, 16.7), (8, 16.7), (32, 16.7))]
     shapes += [(m, hop or fast_widest_hop(m), bsz, seconds, lens)
                for m, hop, bsz, seconds, lens in FAST_EXTRA_SHAPES]
-    worst = {"mel": 0.0, "logmel": 0.0, "parts": 0.0}
+    worst = dict.fromkeys(("mel", "logmel", "parts", "m2", "epilogue",
+                           "band_feats_fp64", "band_plain_feats_fp64"), 0.0)
     by_shape, row, consts = {}, {}, {}
     for n_mels, hop, bsz, seconds, fixed in shapes:
         cfg = FeaturizerConfig(dither=0.0, features=n_mels,
@@ -725,13 +950,10 @@ def frontend_fast_phase(np, torch, dev):
                          / m_p.amax(-1, keepdim=True)).max())
         check(mel_err <= FAST_MEL_TOL, f"{what}: mel power {mel_err} of "
               f"the frame's largest > {FAST_MEL_TOL}")
-        own = tile_partials(lm_k, seq_len)
-        p_err = float((parts_k - own).abs().max() / own.abs().max())
-        check(p_err <= FRONTEND_PARTS_RTOL, f"{what}: partials {p_err} "
-              "of the largest of its own log-mel's")
+        p_err, m2_share = hold_partials(torch, parts_k, lm_k, seq_len, what)
         lm_err = float((lm_k - lm_p).abs().max())
         for key, v in (("mel", mel_err), ("logmel", lm_err),
-                       ("parts", p_err)):
+                       ("parts", p_err), ("m2", m2_share)):
             worst[key] = max(worst[key], v)
         d64 = {}
         for name, lm in (("kernel", lm_k), ("plain", lm_p),
@@ -781,10 +1003,56 @@ def frontend_fast_phase(np, torch, dev):
         else:
             row.update(ms_b32=ms, plain_ms_b32=plain_ms,
                        bound_ms_b32=bound, composition_ms_b32=comp_ms)
+    # band-limited audio, as phase 3 takes it
+    for n_mels, bsz, seconds in BAND_SHAPES:
+        cfg = FeaturizerConfig(dither=0.0, features=n_mels)
+        dft, mel, tables, _ = consts[(n_mels, 160)]
+        what = (f"bf16 frontend band-limited {n_mels} mels B={bsz} "
+                f"{seconds} s")
+        sig, lens = band_limited(np, torch, dev, bsz, seconds,
+                                 seed=8000 + bsz + n_mels)
+        got, got_len = fused_log_mel_features(
+            sig, lens, cfg=cfg, tables=tables, precision="default")
+        xp = preemphasize_and_pad(sig, cfg).contiguous()
+        seq_len = feature_seq_len(lens, cfg.hop_length)
+        lm_k, parts_k = log_mel_tiles_fast_cuda(xp, seq_len, tables,
+                                                cfg=cfg)
+        lm_p, _ = log_mel_tiles_fast_plain(xp, seq_len, dft, mel, cfg=cfg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all())
+              and bool((got_len == seq_len).all()),
+              f"{what}: non-finite features or seq_len")
+        m_p = mel_power(torch, lm_p, cfg)
+        mel_err = float(((mel_power(torch, lm_k, cfg) - m_p).abs()
+                         / m_p.amax(-1, keepdim=True)).max())
+        check(mel_err <= FAST_MEL_TOL, f"{what}: mel power {mel_err} of "
+              f"the frame's largest > {FAST_MEL_TOL}")
+        p_err, m2_share = hold_partials(torch, parts_k, lm_k, seq_len, what)
+        epi = hold_epilogue(torch, cfg, got, lm_k, seq_len, what)
+        want, _ = fused_log_mel_features_plain(sig, lens, cfg=cfg,
+                                               precision="default")
+        f64s, _, _ = frontend_fp64_features(torch, sig, lens, cfg, mel)
+        f64 = float((got.double() - f64s).abs().max())
+        plain64 = float((want.double() - f64s).abs().max())
+        print(f"{what}: mel power vs plain {mel_err:.3e} of the frame's "
+              f"largest; partial sums {p_err:.3e} of their largest, M2 at "
+              f"{m2_share:.3f} of its bound; features vs the fp64 "
+              f"normalization of its own log-mel {epi:.3e}; vs the fp64 "
+              f"chain (bf16 spectral floor, not held) kernel route "
+              f"{f64:.3e}, plain route {plain64:.3e}")
+        for key, v in (("mel", mel_err), ("parts", p_err), ("m2", m2_share),
+                       ("epilogue", epi), ("band_feats_fp64", f64),
+                       ("band_plain_feats_fp64", plain64)):
+            worst[key] = max(worst[key], v)
     print(f"bf16 frontend: worst mel power {worst['mel']:.3e} of the "
           f"frame's largest (tol {FAST_MEL_TOL}), log-mel "
-          f"{worst['logmel']:.3e}, partials {worst['parts']:.3e} over "
-          f"{len(shapes)} shapes")
+          f"{worst['logmel']:.3e}, partial sums {worst['parts']:.3e} of "
+          f"their largest, M2 at {worst['m2']:.3f} of its bound over "
+          f"{len(shapes) + len(BAND_SHAPES)} shapes; band-limited features "
+          f"vs the fp64 normalization of its own log-mel "
+          f"{worst['epilogue']:.3e}, vs the fp64 chain kernel "
+          f"{worst['band_feats_fp64']:.3e} / plain "
+          f"{worst['band_plain_feats_fp64']:.3e}")
     return {"name": "frontend_fast", "route": "cuda",
             "source": "vietasr_tpu_torch/csrc/frontend_fast.cu",
             "replaces": "vietasr_tpu/frontend/pallas_frontend.py:51",
@@ -792,7 +1060,11 @@ def frontend_fast_phase(np, torch, dev):
             "max_abs_err": worst["logmel"], **row,
             "library_ms": None, "ms_by_shape": by_shape,
             "mel_power_rel_err": worst["mel"],
-            "parts_rel_err": worst["parts"]}
+            "parts_rel_err": worst["parts"],
+            "m2_share_of_bound": worst["m2"],
+            "band_epilogue_err": worst["epilogue"],
+            "band_feats_fp64_err": worst["band_feats_fp64"],
+            "band_plain_feats_fp64_err": worst["band_plain_feats_fp64"]}
 
 
 def repeat_bound_ms(bsz, t, c_in, c_out, k, r, has_res, rows):
@@ -2349,6 +2621,27 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
     check(min(agree) >= LONGFORM_ARGMAX_MIN and worst_lp <= E2E_LOGP_TOL,
           f"long-form kernel vs plain route: agreement {agree}, "
           f"max|d| {worst_lp}")
+    # the mu-law utterance's features, decoded and resampled on the card
+    # (the telephone band: its far mel bins nearly constant), as the
+    # Transcriber's fused route takes them, against the fp64 chain
+    feats_calls, real = [], tr._featurize
+
+    def record(sig, lens, **kw):
+        out = real(sig, lens, **kw)
+        feats_calls.append((sig, lens, out))
+        return out
+
+    tr._featurize = record
+    try:
+        lf._run_fused(tr, preps[-1], chunk, overlap, True)
+    finally:
+        tr._featurize = real
+    check(len(feats_calls) == 1, f"long-form mu-law: {len(feats_calls)} "
+          "featurizer calls, not 1")
+    sig, lens, (feats, _) = feats_calls[0]
+    hold_features_fp64(torch, tr.cfg.featurizer, sig, lens, feats,
+                       f"long-form mu-law 8 kHz 120 s ({sig.shape[0]} spans "
+                       "of 15 s)")
     conversion_checks(np, torch, dev, pcm8, ulaw8)
 
     # the repeat kernel at the long-form batch (B = 27 rows of 15 s) vs
@@ -3501,13 +3794,13 @@ def json_lines(out: str) -> list:
 def hold_frontend_tiles(torch, cfg, sig, lens, what) -> float:
     """The frontend kernel's own outputs on a path's signals, held as phase
     3 holds them: the log-mel no further from an fp64 chain than its plain
-    version's, the partials within FRONTEND_PARTS_RTOL of their largest.
-    The features, which the plain epilogue shared by both routes
-    normalizes from the partials in one fp32 pass, are compared and
-    printed, not held: a nearly constant mel bin (the synthetic tones'
-    far bins) gets a variance of fp32 cancellation noise, and dividing by
-    its root amplifies any difference. Returns the log-mel's distance
-    from fp64."""
+    version's, the partials within FRONTEND_PARTS_RTOL of their largest
+    and plane by plane against tile_partials of its own log-mel
+    (hold_partials), and the kernel route's normalized features no
+    further from the fp64 two-pass chain than max(FRONTEND_TOL, the plain
+    route's distance) (hold_features_fp64): the study's tones leave far
+    mel bins nearly constant, which the epilogue's tile merge keeps.
+    Returns the log-mel's distance from fp64."""
     from vietasr_tpu_torch.frontend.cuda_frontend import (
         fft_tables, fused_log_mel_features, fused_log_mel_features_plain,
         log_mel_tiles_cuda, log_mel_tiles_plain)
@@ -3540,15 +3833,14 @@ def hold_frontend_tiles(torch, cfg, sig, lens, what) -> float:
     check(k64 <= p64, f"{what}: log-mel {k64} from fp64, further than the "
           f"plain version's {p64}")
     check(p_err <= FRONTEND_PARTS_RTOL, f"{what}: partials {p_err}")
-    d = (got - want).abs()
-    b, _, m = (int(i) for i in torch.unravel_index(d.argmax(), d.shape))
-    rows = lm_64[b, :int(seq_len[b]), m]
+    s_err, m2_share = hold_partials(torch, parts_k, lm_k, seq_len, what)
+    f64, plain64 = hold_features_fp64(torch, cfg, sig, lens, got, what, mel)
     print(f"{what}: frontend kernel vs plain: log-mel from fp64 {k64:.3e} "
           f"(plain {p64:.3e}), partials {p_err:.3e} of their largest (tol "
-          f"{FRONTEND_PARTS_RTOL}); features max|d| {float(d.max()):.3e} "
-          f"(phase 3's bar {FRONTEND_TOL}, not held here) at mel bin {m} "
-          f"of row {b}, whose fp64 log-mel has std {float(rows.std()):.3e}"
-          f" over {rows.numel()} frames")
+          f"{FRONTEND_PARTS_RTOL}; against its own log-mel's: sums "
+          f"{s_err:.3e}, M2 at {m2_share:.3f} of its bound); features max|d| "
+          f"{float((got - want).abs().max()):.3e} between the routes, "
+          f"{f64:.3e} / {plain64:.3e} from the fp64 chain")
     return k64
 
 

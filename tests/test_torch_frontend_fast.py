@@ -321,9 +321,9 @@ def test_fast_plan_of_the_shipped_configs():
 @pytest.mark.parametrize("overrides,bsz,seconds,seed", CASES)
 def test_fast_partials_are_the_valid_frames_sums(overrides, bsz, seconds,
                                                  seed):
-    """The plain version's partials: per 16-frame tile, the fp64 sums of
-    its own log-mel frames inside seq_len (fp32 sums: 1e-5 of the
-    largest)."""
+    """The plain version's partials: per 16-frame tile, the fp64 sum of
+    its own log-mel frames inside seq_len and their M2 about the tile's
+    mean (fp32 sums: 1e-5 of the largest)."""
     _, cfg = _cfgs(overrides)
     sig, lens = _audio(bsz, seconds, seed)
     xp = preemphasize_and_pad(torch.from_numpy(sig), cfg).contiguous()
@@ -335,9 +335,12 @@ def test_fast_partials_are_the_valid_frames_sums(overrides, bsz, seconds,
     n_tiles = -(-lm.shape[1] // FRAMES_PER_TILE)
     want = np.zeros((bsz, n_tiles, 2, cfg.features))
     for b in range(bsz):
-        for f in range(int(seq_len[b])):
-            want[b, f // FRAMES_PER_TILE, 0] += lm[b, f]
-            want[b, f // FRAMES_PER_TILE, 1] += lm[b, f] ** 2
+        for i in range(n_tiles):
+            rows = lm[b, i * FRAMES_PER_TILE:min(
+                (i + 1) * FRAMES_PER_TILE, int(seq_len[b]))]
+            if len(rows):
+                want[b, i, 0] = rows.sum(0)
+                want[b, i, 1] = ((rows - rows.mean(0)) ** 2).sum(0)
     assert parts.shape == want.shape
     assert np.abs(parts.double().numpy() - want).max() \
         <= 1e-5 * np.abs(want).max()

@@ -145,7 +145,8 @@ def test_frontend_kernel_matches_plain(bsz, seconds, features):
     assert fused_log_mel_features.launches == launches + 1
     assert torch.equal(got_len, want_len)
     assert float((got - want).abs().max()) < FRONTEND_TOL
-    # the partials: fp32 sums of the same terms in another order
+    # the partials (sum, M2): fp32 sums of the same terms in another
+    # order, M2 about each route's own tile means
     tables = fft_tables(cfg, "cuda")
     dft = torch.as_tensor(_windowed_dft_matrix(cfg), device="cuda")
     mel = torch.as_tensor(_mel_matrix(cfg), device="cuda")
@@ -266,6 +267,50 @@ def _hold_fast_kernel(cfg, sig, lens, plan=None):
 def test_frontend_fast_kernel_matches_plain(bsz, seconds, features, lens):
     _need_gpu()
     _hold_fast_kernel(*_fast_case(bsz, seconds, features, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_frontend_kernels_partials_on_band_limited_audio(precision):
+    """8 kHz noise x 0.01 upsampled to 16 kHz (the mel bins above 4 kHz
+    nearly constant), B = 4 x 8 s, ragged: each kernel's (sum, M2)
+    partials against tile_partials of its own log-mel, the sums within
+    1e-5 of their largest, each M2 within 1e-5 of its tile's sum of
+    squared deviations from the first frame (the kernels' fp32 pass)."""
+    _need_gpu()
+    from vietasr_tpu_torch.ops.resample import make_device_resampler
+
+    cfg = FeaturizerConfig(dither=0.0)
+    rng = np.random.RandomState(21)
+    x8 = torch.from_numpy((rng.randn(4, 8 * 8000) * 0.01)
+                          .astype(np.float32)).cuda()
+    sig = make_device_resampler(8000, 16000)(x8).contiguous()
+    n = sig.shape[1]
+    lens = torch.from_numpy(np.array([n, n - 1000, n // 2 + 7, 5000],
+                                     np.int32)).cuda()
+    xp = preemphasize_and_pad(sig, cfg).contiguous()
+    seq_len = feature_seq_len(lens, cfg.hop_length)
+    if precision == "highest":
+        lm, parts = log_mel_tiles_cuda(xp, seq_len, fft_tables(cfg, "cuda"),
+                                       cfg=cfg)
+    else:
+        lm, parts = log_mel_tiles_fast_cuda(xp, seq_len,
+                                            fast_tables(cfg, "cuda"),
+                                            cfg=cfg)
+    torch.cuda.synchronize()
+    own = tile_partials(lm, seq_len)
+    assert parts.shape == own.shape
+    assert float((parts[:, :, 0] - own[:, :, 0]).abs().max()) \
+        <= 1e-5 * float(own[:, :, 0].abs().max())
+    n_tiles = own.shape[1]
+    rows = torch.nn.functional.pad(
+        lm.double(), (0, 0, 0, n_tiles * FRAMES_PER_TILE - lm.shape[1])
+    ).reshape(4, n_tiles, FRAMES_PER_TILE, -1)
+    valid = (torch.arange(n_tiles * FRAMES_PER_TILE, device="cuda")[None]
+             < seq_len[:, None]).reshape(4, n_tiles, FRAMES_PER_TILE, 1)
+    scale = (torch.where(valid, rows - rows[:, :, :1], 0.0) ** 2).sum(2)
+    assert bool(((parts[:, :, 1] - own[:, :, 1]).abs().double()
+                 <= 1e-5 * scale).all())
 
 
 # (hop, B, seconds, mels, lengths): the largest hop the launch plan takes

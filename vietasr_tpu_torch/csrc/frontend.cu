@@ -1,6 +1,9 @@
 // Fused log-mel frontend for Hopper (sm_90a): framing + window + real FFT
-// + power + mel + log, with per-tile (sum, sum of squares) partials for the
-// per-feature normalization.
+// + power + mel + log, with per-tile (sum, M2) partials for the per-feature
+// normalization: M2 is the sum of squares about the tile's own mean, which
+// the epilogue merges across tiles by Chan et al.'s parallel formula
+// (frontend/cuda_frontend.py::merge_tile_stats), so a nearly constant mel
+// bin keeps its variance where (sum x^2 - n mean^2) would cancel.
 //
 // Replaces: vietasr_tpu/frontend/pallas_frontend.py::_kernel (the Pallas
 // TPU kernel behind fused_log_mel_features, precision="highest"). That
@@ -11,8 +14,8 @@
 // even/odd samples plus a real-split pass, ~12 kFLOP a frame, 28x less.
 //
 // What bounds it on the H100: bytes first. At B = 8 x 16.7 s it reads the
-// padded signal once (8.57 MB) and writes the log-mel frames and partials
-// (3.5 MB): ~3.7 us at 3.35 TB/s. The FFT's operations come second (0.15
+// padded signal once (8.57 MB) and writes the log-mel frames and the
+// (sum, M2) partials (3.5 MB): ~3.7 us at 3.35 TB/s. The FFT's operations come second (0.15
 // GFLOP). In practice the work inside each SM sets the pace, spread over
 // several phases that each cost about as much: the mel pass's and the
 // sample loads' shared-memory traffic, the fp64 butterflies and real split
@@ -390,18 +393,26 @@ logmel_kernel(const float* __restrict__ xp, long long n_total, int sp,
       if (i < rows * n_mels) dst[i] = *v;
     }
     __syncthreads();
-    // partials over the valid frames, in frame order
+    // partials over the valid frames, in frame order, in one fp32 pass
+    // over the deviations d = v - v0 from the tile's first frame: the sum
+    // is c v0 + sum d rounded once and M2 = sum d^2 - (sum d)^2 / c (0
+    // when no frame is valid), which cancels at most c = 16 times M2 (no
+    // frame lies further than sqrt(c - 1) standard deviations from its
+    // tile's mean). One sub a term more than plain sums of v and v^2;
+    // frontend/cuda_frontend.py::tile_partials
     const int valid = min(seq_len[b] - f0, FRAMES);
+    const float inv = 1.f / (float)max(valid, 1);
     float* part = parts + ((size_t)b * n_tiles + tile) * 2 * n_mels;
     for (int m = tid; m < n_mels; m += THREADS) {
+      const float v0 = lm[m];
       float s1 = 0.f, s2 = 0.f;
       for (int i = 0; i < valid; ++i) {
-        const float v = lm[i * (n_mels + 1) + m];
-        s1 += v;
-        s2 += v * v;
+        const float d = lm[i * (n_mels + 1) + m] - v0;
+        s1 += d;
+        s2 = fmaf(d, d, s2);
       }
-      part[m] = s1;
-      part[n_mels + m] = s2;
+      part[m] = valid > 0 ? fmaf((float)valid, v0, s1) : 0.f;
+      part[n_mels + m] = valid > 0 ? fmaxf(s2 - s1 * s1 * inv, 0.f) : 0.f;
     }
     off = next_off;
   }

@@ -1,7 +1,9 @@
 // Fused log-mel frontend for Hopper (sm_90a), the bf16 tensor-core route
 // (fused_frontend="fast"): framing + windowed real DFT + power + mel + log,
-// with per-16-frame (sum, sum of squares) partials for the per-feature
-// normalization.
+// with per-16-frame (sum, M2) partials for the per-feature normalization,
+// M2 the sum of squares about the tile's own mean (merged across tiles by
+// Chan et al.'s parallel formula in frontend/cuda_frontend.py::
+// merge_tile_stats).
 //
 // Replaces: vietasr_tpu/frontend/pallas_frontend.py::_kernel at
 // precision="default", the Pallas TPU kernel behind
@@ -15,7 +17,10 @@
 //   - re^2 + im^2 in fp32 (no fused multiply-add), rounded to bf16;
 //   - the mel filterbank rounded to bf16, power @ mel in fp32 (mma.sync);
 //   - the log guard (add or clamp) in fp32;
-//   - per-16-frame partials over the valid frames, in frame order.
+//   - per-16-frame partials over the valid frames, in frame order: the
+//     sum and M2 about the tile's mean, from one fp32 pass over the
+//     deviations from the tile's first frame, as csrc/frontend.cu takes
+//     them.
 // A product of two bf16 values is exact in fp32, so this kernel and its
 // plain version (frontend/cuda_frontend.py::log_mel_tiles_fast_plain)
 // differ only in the order of the fp32 sums.
@@ -70,8 +75,10 @@
 //     a warp load;
 //   - each warp's mel accumulators go, as floats, over its own rows of the
 //     power tile; then a lane per mel takes the log with the guard, writes
-//     the rows inside t_out (coalesced) and sums the valid frames' (value,
-//     value^2) in frame order: a warp's 16 frames are one partials tile.
+//     the rows inside t_out (coalesced) and sums the valid frames'
+//     deviations from the tile's first frame and their squares in frame
+//     order, which give the (sum, M2) partials: a warp's 16 frames are
+//     one partials tile.
 //     Short loops and no inlined copies of logf keep a tile's code in the
 //     instruction cache (on the H100 a fully unrolled epilogue cost
 //     ~10,000 cycles a tile in instruction fetch).
@@ -439,9 +446,10 @@ logmel_fast_kernel(const float* __restrict__ xp, long long n_total, int sp,
 
     // the accumulators, as floats, to this warp's own rows of the power
     // tile (it has read them); then per mel, one lane: the log with the
-    // guard, the rows inside t_out to global memory, and the (sum, sum of
-    // squares) of the frames inside seq_len over the warp's 16 frames (one
-    // partials tile), in frame order
+    // guard, the rows inside t_out to global memory, and the (sum, M2
+    // about the tile's mean) of the frames inside seq_len over the warp's
+    // 16 frames (one partials tile), in frame order, from their
+    // deviations from the first frame
     {
       float* lm = reinterpret_cast<float*>(pw + m0 * PP);
       const int lp = 8 * mel_tiles + 8;        // row pitch (floats)
@@ -461,22 +469,27 @@ logmel_fast_kernel(const float* __restrict__ xp, long long n_total, int sp,
       const int pt = f / PART;
       const int valid = seq_len[b];
       float* orow = out + ((size_t)b * t_out + f) * n_mels;
+      const int rows = min(max(valid - f, 0), PART);   // inside seq_len
+      const float inv = 1.f / (float)max(rows, 1);
       for (int m = lane; m < n_mels; m += 32) {
-        float s1 = 0.f, s2 = 0.f;
+        // the deviations from the tile's first frame, in fp32
+        float v0 = 0.f, s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
         for (int r = 0; r < PART; ++r) {
           const float x = lm[r * lp + m];
           const float v = guard_clamp ? logf(fmaxf(x, guard)) : logf(x + guard);
           if (f + r < t_out) orow[r * n_mels + m] = v;
-          if (f + r < valid) {
-            s1 += v;
-            s2 += v * v;
+          if (r == 0) v0 = v;
+          if (r < rows) {
+            const float d = v - v0;
+            s1 += d;
+            s2 = fmaf(d, d, s2);
           }
         }
         if (pt < n_part) {
           float* part = parts + ((size_t)b * n_part + pt) * 2 * n_mels;
-          part[m] = s1;
-          part[n_mels + m] = s2;
+          part[m] = rows > 0 ? fmaf((float)rows, v0, s1) : 0.f;
+          part[n_mels + m] = rows > 0 ? fmaxf(s2 - s1 * s1 * inv, 0.f) : 0.f;
         }
       }
     }

@@ -5,10 +5,11 @@ Counterpart of vietasr_tpu/frontend/pallas_frontend.py::
 fused_log_mel_features, with the same contract:
 (B, S) + lengths -> (B, T padded to pad_to, n_mels), seq_len. The kernel
 replaces the Pallas `_kernel`; it emits the log-mel frames and per-tile
-(sum, sum of squares) partials over valid frames, and the Bessel-corrected
-per-feature normalization stays a small plain epilogue, as it was an XLA
-epilogue in JAX. Pre-emphasis and the reflect pad stay plain ops in front
-of it.
+(sum, M2) partials over valid frames, M2 being the sum of squares about
+the tile's own mean, and the Bessel-corrected per-feature normalization
+stays a small plain epilogue that merges the tiles by Chan et al.'s
+parallel formula, as it was an XLA epilogue in JAX. Pre-emphasis and the
+reflect pad stay plain ops in front of it.
 
 precision="highest" (the default): csrc/frontend.cu computes the
 one-sided spectrum by an FFT (fp64 inside, fp32 in and out) from the
@@ -104,17 +105,64 @@ def log_mel_tiles_plain(xp: torch.Tensor, seq_len: torch.Tensor,
 def tile_partials(logmel: torch.Tensor, seq_len: torch.Tensor
                   ) -> torch.Tensor:
     """(B, t_out, n_mels) log-mel -> (B, n_tiles, 2, n_mels): each
-    FRAMES_PER_TILE-frame tile's (sum, sum of squares) over the frames
-    inside seq_len."""
+    FRAMES_PER_TILE-frame tile's (sum, M2) over the frames inside seq_len,
+    M2 the sum of squares about the tile's own mean (0 for a tile with no
+    such frame), in fp64 rounded once to fp32: the deviations d = v - v0
+    from the tile's first frame, their sum and squares, the sum c v0 +
+    sum d and M2 = sum d^2 - (sum d)^2 / c. Both kernels compute the same
+    in one fp32 pass, within fp32 rounding of sum d^2 <= c M2 (no frame
+    lies further than sqrt(c - 1) standard deviations from its tile's
+    mean). Fp32 sums of v and v^2 (the JAX Pallas kernel's partials)
+    would leave the epilogue to cancel sum v^2 - n mean^2 instead."""
     bsz, t_out, n_mels = logmel.shape
     n_tiles = -(-t_out // FRAMES_PER_TILE)
     t_ids = torch.arange(n_tiles * FRAMES_PER_TILE, device=logmel.device)
-    valid = (t_ids[None, :] < seq_len[:, None])[:, :, None]
+    valid = (t_ids[None, :] < seq_len[:, None]).reshape(
+        bsz, n_tiles, FRAMES_PER_TILE, 1)
     tiled = torch.nn.functional.pad(
-        logmel, (0, 0, 0, n_tiles * FRAMES_PER_TILE - t_out))
-    tiled = torch.where(valid, tiled, torch.zeros_like(tiled)).reshape(
-        bsz, n_tiles, FRAMES_PER_TILE, n_mels)
-    return torch.stack([tiled.sum(2), (tiled * tiled).sum(2)], dim=2)
+        logmel, (0, 0, 0, n_tiles * FRAMES_PER_TILE - t_out)).reshape(
+            bsz, n_tiles, FRAMES_PER_TILE, n_mels).double()
+    counts = tile_counts(seq_len, n_tiles).double()[:, :, None]
+    first = tiled[:, :, 0]
+    dev = torch.where(valid, tiled - first[:, :, None], 0.0)
+    dsum = dev.sum(2)
+    total = torch.where(counts > 0, counts * first + dsum, 0.0)
+    m2 = (dev * dev).sum(2) - dsum * dsum / counts.clamp_min(1.0)
+    return torch.stack([total, m2.clamp_min(0.0)], dim=2).to(logmel.dtype)
+
+
+def tile_counts(seq_len: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(B,) seq_len -> (B, n_tiles) fp32: the frames inside seq_len of
+    each FRAMES_PER_TILE-frame tile, clamp(seq_len - 16 i, 0, 16)."""
+    start = torch.arange(n_tiles, device=seq_len.device) * FRAMES_PER_TILE
+    return torch.clamp(seq_len[:, None] - start[None, :], 0,
+                       FRAMES_PER_TILE).to(torch.float32)
+
+
+def merge_tile_stats(parts: torch.Tensor, seq_len: torch.Tensor):
+    """(B, n_tiles, 2, n_mels) (sum, M2) partials -> (shift, offset, var),
+    each (B, n_mels) fp32, the mean being shift + offset: the tiles merged
+    by Chan et al.'s parallel formula, M2 = sum M2_i + sum c_i (m_i -
+    mean)^2 with c_i the tile's frames inside seq_len and m_i = s_i /
+    max(c_i, 1), over n = max(seq_len, 1) frames (the Pallas wrapper's n),
+    var = M2 / max(n - 1, 1). Two-pass in effect, so a nearly constant bin
+    keeps its variance where the one-pass (sum x^2 - n mean^2) / (n - 1)
+    cancels to noise.
+
+    All in fp32, about a shift: tile 0's mean rounded to bf16, so that c_i
+    * shift is exact and s_i - c_i * shift loses nothing. A plain fp32 sum
+    of a clip's tile sums near -16.6 * 16 would move the mean by ~1e-5,
+    which a bin of std ~1e-3 turns into 1e-2 of a feature; the offset
+    keeps the mean's low bits for the features' subtraction."""
+    counts = tile_counts(seq_len, parts.shape[1])[:, :, None]
+    n = torch.clamp_min(seq_len, 1).to(torch.float32)[:, None]   # (B, 1)
+    s = parts[:, :, 0]
+    shift = _bf16(s[:, 0] / counts[:, 0].clamp_min(1.0))
+    e = s - counts * shift[:, None, :]          # c_i (m_i - shift)
+    offset = e.sum(1) / n
+    dm = e / counts.clamp_min(1.0) - offset[:, None, :]
+    m2 = parts[:, :, 1].sum(1) + (counts * dm * dm).sum(1)
+    return shift, offset, m2 / torch.clamp_min(n - 1.0, 1.0)
 
 
 def _bf16(a: torch.Tensor) -> torch.Tensor:
@@ -603,17 +651,14 @@ def _featurize(signal, lengths, cfg: FeaturizerConfig, tiles):
     seq_len = feature_seq_len(lengths, cfg.hop_length)
     logmel, parts = tiles(xp, seq_len)
 
-    # plain epilogue: Bessel-corrected per-feature normalization from the
-    # per-tile partials (single pass, as the Pallas wrapper does)
-    n = torch.clamp_min(seq_len, 1).to(torch.float32)[:, None]   # (B, 1)
-    s1 = parts[:, :, 0].sum(1)
-    s2 = parts[:, :, 1].sum(1)
-    mean = s1 / n
-    var = torch.clamp_min(s2 - n * mean * mean, 0.0) \
-        / torch.clamp_min(n - 1.0, 1.0)
+    # plain epilogue: Bessel-corrected per-feature normalization, the
+    # per-tile partials merged two-pass (merge_tile_stats). This departs
+    # from the Pallas wrapper's one-pass formula, which cancels on nearly
+    # constant bins, and matches features.py::_normalize's two passes
+    shift, offset, var = merge_tile_stats(parts, seq_len)
     feats = logmel
     if cfg.normalize == "per_feature":
-        feats = (feats - mean[:, None, :]) \
+        feats = (feats - shift[:, None, :] - offset[:, None, :]) \
             / (torch.sqrt(var)[:, None, :] + 1e-5)
     return mask_and_pad_time(feats, seq_len, logmel.shape[1], cfg), seq_len
 
