@@ -7,14 +7,19 @@ the same seeds:
 - the data stream: the first 64 `SynthDynamicDataset` reads of a recipe
   (seed 0, speed + gain + noise) bit for bit, and one epoch of the
   recipe's `BucketBatcher` at B = 32 equal batch for batch;
-- training: a narrow QuartzNet (3 blocks, widths 32-48, fp32, dither 0)
-  takes 3 study steps through each tool's `phase_train`, from JAX's init
-  (carried into the port by its resume path: `CheckpointManager` reads
-  JAX's checkpoint through `params_from_jax` and the optax state). Loss
-  and grad norm within 1e-4 relative: fp32 forward and backward over 3
-  blocks and B = 4 x up to 7.8 s, summed in another order, and from step
-  2 on Novograd moves every parameter by ~lr times the gradient's
-  relative error;
+- training: a recipe's model, narrow (QuartzNet: 3 blocks, widths 32-48;
+  the 16-block stack Conformer and the 6-block chunked one at width 32;
+  fp32, dither 0, dropout 0), takes 3 study steps through each tool's
+  `phase_train` under the recipe's optimizer and schedule (`qn_v2`'s
+  Novograd; `stack16lw_v2`'s and `stream6_v2`'s AdamW with warmup), from
+  JAX's init (carried into the port by its resume path:
+  `CheckpointManager` reads JAX's checkpoint through `params_from_jax`
+  and the optax state). Loss, grad norm and lr within 1e-4 relative:
+  fp32 forward and backward over B = 4 x up to 7.8 s, summed in another
+  order, and from step 2 on the optimizer moves every parameter by ~lr
+  times the gradient's relative error;
+- the flags of every recipe the port has trained on the card (the meta
+  its run recorded) against the meta of JAX's run of it;
 - eval, on carried weights (a narrow QuartzNet and a narrow chunked
   Conformer, JAX's init with the head scaled 40x): the port's offline
   loader gives JAX's `_load_transcriber` transcripts exactly; the two
@@ -57,6 +62,8 @@ CONFIG = os.path.join(ROOT, "vietasr_tpu_torch", "configs",
                       "quartznet12x1_vi.yaml")
 CONFORMER_CONFIG = os.path.join(ROOT, "vietasr_tpu_torch", "configs",
                                 "conformer_ctc_vi_s_streaming.yaml")
+STACK_CONFIG = os.path.join(ROOT, "vietasr_tpu_torch", "configs",
+                            "conformer_ctc_vi_stack.yaml")
 JAX_TOOL = importlib.import_module("tools.synth_lang_run")
 JAX_HELDOUT = importlib.import_module("tools.heldout_wer_run")
 TOOL = importlib.import_module("tools.synth_lang_run_torch")
@@ -78,21 +85,27 @@ BLOCKS = [dict(filters=32, kernel=33, stride=2, residual=False,
 
 
 def narrow_yaml(folder, arch="quartznet") -> str:
-    """quartznet12x1_vi.yaml with a narrow encoder, or
+    """quartznet12x1_vi.yaml with a narrow encoder;
     conformer_ctc_vi_s_streaming.yaml with 2 blocks of width 32 and
-    chunks of 4 frames (2 to the left), dither 0 and dropout 0, written by
-    the port's save_config (the bytes the JAX package writes and
-    reads)."""
+    chunks of 4 frames (2 to the left) ("conformer"), or at its own 6
+    blocks and chunking ("stream6"); or conformer_ctc_vi_stack.yaml at its
+    16 blocks ("stack"), each Conformer of width 32 with kernel 7 (the
+    deep ones with scan_blocks); dither 0 and dropout 0, written by the
+    port's save_config (the bytes the JAX package writes and reads)."""
     if arch == "quartznet":
         cfg = load_config(CONFIG)
         cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
             cfg.encoder, blocks=tuple(BlockConfig(**b) for b in BLOCKS)))
     else:
-        cfg = load_config(CONFORMER_CONFIG)
+        cfg = load_config(STACK_CONFIG if arch == "stack"
+                          else CONFORMER_CONFIG)
+        # the recipes' depths compile as one scanned block in JAX (the
+        # same math as the unrolled stack; the port loops either way)
+        cut = dict(num_blocks=2, chunk_size=4, left_chunks=2) \
+            if arch == "conformer" else dict(scan_blocks=True)
         cfg = dataclasses.replace(cfg, conformer=dataclasses.replace(
-            cfg.conformer, num_blocks=2, d_model=32, num_heads=2,
-            subsampling_channels=32, conv_kernel=7, dropout=0.0,
-            chunk_size=4, left_chunks=2))
+            cfg.conformer, d_model=32, num_heads=2, subsampling_channels=32,
+            conv_kernel=7, dropout=0.0, **cut))
     cfg = dataclasses.replace(
         cfg, featurizer=dataclasses.replace(cfg.featurizer, dither=0.0))
     path = os.path.join(str(folder), f"narrow_{arch}.yaml")
@@ -226,9 +239,24 @@ class _ThreeSteps(jax_train.Trainer):
                            num_epochs=1)
 
 
-def test_three_study_steps_match_jax(tmp_path, monkeypatch):
-    config = narrow_yaml(tmp_path)
-    kw = dict(steps=2500, batch_size=4, lr=0.01, optimizer="novograd")
+# a recipe's model, narrow, and its flags at B = 4: qn_v2's; stack16lw_v2's
+# 16-block stack Conformer (AdamW, lr 1e-3, a 2,500-step warmup; stack_v2
+# is the same model under stream6_v2's schedule); stream6_v2's chunked
+# Conformer with its depth given as the recipe gives it (--num-blocks 6)
+STUDY_STEPS = {
+    "qn_v2": ("quartznet", dict(steps=2500, lr=0.01, optimizer="novograd")),
+    "stack16lw_v2": ("stack", dict(steps=7000, lr=0.001, optimizer="adamw",
+                                   warmup=2500)),
+    "stream6_v2": ("stream6", dict(steps=4000, lr=0.002, optimizer="adamw",
+                                   warmup=500, num_blocks=6)),
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(STUDY_STEPS))
+def test_three_study_steps_match_jax(tmp_path, monkeypatch, recipe):
+    arch, kw = STUDY_STEPS[recipe]
+    config = narrow_yaml(tmp_path, arch)
+    kw = dict(kw, batch_size=4)
     monkeypatch.setattr(jax_train, "Trainer", _ThreeSteps)
     jax_dir = str(tmp_path / "jax")
     JAX_TOOL.phase_train(jax_dir, config, "t", **kw)
@@ -236,9 +264,13 @@ def test_three_study_steps_match_jax(tmp_path, monkeypatch):
     # JAX's init and optimizer state at step 0, as its phase_train makes
     # them, in the port's run dir: the port resumes from it
     jcfg = jax_load_config(config)
+    if kw.get("num_blocks") is not None:
+        jcfg = jax_load_config(os.path.join(jax_dir, "run_t",
+                                            "config.yaml"))
+        assert jcfg.conformer.num_blocks == kw["num_blocks"]
     opt = jax_train.make_optimizer(
-        "novograd", jax_train.make_schedule("CosineAnnealing", 0.01, 100,
-                                            warmup_steps=5),
+        kw["optimizer"], jax_train.make_schedule(
+            "CosineAnnealing", kw["lr"], 100, warmup_steps=5),
         weight_decay=0.001, grad_clip_norm=5.0)
     state = jax_train.TrainState.create(
         jax_model_init(jax.random.PRNGKey(0), jcfg), opt)
@@ -247,8 +279,9 @@ def test_three_study_steps_match_jax(tmp_path, monkeypatch):
     summary = TOOL.phase_train(port_dir, config, "t", **kw, device="cpu",
                                max_steps=3, log_every=1, compute_dtype=None)
     assert (summary["start_step"], summary["end_step"]) == (0, 3)
-    # the schedule spans JAX's whole epochs: 38 of 65 batches at B = 4
-    assert summary["recipe_steps"] == 38 * 65 == \
+    # the schedule spans JAX's whole epochs of 65 batches at B = 4
+    assert summary["steps_per_epoch"] == 65
+    assert summary["recipe_steps"] == kw["steps"] // 65 * 65 == \
         summary["epochs"] * summary["steps_per_epoch"]
 
     want = _lines(os.path.join(jax_dir, "run_t", "train_log.jsonl"))
@@ -263,7 +296,42 @@ def test_three_study_steps_match_jax(tmp_path, monkeypatch):
         meta = json.load(f)
     with open(os.path.join(jax_dir, "run_t", "meta.json")) as f:
         jax_meta = json.load(f)
+    # a patched config is each run dir's own config.yaml, the same bytes
+    assert os.path.relpath(meta.pop("config"), port_dir) == \
+        os.path.relpath(jax_meta.pop("config"), jax_dir)
     assert meta.pop("init_seed") == 0 and meta == jax_meta
+    if kw.get("num_blocks") is not None:
+        with open(os.path.join(port_dir, "run_t", "config.yaml"), "rb") as f, \
+                open(os.path.join(jax_dir, "run_t", "config.yaml"),
+                     "rb") as fj:
+            assert f.read() == fj.read()
+
+
+# the JAX study's recipes that the port has trained on the card
+# (artifacts/study/torch_synth_<tag>.json beside JAX's synth_<tag>.json)
+PORTED_RECIPES = ("qn_v2", "qn_causal2_v2", "stack6_v2", "stream6c_v2",
+                  "stream6_v2", "stack_v2", "stack16lw_v2")
+RECIPE_FLAGS = ("optimizer", "lr", "warmup", "steps", "normalize",
+                "num_blocks", "batch_size", "aug", "signatures", "dropout")
+
+
+@pytest.mark.parametrize("tag", PORTED_RECIPES)
+def test_ported_recipe_flags_match_jax(tag):
+    """The port's run of a recipe took JAX's flags: its recorded meta
+    (phase_train's meta.json, kept by phase_eval) against the meta of
+    JAX's run, flag for flag; the steps it reached are recorded."""
+    study = os.path.join(ROOT, "artifacts", "study")
+    with open(os.path.join(study, f"synth_{tag}.json")) as f:
+        want = json.load(f)["meta"]
+    with open(os.path.join(study, f"torch_synth_{tag}.json")) as f:
+        got = json.load(f)
+    meta = got["meta"]
+    assert {k: meta[k] for k in RECIPE_FLAGS} == \
+        {k: want[k] for k in RECIPE_FLAGS}
+    assert meta["tag"] == tag and meta["init_seed"] in (0, 1)
+    assert 0 < meta["steps_reached"] <= meta["steps"]
+    assert got["train"]["end_step"] == meta["steps_reached"]
+    assert os.path.exists(os.path.join(study, f"torch_train_{tag}.jsonl"))
 
 
 # ---------------------------------------------------------------------------

@@ -62,9 +62,9 @@ QN_CONFIG = os.path.join(ROOT, "vietasr_tpu_torch", "configs",
 ART_DIR = os.path.join(ROOT, "artifacts", "study")
 SR = 16000
 AUG = ("speed", "gain", "noise")
-# the end-to-end gate of the repeat kernel's route against the plain route
-# (chip_smoke.E2E_LOGP_TOL): bf16 blocks whose outputs may round one step
-# differently under another fp32 summation order
+# the end-to-end gate of a bf16 kernel route against the plain route
+# (logp_gate, which chip_smoke.py applies too): bf16 blocks whose outputs
+# may round one step differently under another fp32 summation order
 E2E_LOGP_TOL = 0.25
 
 # vocabulary: real Vietnamese words (chars all inside the 91-label
@@ -595,12 +595,129 @@ def read_split(manifest):
              for e in entries])
 
 
+def bf16_step(x) -> np.ndarray:
+    """The bf16 step (ulp) at each value of x: 2^(e - 7) for |x| in
+    [2^e, 2^(e+1)), the smallest normal's below that."""
+    x = np.abs(np.asarray(x, np.float32))
+    _, e = np.frexp(np.maximum(x, np.float32(2.0 ** -126)))
+    return np.ldexp(np.float32(1.0), e - 8).astype(np.float32)
+
+
+def logp_gate(items, tol: float = E2E_LOGP_TOL, keep: int = 64) -> dict:
+    """The end-to-end gate of a bf16 kernel route against the plain
+    route: every entry (one class at one frame) within |d log p| <= tol.
+    `items` yields (lp, lp_ref, logits, logits_ref), four arrays of one
+    shape (..., classes); the logits are the head's output the log-probs
+    were taken from (with_logits).
+
+    Besides the verdict it records what moved: for the worst entry and
+    for each entry past `tol` (the `keep` largest, and their count) both
+    routes' logits, the bf16 step (ulp) at the larger magnitude of the
+    two, their difference counted in those steps, and the row's d log Z
+    (Z the sum of exp(logit), so d log p = d logit - d log Z); and over
+    every row the largest |d log Z| and logit. Returns ok, the reason it
+    failed, and those numbers."""
+    worst, past = None, []
+    out = {"tol": tol, "max_abs_dlogp": 0.0, "max_row_dlogz": 0.0,
+           "max_abs_logit": 0.0, "past_tol": 0, "max_steps_past_tol": 0.0,
+           "failed": None}
+
+    def log_z(x):
+        x = x.astype(np.float64)
+        m = x.max(-1)
+        return m + np.log(np.exp(x - m[:, None]).sum(-1))
+
+    def entry(item, r, c):
+        a, b = float(lg[r, c]), float(lg_ref[r, c])
+        step = float(bf16_step(max(abs(a), abs(b))))
+        return {"item": item, "row": int(r), "cls": int(c),
+                "dlogp": float(d[r, c]), "logp": float(lp[r, c]),
+                "logp_ref": float(lp_ref[r, c]), "logit": a,
+                "logit_ref": b, "ulp": step, "steps": abs(a - b) / step,
+                "row_dlogz": float(dz[r])}
+
+    for item, quad in enumerate(items):
+        arrs = [np.asarray(a.float().cpu() if hasattr(a, "float") else a,
+                           np.float32) for a in quad]
+        if len({a.shape for a in arrs}) != 1:
+            raise ValueError(f"logp_gate: shapes {[a.shape for a in arrs]}")
+        lp, lp_ref, lg, lg_ref = (a.reshape(-1, a.shape[-1]) for a in arrs)
+        d = np.nan_to_num(np.abs(lp - lp_ref), nan=np.inf)
+        dz = np.nan_to_num(np.abs(log_z(lg) - log_z(lg_ref)), nan=np.inf)
+        if not d.size:
+            continue
+        out["max_abs_logit"] = max(out["max_abs_logit"], float(
+            np.abs(np.concatenate([lg, lg_ref])).max()))
+        out["max_row_dlogz"] = max(out["max_row_dlogz"], float(dz.max()))
+        r, c = np.unravel_index(np.argmax(d), d.shape)
+        if worst is None or d[r, c] > worst["dlogp"]:
+            worst = entry(item, r, c)
+        out["max_abs_dlogp"] = max(out["max_abs_dlogp"], float(d[r, c]))
+        for r, c in zip(*np.nonzero(d > tol)):
+            e = entry(item, r, c)
+            out["past_tol"] += 1
+            out["max_steps_past_tol"] = max(out["max_steps_past_tol"],
+                                            e["steps"])
+            past.append(e)
+            if out["failed"] is None:
+                out["failed"] = (f"|d log p| {e['dlogp']} > {tol} at item "
+                                 f"{item}, row {r}, class {c} (logits "
+                                 f"{e['logit']} / {e['logit_ref']}, "
+                                 f"{e['steps']:g} bf16 steps; the row's "
+                                 f"|d log Z| {e['row_dlogz']:.4g})")
+        past = sorted(past, key=lambda e: -e["dlogp"])[:keep]
+    out.update(ok=out["failed"] is None, worst=worst, entries=past)
+    return out
+
+
+def gate_line(g: dict) -> str:
+    """One line of a logp_gate result: the worst entry with its logits,
+    the bf16 step there and the steps they moved, the rows' d log Z."""
+    w = g["worst"] or {}
+    return (f"max|d log p| {g['max_abs_dlogp']:.4e} (tol {g['tol']}) at "
+            f"logits {w.get('logit', 0.0):.6g} / "
+            f"{w.get('logit_ref', 0.0):.6g} (bf16 ulp "
+            f"{w.get('ulp', 0.0):.6g}: {w.get('steps', 0.0):.3g} steps; "
+            f"the row's |d log Z| {w.get('row_dlogz', 0.0):.4e}); "
+            f"{g['past_tol']} entries past {g['tol']} (most steps "
+            f"{g['max_steps_past_tol']:.3g}); max|d log Z| "
+            f"{g['max_row_dlogz']:.4e}; max|logit| {g['max_abs_logit']:.6g}"
+            + ("" if g["ok"] else f"; FAILED: {g['failed']}"))
+
+
+def with_logits(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), the logits of its last forward, on the host),
+    read as the input of the last torch.log_softmax call inside fn: a
+    forward's one call takes its head's output (the 1x1 product plus its
+    bias: the logits, fp32 on QuartzNet, whose 1x1 products accumulate and
+    return fp32, and the Conformer's bf16 ones cast to fp32, which is
+    exact). The models are left as they are: a pw_fn of the check's own
+    would turn the repeat kernel off, and a wrapper of the 1x1 product
+    would see the logits before the bias."""
+    import torch
+
+    seen, log_softmax = [], torch.log_softmax
+
+    def recorded(x, *a, **k):
+        seen.append(x)
+        return log_softmax(x, *a, **k)
+
+    torch.log_softmax = recorded
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        torch.log_softmax = log_softmax
+    if not seen:
+        raise RuntimeError("with_logits: the call ran no log_softmax")
+    return out, seen[-1].detach().float().cpu().numpy()
+
+
 def kernel_route_check(config, run_dir, sigs, *, device=None):
     """The repeat kernel's route (the default bf16 Transcriber: the
     frontend kernel and fused repeat blocks) against the plain route
     (fused_frontend="off", block_impl="plain") on the same card and
-    signals: transcripts of each, the transcripts that agree, max |d log
-    p| over every frame and class, and each route's kernel launches."""
+    signals: transcripts of each, the transcripts that agree, logp_gate
+    over every frame and class, and each route's kernel launches."""
     variables = restore_variables(run_dir, device)
     from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
 
@@ -614,20 +731,18 @@ def kernel_route_check(config, run_dir, sigs, *, device=None):
     before = kernel_launches()
     plain_hyps = [h.strip() for h in plain.transcribe_batch(sigs)]
     plain_launches = _launches_since(before)
-    worst, at = 0.0, None
+    items = []
     for s in sigs:
-        lp, el = kernel.log_probs(s)
-        lp_ref, el_ref = plain.log_probs(s)
-        if lp.shape != lp_ref.shape or not np.array_equal(el, el_ref):
-            raise RuntimeError("kernel route: log-prob shape or lengths "
-                               "differ from the plain route")
-        d = np.abs(lp - lp_ref)
-        i = np.unravel_index(np.argmax(d), d.shape)
-        if d[i] > worst:
-            worst, at = float(d[i]), float(lp_ref[i])
+        (lp, el), lg = with_logits(kernel.log_probs, s)
+        (lp_ref, el_ref), lg_ref = with_logits(plain.log_probs, s)
+        if lp.shape != lp_ref.shape or not np.array_equal(el, el_ref) \
+                or lg.shape != lp.shape or lg_ref.shape != lp.shape:
+            raise RuntimeError("kernel route: log-prob or logit shape, or "
+                               "lengths, differ from the plain route")
+        items.append((lp, lp_ref, lg, lg_ref))
     return {"hyps": hyps, "plain_hyps": plain_hyps,
             "equal": sum(a == b for a, b in zip(hyps, plain_hyps)),
-            "max_abs_dlogp": worst, "worst_at_logp": at,
+            "gate": logp_gate(items),
             "launches": launches, "plain_launches": plain_launches}
 
 
@@ -645,9 +760,11 @@ def phase_eval(work_dir, config, tag, sig="v2", *, device=None,
                art_dir=ART_DIR):
     """Held-out and train-distribution WER / CER, offline (fp32
     Transcriber) and streaming; on a QuartzNet also the repeat kernel's
-    route against the plain route (kernel_route_check), which raises, once
-    the result is written, when the held-out split's max |d log p| passes
-    E2E_LOGP_TOL (the train-distribution split's is recorded). Writes
+    route against the plain route (kernel_route_check) by logp_gate,
+    whose numbers and entries past E2E_LOGP_TOL (with their logits, bf16
+    steps and rows' d log Z) go under kernel_route for both splits; it
+    raises, once the result is written, when the held-out split fails
+    the gate (the train-distribution split's verdict is recorded). Writes
     torch_synth_<tag>.json into work_dir and art_dir, and the loss curve
     as art_dir/torch_train_<tag>.jsonl; returns the result."""
     from vietasr_tpu_torch.train import CheckpointManager
@@ -702,9 +819,10 @@ def phase_eval(work_dir, config, tag, sig="v2", *, device=None,
                 "plain_offline_wer_bf16": round(
                     word_error_rate(r["plain_hyps"], refs), 4),
                 "transcripts_equal": r["equal"],
-                "max_abs_dlogp": r["max_abs_dlogp"],
-                "worst_at_logp": r["worst_at_logp"],
+                "max_abs_dlogp": r["gate"]["max_abs_dlogp"],
+                "worst_at_logp": (r["gate"]["worst"] or {}).get("logp_ref"),
                 "tol": E2E_LOGP_TOL,
+                "gate": r["gate"],
                 "launches": r["launches"],
                 "plain_launches": r["plain_launches"]}
     # back-compat aliases (the JAX artifacts' round-4 schema)
@@ -729,10 +847,9 @@ def phase_eval(work_dir, config, tag, sig="v2", *, device=None,
     if os.path.exists(log_path):
         shutil.copy(log_path, os.path.join(art_dir,
                                            f"torch_train_{tag}.jsonl"))
-    if checks and checks["heldout"]["max_abs_dlogp"] > E2E_LOGP_TOL:
-        raise RuntimeError(
-            f"held-out: kernel route vs plain route max|d log p| "
-            f"{checks['heldout']['max_abs_dlogp']} > {E2E_LOGP_TOL}")
+    if checks and not checks["heldout"]["gate"]["ok"]:
+        raise RuntimeError("held-out: kernel route vs plain route: "
+                           + gate_line(checks["heldout"]["gate"]))
     return out
 
 
