@@ -62,12 +62,16 @@ Phases, each of which raises on failure:
      16-channel pairs)
   5. end to end: Transcriber on the anchor checkpoint in bf16 over 16
      seeded signals of 1.5-16.5 s, with the launch counters read around the
-     run; log-probs held against a plain-path Transcriber on the same card
-     by logp_gate, the study tool's gate, which every bf16 kernel-vs-plain
-     site below uses: every entry (a class at a frame) within |d log p|
-     <= E2E_LOGP_TOL (0.25). Each site prints its worst entry with both
-     routes' logits (read as the model's log_softmax input), the bf16
-     step at them, the steps they moved and the frame's |d log Z|.
+     run; log-probs held by logp_gate, the study tool's gate, which every
+     bf16 kernel-vs-plain site below uses: the kernel route, a plain-path
+     Transcriber and an fp32 forward through no kernel (under strict_fp32)
+     on the same card and signals, and the kernel route's largest
+     |d log p| from fp32 (d_k) within max(E2E_LOGP_TOL, ROUTE_RATIO x the
+     plain route's, d_p), 0.25 and 1.5. Each site prints d_k, d_p, their
+     ratio and the kernel-vs-plain line (the worst entry with both
+     routes' logits, read as the model's log_softmax input, the bf16 step
+     at them, the steps they moved and the frame's |d log Z|; the entries
+     past 0.25) and the TF32 flags in force.
      Then the beam tier on the same signals: Transcriber(decoder=
      "device_beam") at its default W = 100 with a word 3-gram trained on
      the repo's text, one beam launch per transcribe_batch call (every
@@ -124,13 +128,13 @@ Phases, each of which raises on failure:
      wire dtype and decoded and resampled on the card (93 chunks of 15 s;
      1 frontend and 13 repeat launches per utterance, counted); the
      stitched log-probs against the plain route (frontend and repeat
-     plain) on the card, frame argmax agreement >= 0.99 and logp_gate
-     over the stitched frames (the span forwards' logits stitched as
-     the log-probs are); the mu-law utterance's features as the
-     Transcriber's fused route takes them (its 15 s spans, telephone
-     band) held by hold_features_fp64; the device int16 / G.711 decode
-     and 8 -> 16 kHz
-     resampler against the host path within 1e-5, with cuDNN's TF32 flag
+     plain) and the fp32 forward on the card, frame argmax agreement
+     >= 0.99 and logp_gate over the stitched frames (the span forwards'
+     logits stitched as the log-probs are); the mu-law utterance's
+     features as the Transcriber's fused route takes them (its 15 s
+     spans, telephone band) held by hold_features_fp64; the device int16
+     / G.711 decode and 8 -> 16 kHz resampler against the host path
+     within 1e-5, with cuDNN's TF32 flag
      off and at PyTorch's default; the repeat kernel at the 300 s batch
      (B = 27 x T = 752) against its plain version; audio-s/s and idle
      share; transcribe_long with decoder="device_beam" (W = 100, the word
@@ -154,8 +158,9 @@ Phases, each of which raises on failure:
      at full width (16 blocks, d 256, 27,346,779 parameters, seeded
      init_conformer), bf16, over phase 5's 16 signals: 1 frontend kernel
      launch per forward and no repeat, beam or CTC launch; log-probs
-     against the plain frontend on the card (logp_gate in bf16, frame
-     argmax >= 0.99 in fp32) and against the fp32 forward (argmax printed);
+     against the plain frontend on the card (logp_gate in bf16 from the
+     fp32 plain-frontend forward, frame argmax >= 0.99 in fp32) and
+     against the fp32 forward (argmax printed);
      audio-s/s and idle share; the B = 8 x 16.7 s forward's device time
      by group (GEMMs, attention elementwise + softmax, depthwise conv,
      conv2d subsampling, LayerNorm / GLU / swish elementwise, frontend,
@@ -262,10 +267,11 @@ Phases, each of which raises on failure:
      signals: greedy, 1 frontend and 15 whole-block launches a forward and
      no one-repeat launch, no weight packed after the warm-up, every
      whole-block launch held to its plain
-     version on its own inputs, log-probs held to the plain route by
-     logp_gate, audio-s/s and idle share, then the same with the
-     R-launch chain patched in for the whole-block kernel (a yardstick,
-     75 one-repeat launches a forward); R = 5 blocks the whole-block plan
+     version on its own inputs, log-probs held by logp_gate (the plain
+     route and the fp32 forward beside them), audio-s/s and idle share,
+     then the same with the R-launch chain patched in for the
+     whole-block kernel (a yardstick, 75 one-repeat launches a
+     forward); R = 5 blocks the whole-block plan
      cannot take (16 -> 512, 512 -> 1024) run per op with no repeat
      launch; decoder="device_beam" at W = 100 with the word 3-gram, 1
      beam launch a call, the raw result bit for bit with the plain
@@ -288,7 +294,9 @@ Phases, each of which raises on failure:
      fp32 loader (1 frontend launch a forward) and, on the QuartzNet,
      through the kernel route (bf16: 1 frontend and 13 repeat launches a
      forward, each repeat launch held to its plain version) against the
-     plain route (logp_gate, through the tool's kernel_route_check);
+     plain route and the fp32 forward (logp_gate, through the tool's
+     kernel_route_check, with its block profile: the first block where
+     the two bf16 routes differ by more than one bf16 step);
      held-out WER
      printed, not gated. path_launches gain study_<tag>_train,
      study_<tag>_eval_fp32 and study_qn_v2_eval
@@ -356,8 +364,9 @@ FAST_MEL_TOL = 2.0 ** -7
 # bf16 float route: frame argmax agreement (the CPU tests' bar vs JAX)
 FAST_ARGMAX_MIN = 0.95
 INT8_ARGMAX_MIN = 0.95
-# end to end, kernel path vs plain path (bf16): the study tool's logp_gate
-# and its E2E_LOGP_TOL (0.25), through logp_gate below
+# end to end, kernel path vs plain path (bf16), both from the fp32 forward:
+# the study tool's logp_gate, E2E_LOGP_TOL (0.25) and ROUTE_RATIO (1.5),
+# through logp_gate below
 BEAM_KW = dict(cutoff_top_n=8, alpha=0.5, beta=1.5)
 # CTC pair vs its plain version: the same fp32 formulas in the same order
 # with the same expf/logf (the exps the kernels skip are exactly 1, or add
@@ -482,19 +491,33 @@ def study_tool():
 
 
 def logp_gate(items, what: str) -> dict:
-    """The bf16 kernel route against the plain route by the study tool's
-    logp_gate over `items` ((lp, lp_ref, logits, logits_ref) each): every
-    |d log p| <= E2E_LOGP_TOL. Prints the worst entry with its logits,
-    the bf16 step there, the steps they moved and the row's |d log Z|;
-    fails the phase unless the gate holds; returns the gate's numbers."""
+    """The bf16 kernel route by the study tool's logp_gate over `items`:
+    (lp, lp_ref, logits, logits_ref, lp_fp32, logits_fp32) each, the
+    kernel route, the plain route and the fp32 forward, held as d_k <=
+    max(E2E_LOGP_TOL, ROUTE_RATIO d_p); (lp, lp_ref, logits, logits_ref)
+    each, two loads of one route, as every |d log p| <= E2E_LOGP_TOL.
+    Prints and holds it (hold_gate); returns the gate's numbers."""
     return hold_gate(study_tool().logp_gate(items), what)
 
 
 def hold_gate(g: dict, what: str) -> dict:
-    """Prints a logp_gate result's line and fails unless it holds."""
-    print(f"{what}: {study_tool().gate_line(g)}")
+    """Prints a logp_gate result's line (d_k, d_p and their ratio, then
+    the kernel-vs-plain line) with the TF32 flags in force, and fails
+    unless it holds."""
+    tool = study_tool()
+    print(f"{what}: {tool.gate_line(g)}; TF32 flags {tool.tf32_flags()}")
     check(g["ok"], f"{what}: {g['failed']}")
     return g
+
+
+def fp32_route(config, **kwargs):
+    """The fp32 forward a bf16 site holds its routes to: a Transcriber
+    through no kernel (compute_dtype None, the plain frontend and blocks),
+    run by the study tool's route_forward under strict_fp32."""
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    return Transcriber(config, **kwargs, options=TranscriberOptions(
+        compute_dtype=None, fused_frontend="off", block_impl="plain"))
 
 
 def nvidia_smi_line() -> str:
@@ -1494,6 +1517,7 @@ def end_to_end_phase(np, torch, dev, kernels):
     ref = Transcriber(CONFIG, variables=load_anchor(ANCHOR),
                       options=TranscriberOptions(fused_frontend="off",
                                                  block_impl="plain"))
+    f32 = fp32_route(CONFIG, variables=load_anchor(ANCHOR))
     check(tr.device.type == "cuda", "Transcriber did not default to CUDA")
     tr.transcribe_batch(signals)                       # warm-up
     groups = {}
@@ -1524,16 +1548,18 @@ def end_to_end_phase(np, torch, dev, kernels):
     add_path_launches(kernels, "greedy", launches)
 
     ref_texts = ref.transcribe_batch(signals)
-    items, with_logits = [], study_tool().with_logits
+    items, route = [], study_tool().route_forward
     for s in signals:
-        (lp, el), lg = with_logits(tr.log_probs, s)
-        (lp_ref, el_ref), lg_ref = with_logits(ref.log_probs, s)
-        check(lp.shape == lp_ref.shape and np.isfinite(lp).all(),
-              "log-probs: shape or finiteness")
-        check(np.array_equal(el, el_ref), "enc_lens differ from the plain path")
+        (lp, el), lg = route(tr, s)
+        (lp_ref, el_ref), lg_ref = route(ref, s)
+        (lp32, el32), lg32 = route(f32, s)
+        check(lp.shape == lp_ref.shape == lp32.shape
+              and np.isfinite(lp).all(), "log-probs: shape or finiteness")
+        check(np.array_equal(el, el_ref) and np.array_equal(el, el32),
+              "enc_lens differ from the plain path or the fp32 forward")
         check(np.allclose(np.exp(lp).sum(-1), 1.0, atol=1e-3),
               "log-probs do not normalise")
-        items.append((lp, lp_ref, lg, lg_ref))
+        items.append((lp, lp_ref, lg, lg_ref, lp32, lg32))
     logp_gate(items, "kernel path vs plain path")
     same = sum(a == b for a, b in zip(texts, ref_texts))
     print(f"kernel path vs plain path: transcripts equal "
@@ -2599,6 +2625,7 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
     from vietasr_tpu_torch.ops.device_beam import device_beam_search
     from vietasr_tpu_torch.ops.fused_beam import fused_beam_search
     from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+    from vietasr_tpu_torch.utils.device import strict_fp32
 
     sigs, pcm8, ulaw8 = longform_signals(np)
     audio_s = sum(len(s) for s in sigs) / 16000 + (len(pcm8)
@@ -2607,6 +2634,7 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
     ref = Transcriber(CONFIG, variables=load_anchor(ANCHOR),
                       options=TranscriberOptions(fused_frontend="off",
                                                  block_impl="plain"))
+    f32 = fp32_route(CONFIG, variables=load_anchor(ANCHOR))
     inputs = [(s, None, None) for s in sigs] + [(pcm8, 8000, None),
                                                 (ulaw8, 8000, "ulaw")]
 
@@ -2637,15 +2665,19 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
           f"long-form launches {launches} for {n} utterances")
     add_path_launches(kernels, "longform_greedy", launches)
 
-    # the kernel route vs the plain route on the card: stitched log-probs
+    # the kernel route vs the plain route and the fp32 forward on the
+    # card: stitched log-probs
     ref_texts = run(ref)
     agree, items = [], []
 
     def stitched_logits(t, prep):
         """The stitched log-probs and the logits stitched as they are: the
-        span forward's logits rows picked by the program's stitch index."""
-        (lp, total), lg = study_tool().with_logits(
-            lf._run_fused, t, prep, chunk, overlap, True)
+        span forward's logits rows picked by the program's stitch index;
+        the fp32 forward's under strict_fp32."""
+        with strict_fp32() if t.compute_dtype is None \
+                else contextlib.nullcontext():
+            (lp, total), lg = study_tool().with_logits(
+                lf._run_fused, t, prep, chunk, overlap, True)
         prog = lf._longform_program(t, prep[0], chunk, overlap, True,
                                     in_sr=prep[3], in_dtype=prep[4])
         idx = prog._stitch_index(lg.shape[1]).cpu().numpy()
@@ -2654,14 +2686,18 @@ def longform_phase(np, torch, dev, lm_paths, kernels):
     for prep in preps:
         lp, total, lg = stitched_logits(tr, prep)
         lp_ref, total_ref, lg_ref = stitched_logits(ref, prep)
-        check(int(total) == int(total_ref) and lp.shape == lp_ref.shape
-              and lg.shape == lp.shape and lg_ref.shape == lp.shape,
-              "long-form: stitched lengths differ from the plain route")
+        lp32, total32, lg32 = stitched_logits(f32, prep)
+        check(int(total) == int(total_ref) == int(total32)
+              and lp.shape == lp_ref.shape == lp32.shape
+              and lg.shape == lp.shape == lg_ref.shape == lg32.shape,
+              "long-form: stitched lengths differ from the plain route or "
+              "the fp32 forward")
         t = int(total)
         check(bool(torch.isfinite(lp[:t]).all()), "long-form: non-finite")
         agree.append(float((lp[:t].argmax(-1) == lp_ref[:t].argmax(-1))
                            .float().mean()))
-        items.append((lp[:t], lp_ref[:t], lg[:t], lg_ref[:t]))
+        items.append((lp[:t], lp_ref[:t], lg[:t], lg_ref[:t], lp32[:t],
+                      lg32[:t]))
     logp_gate(items, "long-form kernel route vs plain route (stitched)")
     same = sum(a == b for a, b in zip(texts, ref_texts))
     print(f"long-form kernel route vs plain route: frame argmax agreement "
@@ -3240,11 +3276,11 @@ def conformer_offline_phase(np, torch, dev, signals, lm_paths, kernels):
              "fp32 kernel vs plain frontend": (fp32, fp32_plain),
              "bf16 vs fp32 (kernel frontend)": (tr, fp32)}
     stats = {k: ([], 0.0) for k in pairs}
-    margins, items, with_logits = [], [], study_tool().with_logits
+    margins, items, route = [], [], study_tool().route_forward
     for s in signals:
         out, logits = {}, {}
         for t in (tr, plain, fp32, fp32_plain):
-            out[t], logits[t] = with_logits(t.log_probs, s)
+            out[t], logits[t] = route(t, s)
         el = out[tr][1]
         n = int(el[0])
         check(all(np.array_equal(el, e) for _, e in out.values()),
@@ -3259,8 +3295,10 @@ def conformer_offline_phase(np, torch, dev, signals, lm_paths, kernels):
             agree, worst = stats[k]
             agree.append(la.argmax(-1) == lb.argmax(-1))
             stats[k] = (agree, max(worst, float(np.abs(la - lb).max())))
+        # the fp32 forward through no kernel: fp32_plain
         items.append((out[tr][0][0, :n], out[plain][0][0, :n],
-                      logits[tr][0, :n], logits[plain][0, :n]))
+                      logits[tr][0, :n], logits[plain][0, :n],
+                      out[fp32_plain][0][0, :n], logits[fp32_plain][0, :n]))
         top2 = np.sort(out[fp32][0][0, :n], -1)[:, -2:]
         margins.append(top2[:, 1] - top2[:, 0])
     frames = sum(map(len, stats["bf16 vs fp32 (kernel frontend)"][0]))
@@ -5626,6 +5664,7 @@ def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
         tr = Transcriber(config)
         ref = Transcriber(config, options=TranscriberOptions(
             fused_frontend="off", block_impl="plain"))
+        f32 = fp32_route(config)
         trb = Transcriber(config, options=TranscriberOptions(
             decoder="device_beam", lm_path=lm_paths[3]))
     n_par = sum(p.numel() for p in tree_leaves(tr._float_variables["params"]))
@@ -5661,17 +5700,20 @@ def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
           f"{REPEAT_TOL_REL})")
     del calls
 
-    # the kernel route vs the plain route (plain frontend, plain blocks)
-    items, agree, with_logits = [], [], study_tool().with_logits
+    # the kernel route vs the plain route (plain frontend, plain blocks),
+    # both from the fp32 forward
+    items, agree, route = [], [], study_tool().route_forward
     for sig in signals:
-        (lp, el), lg = with_logits(tr.log_probs, sig)
-        (lp_ref, el_ref), lg_ref = with_logits(ref.log_probs, sig)
-        check(lp.shape == lp_ref.shape and np.isfinite(lp).all()
-              and np.array_equal(el, el_ref),
+        (lp, el), lg = route(tr, sig)
+        (lp_ref, el_ref), lg_ref = route(ref, sig)
+        (lp32, el32), lg32 = route(f32, sig)
+        check(lp.shape == lp_ref.shape == lp32.shape
+              and np.isfinite(lp).all() and np.array_equal(el, el_ref)
+              and np.array_equal(el, el32),
               "15x5 log-probs: shape, finiteness or lengths")
         check(np.allclose(np.exp(lp).sum(-1), 1.0, atol=1e-3),
               "15x5 log-probs do not normalise")
-        items.append((lp, lp_ref, lg, lg_ref))
+        items.append((lp, lp_ref, lg, lg_ref, lp32, lg32))
         agree.append(agreement(lp, lp_ref))
     logp_gate(items, "15x5 kernel route vs plain route")
     ref_texts = ref.transcribe_batch(signals)
@@ -5679,7 +5721,7 @@ def qn15x5_phase(np, torch, dev, signals, lm_paths, kernels):
     print(f"15x5 kernel route vs plain route: frame argmax agreement min "
           f"{min(agree):.4f} mean {sum(agree) / len(agree):.4f}, transcripts "
           f"equal {same}/{len(texts)} (random weights)")
-    del ref
+    del ref, f32
     audio_s, busy_ms, idle = path_numbers(np, torch, tr, signals,
                                           "15x5 greedy path")
     whole["qn15x5_greedy"] = {"audio_s_per_s": audio_s, "busy_ms": busy_ms,
@@ -5878,6 +5920,12 @@ def study_phase(np, torch, dev, kernels):
                       f"study {tag}: kernel route transcripts")
                 g = hold_gate(r["gate"], f"study {tag}: kernel vs plain "
                               "route")
+                first = r["first_block_past_one_step"]
+                print(f"study {tag}: the block where the two bf16 routes "
+                      f"first differ by more than one bf16 step: {first}")
+                for b in sorted({0 if first is None else first,
+                                 len(r["blocks"]) - 1}):
+                    print(f"  {tool.block_line(r['blocks'][b])}")
                 k_wer = word_error_rate(r["hyps"], refs)
                 p_wer = word_error_rate(r["plain_hyps"], refs)
                 line += (f"; kernel route (bf16) {k_wer:.4f}, plain route "
@@ -5886,7 +5934,9 @@ def study_phase(np, torch, dev, kernels):
                          f"worst {worst:.3e} of max|want| (tol "
                          f"{REPEAT_TOL_REL})")
                 numbers[tag].update(heldout_wer_kernel=k_wer,
-                                    max_abs_dlogp=g["max_abs_dlogp"])
+                                    max_abs_dlogp=g["max_abs_dlogp"],
+                                    d_k=g["d_k"], d_p=g["d_p"],
+                                    first_block_past_one_step=first)
             print(line)
     print(f"phase 16: {json.dumps(numbers)}")
     return numbers

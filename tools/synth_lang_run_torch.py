@@ -62,10 +62,17 @@ QN_CONFIG = os.path.join(ROOT, "vietasr_tpu_torch", "configs",
 ART_DIR = os.path.join(ROOT, "artifacts", "study")
 SR = 16000
 AUG = ("speed", "gain", "noise")
-# the end-to-end gate of a bf16 kernel route against the plain route
-# (logp_gate, which chip_smoke.py applies too): bf16 blocks whose outputs
-# may round one step differently under another fp32 summation order
+# the end-to-end gate of a bf16 kernel route (logp_gate, which
+# chip_smoke.py applies too), measured from the fp32 forward on the same
+# weights and signals: the kernel route's largest |d log p| from it may
+# reach E2E_LOGP_TOL, or ROUTE_RATIO times the plain route's own largest
+# where that is more. The two bf16 routes round at the same points and
+# differ in fp32 summation order, which flips single bf16 roundings of
+# block outputs that compound over the blocks, so neither is the truth:
+# a kernel that is only another bf16 chain lies as far from fp32 as its
+# plain version does, one with a fault lies farther
 E2E_LOGP_TOL = 0.25
+ROUTE_RATIO = 1.5
 
 # vocabulary: real Vietnamese words (chars all inside the 91-label
 # inventory), same corpus the bench word-LM uses
@@ -603,47 +610,92 @@ def bf16_step(x) -> np.ndarray:
     return np.ldexp(np.float32(1.0), e - 8).astype(np.float32)
 
 
-def logp_gate(items, tol: float = E2E_LOGP_TOL, keep: int = 64) -> dict:
-    """The end-to-end gate of a bf16 kernel route against the plain
-    route: every entry (one class at one frame) within |d log p| <= tol.
-    `items` yields (lp, lp_ref, logits, logits_ref), four arrays of one
-    shape (..., classes); the logits are the head's output the log-probs
-    were taken from (with_logits).
+def _log_z(x):
+    """log sum exp over the last axis, in fp64."""
+    x = np.asarray(x, np.float64)
+    m = x.max(-1, keepdims=True)
+    return (m + np.log(np.exp(x - m).sum(-1, keepdims=True)))[..., 0]
 
-    Besides the verdict it records what moved: for the worst entry and
-    for each entry past `tol` (the `keep` largest, and their count) both
-    routes' logits, the bf16 step (ulp) at the larger magnitude of the
-    two, their difference counted in those steps, and the row's d log Z
-    (Z the sum of exp(logit), so d log p = d logit - d log Z); and over
-    every row the largest |d log Z| and logit. Returns ok, the reason it
-    failed, and those numbers."""
-    worst, past = None, []
+
+def logp_gate(items, tol: float = E2E_LOGP_TOL, keep: int = 64,
+              ratio: float = ROUTE_RATIO) -> dict:
+    """The end-to-end gate of a bf16 kernel route. `items` yields, per
+    item, arrays of one shape (..., classes): (lp, lp_ref, logits,
+    logits_ref) of the kernel route and the plain route, then (lp_fp32,
+    logits_fp32) of the fp32 forward on the same weights and signals, and
+    optionally (lp_fp32_ref, logits_fp32_ref) where the plain side has an
+    fp32 forward of its own (another package). The logits are the head's
+    output the log-probs were taken from (with_logits).
+
+    The verdict, over every entry (a class at a frame) of every item:
+    d_k = max |lp - lp_fp32| <= max(tol, ratio * d_p), d_p = max |lp_ref -
+    lp_fp32_ref|. Items of four arrays (two loads of one route, no fp32
+    forward) are held by the kernel-vs-plain rule alone: every |lp -
+    lp_ref| <= tol. One call takes items of one kind.
+
+    Either way it records the kernel route against the plain route: the
+    largest |d log p|, the worst entry and each entry past `tol` (the
+    `keep` largest, and their count) with both routes' logits, the bf16
+    step (ulp) at the larger magnitude of the two, their difference in
+    those steps and the row's d log Z (Z the sum of exp(logit), so d log p
+    = d logit - d log Z), over every row the largest |d log Z| and logit,
+    and that rule's verdict (`kernel_vs_plain_ok`); with an fp32 forward
+    also d_k, d_p, their ratio, the bar and the entries where each route
+    lies farthest from fp32. Returns ok, the reason it failed, and those
+    numbers."""
+    worst, past, kinds = None, [], set()
+    far = {"kernel": None, "plain": None}
     out = {"tol": tol, "max_abs_dlogp": 0.0, "max_row_dlogz": 0.0,
            "max_abs_logit": 0.0, "past_tol": 0, "max_steps_past_tol": 0.0,
-           "failed": None}
-
-    def log_z(x):
-        x = x.astype(np.float64)
-        m = x.max(-1)
-        return m + np.log(np.exp(x - m[:, None]).sum(-1))
+           "kernel_vs_plain_failed": None}
 
     def entry(item, r, c):
         a, b = float(lg[r, c]), float(lg_ref[r, c])
         step = float(bf16_step(max(abs(a), abs(b))))
-        return {"item": item, "row": int(r), "cls": int(c),
-                "dlogp": float(d[r, c]), "logp": float(lp[r, c]),
-                "logp_ref": float(lp_ref[r, c]), "logit": a,
-                "logit_ref": b, "ulp": step, "steps": abs(a - b) / step,
-                "row_dlogz": float(dz[r])}
+        e = {"item": item, "row": int(r), "cls": int(c),
+             "dlogp": float(d[r, c]), "logp": float(lp[r, c]),
+             "logp_ref": float(lp_ref[r, c]), "logit": a,
+             "logit_ref": b, "ulp": step, "steps": abs(a - b) / step,
+             "row_dlogz": float(dz[r])}
+        if fp32:
+            e.update(logp_fp32=float(lp32[r, c]),
+                     logit_fp32=float(lg32[r, c]))
+            if lp32_ref is not lp32:
+                e.update(logp_fp32_ref=float(lp32_ref[r, c]),
+                         logit_fp32_ref=float(lg32_ref[r, c]))
+        return e
 
-    for item, quad in enumerate(items):
+    def from_fp32(item, route, a, a32, lga, lg32a):
+        dd = np.nan_to_num(np.abs(a - a32), nan=np.inf)
+        r, c = np.unravel_index(np.argmax(dd), dd.shape)
+        if far[route] is None or dd[r, c] > far[route]["dlogp"]:
+            far[route] = {
+                "item": item, "row": int(r), "cls": int(c),
+                "dlogp": float(dd[r, c]), "logp": float(a[r, c]),
+                "logp_fp32": float(a32[r, c]), "logit": float(lga[r, c]),
+                "logit_fp32": float(lg32a[r, c]),
+                "row_dlogz": float(abs(_log_z(lga[r]) - _log_z(lg32a[r])))}
+
+    for item, arrays in enumerate(items):
         arrs = [np.asarray(a.float().cpu() if hasattr(a, "float") else a,
-                           np.float32) for a in quad]
-        if len({a.shape for a in arrs}) != 1:
-            raise ValueError(f"logp_gate: shapes {[a.shape for a in arrs]}")
-        lp, lp_ref, lg, lg_ref = (a.reshape(-1, a.shape[-1]) for a in arrs)
+                           np.float32) for a in arrays]
+        if len(arrs) not in (4, 6, 8) or len({a.shape for a in arrs}) != 1:
+            raise ValueError(f"logp_gate: {len(arrs)} arrays of shapes "
+                             f"{[a.shape for a in arrs]}")
+        kinds.add(len(arrs) > 4)
+        if len(kinds) > 1:
+            raise ValueError("logp_gate: items with and without an fp32 "
+                             "forward in one call")
+        arrs = [a.reshape(-1, a.shape[-1]) for a in arrs]
+        lp, lp_ref, lg, lg_ref = arrs[:4]
+        fp32 = len(arrs) > 4
+        lp32 = lg32 = lp32_ref = lg32_ref = None
+        if fp32:
+            lp32, lg32 = arrs[4:6]
+            lp32_ref, lg32_ref = arrs[6:8] if len(arrs) == 8 \
+                else (lp32, lg32)
         d = np.nan_to_num(np.abs(lp - lp_ref), nan=np.inf)
-        dz = np.nan_to_num(np.abs(log_z(lg) - log_z(lg_ref)), nan=np.inf)
+        dz = np.nan_to_num(np.abs(_log_z(lg) - _log_z(lg_ref)), nan=np.inf)
         if not d.size:
             continue
         out["max_abs_logit"] = max(out["max_abs_logit"], float(
@@ -659,30 +711,63 @@ def logp_gate(items, tol: float = E2E_LOGP_TOL, keep: int = 64) -> dict:
             out["max_steps_past_tol"] = max(out["max_steps_past_tol"],
                                             e["steps"])
             past.append(e)
-            if out["failed"] is None:
-                out["failed"] = (f"|d log p| {e['dlogp']} > {tol} at item "
-                                 f"{item}, row {r}, class {c} (logits "
-                                 f"{e['logit']} / {e['logit_ref']}, "
-                                 f"{e['steps']:g} bf16 steps; the row's "
-                                 f"|d log Z| {e['row_dlogz']:.4g})")
+            if out["kernel_vs_plain_failed"] is None:
+                out["kernel_vs_plain_failed"] = (
+                    f"|d log p| {e['dlogp']} > {tol} at item {item}, row "
+                    f"{r}, class {c} (logits {e['logit']} / "
+                    f"{e['logit_ref']}, {e['steps']:g} bf16 steps; the "
+                    f"row's |d log Z| {e['row_dlogz']:.4g})")
         past = sorted(past, key=lambda e: -e["dlogp"])[:keep]
-    out.update(ok=out["failed"] is None, worst=worst, entries=past)
+        if fp32:
+            from_fp32(item, "kernel", lp, lp32, lg, lg32)
+            from_fp32(item, "plain", lp_ref, lp32_ref, lg_ref, lg32_ref)
+    out.update(kernel_vs_plain_ok=out["kernel_vs_plain_failed"] is None,
+               worst=worst, entries=past)
+    if kinds == {True}:
+        d_k, d_p = far["kernel"]["dlogp"], far["plain"]["dlogp"]
+        bar = max(tol, ratio * d_p)
+        w = far["kernel"]
+        out.update(rule="fp32", ratio=ratio, d_k=d_k, d_p=d_p,
+                   d_ratio=d_k / d_p if d_p else None, bar=bar,
+                   worst_kernel=w, worst_plain=far["plain"],
+                   failed=None if d_k <= bar else (
+                       f"the kernel route's |d log p| from fp32 {d_k} > "
+                       f"{bar} = max({tol}, {ratio} x the plain route's "
+                       f"{d_p}) at item {w['item']}, row {w['row']}, class "
+                       f"{w['cls']} (log p {w['logp']} / fp32 "
+                       f"{w['logp_fp32']}, logits {w['logit']} / "
+                       f"{w['logit_fp32']})"))
+    else:
+        out.update(rule="kernel_vs_plain",
+                   failed=out["kernel_vs_plain_failed"])
+    out["ok"] = out["failed"] is None
     return out
 
 
 def gate_line(g: dict) -> str:
-    """One line of a logp_gate result: the worst entry with its logits,
-    the bf16 step there and the steps they moved, the rows' d log Z."""
+    """One line of a logp_gate result: with an fp32 forward d_k, d_p, their
+    ratio and the bar first; then the kernel route against the plain
+    route: the worst entry with its logits, the bf16 step there and the
+    steps they moved, the rows' d log Z, the entries past the tolerance
+    and that rule's verdict."""
     w = g["worst"] or {}
-    return (f"max|d log p| {g['max_abs_dlogp']:.4e} (tol {g['tol']}) at "
-            f"logits {w.get('logit', 0.0):.6g} / "
+    head = ""
+    if g["rule"] == "fp32":
+        ratio = "n/a" if g["d_ratio"] is None else f"{g['d_ratio']:.4g}"
+        head = (f"from fp32: d_k {g['d_k']:.4e}, d_p {g['d_p']:.4e}, "
+                f"d_k / d_p {ratio}, bar max({g['tol']}, {g['ratio']} d_p)"
+                f" = {g['bar']:.4e}; kernel vs plain: ")
+    tail = "" if g["kernel_vs_plain_ok"] or g["rule"] != "fp32" \
+        else "; past the kernel-vs-plain rule"
+    return (head + f"max|d log p| {g['max_abs_dlogp']:.4e} (tol {g['tol']})"
+            f" at logits {w.get('logit', 0.0):.6g} / "
             f"{w.get('logit_ref', 0.0):.6g} (bf16 ulp "
             f"{w.get('ulp', 0.0):.6g}: {w.get('steps', 0.0):.3g} steps; "
             f"the row's |d log Z| {w.get('row_dlogz', 0.0):.4e}); "
             f"{g['past_tol']} entries past {g['tol']} (most steps "
             f"{g['max_steps_past_tol']:.3g}); max|d log Z| "
             f"{g['max_row_dlogz']:.4e}; max|logit| {g['max_abs_logit']:.6g}"
-            + ("" if g["ok"] else f"; FAILED: {g['failed']}"))
+            + tail + ("" if g["ok"] else f"; FAILED: {g['failed']}"))
 
 
 def with_logits(fn, *args, **kwargs):
@@ -712,38 +797,240 @@ def with_logits(fn, *args, **kwargs):
     return out, seen[-1].detach().float().cpu().numpy()
 
 
+def tf32_flags() -> dict:
+    """The torch.backends TF32 flags in force (cuBLAS matmuls, cuDNN)."""
+    import torch
+
+    return {"matmul": bool(torch.backends.cuda.matmul.allow_tf32),
+            "cudnn": bool(torch.backends.cudnn.allow_tf32)}
+
+
+ROUTES = ("kernel", "plain", "fp32")
+ROUTE_PAIRS = (("kernel", "plain"), ("kernel", "fp32"), ("plain", "fp32"))
+
+
+def route_transcribers(config, variables, *, device=None) -> dict:
+    """The three routes on one set of weights: the bf16 kernel route (the
+    default Transcriber: the frontend kernel and the fused repeat blocks),
+    the bf16 plain route (fused_frontend="off", block_impl="plain": the
+    kernels' plain versions, at the same rounding points) and the fp32
+    forward through no kernel (compute_dtype=None, the plain frontend and
+    blocks), which route_forward runs under strict_fp32."""
+    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
+
+    plain = dict(fused_frontend="off", block_impl="plain")
+    return {"kernel": Transcriber(config, variables=variables,
+                                  device=device),
+            "plain": Transcriber(config, variables=variables, device=device,
+                                 options=TranscriberOptions(**plain)),
+            "fp32": Transcriber(config, variables=variables, device=device,
+                                options=TranscriberOptions(
+                                    compute_dtype=None, **plain))}
+
+
+def route_forward(t, sig, blocks=None):
+    """One forward of Transcriber `t` on one signal: ((lp, enc_lens),
+    logits) as with_logits gives them; an fp32 Transcriber's under
+    strict_fp32, so that it is IEEE fp32 whatever the TF32 flags say. With
+    a list `blocks`, each encoder block's output and lengths are appended
+    to it as host arrays ((B, T_i, C_i) fp32, (B,)), read by wrapping
+    models.quartznet._apply_block for this one call (a pw_fn of the
+    check's own would turn the repeat kernel off)."""
+    import contextlib
+
+    from vietasr_tpu_torch.models import quartznet as qn
+    from vietasr_tpu_torch.utils.device import strict_fp32
+
+    apply_block = qn._apply_block
+
+    def recorded(*args, **kwargs):
+        out = apply_block(*args, **kwargs)
+        blocks.append((out[0][-1].float().cpu().numpy(),
+                       out[1].cpu().numpy()))
+        return out
+
+    if blocks is not None:
+        qn._apply_block = recorded
+    try:
+        with strict_fp32() if t.compute_dtype is None \
+                else contextlib.nullcontext():
+            return with_logits(t.log_probs, sig)
+    finally:
+        qn._apply_block = apply_block
+
+
+def _head_record(item, r, c, x, lg, lp, w):
+    """The head at one entry (frame r, class c): its input (the last
+    block's output at r) in both bf16 routes, the column w[:, c] and what
+    each route's logit and log p do against the fp32 forward's."""
+    xk, xp, xf = (x[n][r].astype(np.float64) for n in ROUTES)
+    wc = w[:, c].astype(np.float64)
+    dx = xk - xp
+    steps = np.abs(dx) / bf16_step(np.maximum(np.abs(xk), np.abs(xp)))
+    differ = np.nonzero(dx)[0]
+    part = np.abs(wc) * np.abs(dx)
+    top = differ[np.argsort(-part[differ], kind="stable")][:8]
+
+    def vs_fp32(n):
+        return {"logit": float(lg[n][r, c]), "logp": float(lp[n][r, c]),
+                "dlogit_fp32": float(lg[n][r, c] - lg["fp32"][r, c]),
+                "dlogp_fp32": float(lp[n][r, c] - lp["fp32"][r, c]),
+                "dlogz_fp32": float(_log_z(lg[n][r]) - _log_z(lg["fp32"][r])),
+                "bound_fp32": float(np.abs(wc) @ np.abs(x[n][r] - xf))}
+
+    return {"item": item, "row": int(r), "cls": int(c),
+            "dlogp": float(abs(lp["kernel"][r, c] - lp["plain"][r, c])),
+            "channels": int(xk.size), "channels_differ": int(differ.size),
+            "differ_by_steps": {"1": int((steps[differ] <= 1).sum()),
+                                "2": int(((steps > 1) & (steps <= 2)).sum()),
+                                "more": int((steps > 2).sum())},
+            "most_steps": float(steps.max()) if differ.size else 0.0,
+            "top_channels": [{"ch": int(k), "kernel": float(xk[k]),
+                              "plain": float(xp[k]), "fp32": float(xf[k]),
+                              "steps": float(steps[k]), "w": float(wc[k])}
+                             for k in top],
+            "w_l1": float(np.abs(wc).sum()),
+            "w_l2": float(np.sqrt((wc * wc).sum())),
+            "bound": float(part.sum()),
+            "dlogit": float(lg["kernel"][r, c] - lg["plain"][r, c]),
+            "dlogz": float(_log_z(lg["kernel"][r]) - _log_z(lg["plain"][r])),
+            "kernel": vs_fp32("kernel"), "plain": vs_fp32("plain"),
+            "fp32": {"logit": float(lg["fp32"][r, c]),
+                     "logp": float(lp["fp32"][r, c])}}
+
+
+def route_divergence(variables, config, sigs, *, device=None, routes=None,
+                     keep: int = 16) -> dict:
+    """Where the bf16 kernel route and the bf16 plain route part, from
+    each other and from the fp32 forward, on the same weights and signals:
+    one forward a signal in each route of `routes` (route_transcribers of
+    `variables` unless given). Returns
+    - `gate`: logp_gate over the signals (kernel, plain, fp32);
+    - `blocks`: per encoder block, over the rows inside each signal's
+      length, for each pair of routes the largest |d|, the share of
+      elements that differ and the largest |d| in bf16 steps of the larger
+      value; for each bf16 route against fp32 also its largest and mean
+      |d| over the fp32 block output's RMS (`rel_max`, `rel_mean`);
+    - `first_block_past_one_step`: the first block whose kernel-route and
+      plain-route outputs differ by more than one bf16 step (None if none);
+    - `head`: at the worst kernel-vs-plain entry and each past
+      E2E_LOGP_TOL (the `keep` largest), the head's input in both bf16
+      routes (the channels that differ and by how many bf16 steps), the
+      head column's L1 and L2 norms, the bound sum_k |w_kc| |dx_k| beside
+      the measured d logit, d log Z, and each route's logit and log p
+      against the fp32 forward's (_head_record);
+    - `tf32`: the TF32 flags the bf16 routes ran under (the fp32 forward
+      runs under strict_fp32)."""
+    routes = routes or route_transcribers(config, variables, device=device)
+    flags = tf32_flags()
+    w = routes["fp32"].variables["params"]["decoder"]["w"]
+    w = w.float().cpu().numpy()
+    items, heads, acc = [], [], []
+    for item, sig in enumerate(sigs):
+        lp, lg, x = {}, {}, {}
+        for n in ROUTES:
+            blocks = []
+            (lp_n, el), lg_n = route_forward(routes[n], sig, blocks)
+            if n == "kernel":
+                el_k = el
+            elif lp_n.shape != lp["kernel"].shape \
+                    or not np.array_equal(el, el_k):
+                raise RuntimeError(f"route_divergence: the {n} route's "
+                                   "log-prob shape or lengths differ from "
+                                   "the kernel route's")
+            lp[n], lg[n], x[n] = lp_n, lg_n, blocks
+        items.append((lp["kernel"], lp["plain"], lg["kernel"], lg["plain"],
+                      lp["fp32"], lg["fp32"]))
+        if not acc:
+            acc = [{"rows": 0, "n": 0, "sumsq": 0.0,
+                    **{f"{a}_vs_{b}": {"max_abs": 0.0, "differ": 0,
+                                       "max_steps": 0.0, "sum_abs": 0.0}
+                       for a, b in ROUTE_PAIRS}}
+                   for _ in x["fp32"]]
+        for i, a in enumerate(acc):
+            rows = int(x["fp32"][i][1][0])
+            v = {n: x[n][i][0][0, :rows].astype(np.float64) for n in ROUTES}
+            a["rows"] += rows
+            a["channels"] = v["fp32"].shape[-1]
+            a["n"] += v["fp32"].size
+            a["sumsq"] += float((v["fp32"] ** 2).sum())
+            for p, q in ROUTE_PAIRS:
+                s = a[f"{p}_vs_{q}"]
+                d = np.abs(v[p] - v[q])
+                if not d.size:
+                    continue
+                step = bf16_step(np.maximum(np.abs(v[p]), np.abs(v[q])))
+                s["max_abs"] = max(s["max_abs"], float(d.max()))
+                s["differ"] += int((d > 0).sum())
+                s["max_steps"] = max(s["max_steps"], float((d / step).max()))
+                s["sum_abs"] += float(d.sum())
+        last = {n: x[n][-1][0][0] for n in ROUTES}
+        lp1 = {n: a[0] for n, a in lp.items()}
+        lg1 = {n: a[0] for n, a in lg.items()}
+        d = np.abs(lp1["kernel"] - lp1["plain"])
+        picks = {np.unravel_index(np.argmax(d), d.shape)}
+        picks |= set(zip(*np.nonzero(d > E2E_LOGP_TOL)))
+        heads += [_head_record(item, r, c, last, lg1, lp1, w)
+                  for r, c in sorted(picks)]
+    blocks_out = []
+    for i, a in enumerate(acc):
+        rms = float(np.sqrt(a["sumsq"] / a["n"])) if a["n"] else 0.0
+        rec = {"block": i, "rows": a["rows"], "channels": a["channels"],
+               "rms_fp32": rms}
+        for p, q in ROUTE_PAIRS:
+            s = a[f"{p}_vs_{q}"]
+            rec[f"{p}_vs_{q}"] = {
+                "max_abs": s["max_abs"],
+                "share_differ": s["differ"] / a["n"] if a["n"] else 0.0,
+                "max_steps": s["max_steps"]}
+            if q == "fp32":
+                rec[f"{p}_vs_{q}"].update(
+                    rel_max=s["max_abs"] / rms if rms else None,
+                    rel_mean=s["sum_abs"] / a["n"] / rms if rms else None)
+        blocks_out.append(rec)
+    heads.sort(key=lambda h: -h["dlogp"])
+    past = [h for h in heads if h["dlogp"] > E2E_LOGP_TOL][:keep]
+    return {"gate": logp_gate(items), "tf32": flags,
+            "blocks": blocks_out,
+            "first_block_past_one_step": next(
+                (b["block"] for b in blocks_out
+                 if b["kernel_vs_plain"]["max_steps"] > 1), None),
+            "head": past or heads[:1]}
+
+
+def block_line(b: dict) -> str:
+    """One line of a route_divergence block record."""
+    kp, kf, pf = (b[f"{p}_vs_{q}"] for p, q in ROUTE_PAIRS)
+    return (f"block {b['block']:2d} ({b['channels']} ch, rms "
+            f"{b['rms_fp32']:.4g}): kernel vs plain max|d| "
+            f"{kp['max_abs']:.4g} ({kp['max_steps']:.3g} bf16 steps, "
+            f"{100 * kp['share_differ']:.3g} % differ); from fp32, max / "
+            f"mean |d| over rms: kernel {kf['rel_max']:.4g} / "
+            f"{kf['rel_mean']:.4g}, plain {pf['rel_max']:.4g} / "
+            f"{pf['rel_mean']:.4g}")
+
+
 def kernel_route_check(config, run_dir, sigs, *, device=None):
     """The repeat kernel's route (the default bf16 Transcriber: the
     frontend kernel and fused repeat blocks) against the plain route
-    (fused_frontend="off", block_impl="plain") on the same card and
-    signals: transcripts of each, the transcripts that agree, logp_gate
-    over every frame and class, and each route's kernel launches."""
+    (fused_frontend="off", block_impl="plain") and the fp32 forward on the
+    same card and signals: transcripts of each bf16 route, the transcripts
+    that agree, each bf16 route's kernel launches, and route_divergence
+    (logp_gate over every frame and class, the block profile, the
+    head)."""
     variables = restore_variables(run_dir, device)
-    from vietasr_tpu_torch.pipeline import Transcriber, TranscriberOptions
-
-    kernel = Transcriber(config, variables=variables, device=device)
-    plain = Transcriber(config, variables=variables, device=device,
-                        options=TranscriberOptions(fused_frontend="off",
-                                                   block_impl="plain"))
+    routes = route_transcribers(config, variables, device=device)
     before = kernel_launches()
-    hyps = [h.strip() for h in kernel.transcribe_batch(sigs)]
+    hyps = [h.strip() for h in routes["kernel"].transcribe_batch(sigs)]
     launches = _launches_since(before)
     before = kernel_launches()
-    plain_hyps = [h.strip() for h in plain.transcribe_batch(sigs)]
+    plain_hyps = [h.strip() for h in routes["plain"].transcribe_batch(sigs)]
     plain_launches = _launches_since(before)
-    items = []
-    for s in sigs:
-        (lp, el), lg = with_logits(kernel.log_probs, s)
-        (lp_ref, el_ref), lg_ref = with_logits(plain.log_probs, s)
-        if lp.shape != lp_ref.shape or not np.array_equal(el, el_ref) \
-                or lg.shape != lp.shape or lg_ref.shape != lp.shape:
-            raise RuntimeError("kernel route: log-prob or logit shape, or "
-                               "lengths, differ from the plain route")
-        items.append((lp, lp_ref, lg, lg_ref))
+    div = route_divergence(variables, config, sigs, device=device,
+                           routes=routes)
     return {"hyps": hyps, "plain_hyps": plain_hyps,
             "equal": sum(a == b for a, b in zip(hyps, plain_hyps)),
-            "gate": logp_gate(items),
-            "launches": launches, "plain_launches": plain_launches}
+            "launches": launches, "plain_launches": plain_launches, **div}
 
 
 def device_line(device):
@@ -760,11 +1047,13 @@ def phase_eval(work_dir, config, tag, sig="v2", *, device=None,
                art_dir=ART_DIR):
     """Held-out and train-distribution WER / CER, offline (fp32
     Transcriber) and streaming; on a QuartzNet also the repeat kernel's
-    route against the plain route (kernel_route_check) by logp_gate,
-    whose numbers and entries past E2E_LOGP_TOL (with their logits, bf16
-    steps and rows' d log Z) go under kernel_route for both splits; it
-    raises, once the result is written, when the held-out split fails
-    the gate (the train-distribution split's verdict is recorded). Writes
+    route against the plain route and the fp32 forward
+    (kernel_route_check): logp_gate's numbers (d_k, d_p, their ratio and
+    bar; the entries past E2E_LOGP_TOL kernel vs plain, with their logits,
+    bf16 steps and rows' d log Z), the TF32 flags, the block profile and
+    the head's records go under kernel_route for both splits; it raises,
+    once the result is written, when the held-out split fails the gate
+    (the train-distribution split's verdict is recorded). Writes
     torch_synth_<tag>.json into work_dir and art_dir, and the loss curve
     as art_dir/torch_train_<tag>.jsonl; returns the result."""
     from vietasr_tpu_torch.train import CheckpointManager
@@ -813,16 +1102,23 @@ def phase_eval(work_dir, config, tag, sig="v2", *, device=None,
                 word_error_rate(s_hyps, refs, use_cer=True), 4)
         if cfg.architecture == "quartznet":
             r = kernel_route_check(config, run_dir, sigs, device=dev)
+            g = r["gate"]
             checks[split] = {
                 "offline_wer_bf16": round(word_error_rate(r["hyps"], refs),
                                           4),
                 "plain_offline_wer_bf16": round(
                     word_error_rate(r["plain_hyps"], refs), 4),
                 "transcripts_equal": r["equal"],
-                "max_abs_dlogp": r["gate"]["max_abs_dlogp"],
-                "worst_at_logp": (r["gate"]["worst"] or {}).get("logp_ref"),
+                "d_k": g["d_k"], "d_p": g["d_p"], "d_ratio": g["d_ratio"],
+                "bar": g["bar"],
+                "max_abs_dlogp": g["max_abs_dlogp"],
+                "worst_at_logp": (g["worst"] or {}).get("logp_ref"),
                 "tol": E2E_LOGP_TOL,
-                "gate": r["gate"],
+                "gate": g,
+                "tf32": r["tf32"],
+                "first_block_past_one_step": r["first_block_past_one_step"],
+                "blocks": r["blocks"],
+                "head": r["head"],
                 "launches": r["launches"],
                 "plain_launches": r["plain_launches"]}
     # back-compat aliases (the JAX artifacts' round-4 schema)
@@ -848,7 +1144,7 @@ def phase_eval(work_dir, config, tag, sig="v2", *, device=None,
         shutil.copy(log_path, os.path.join(art_dir,
                                            f"torch_train_{tag}.jsonl"))
     if checks and not checks["heldout"]["gate"]["ok"]:
-        raise RuntimeError("held-out: kernel route vs plain route: "
+        raise RuntimeError("held-out: the kernel route from fp32: "
                            + gate_line(checks["heldout"]["gate"]))
     return out
 
