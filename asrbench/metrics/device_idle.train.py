@@ -1,0 +1,4 @@
+"""The device's idle share of the traced stretch on the train cells
+(asrbench/readers.py)."""
+
+from asrbench.readers import device_idle as read  # noqa: F401
