@@ -46,6 +46,7 @@ from vietasr_tpu_torch.train.freeze import (freeze, make_value_schedule,
                                             unfreeze_schedule)
 from vietasr_tpu_torch.train.loop import batch_to_tensors
 from vietasr_tpu_torch.train.synthetic import SyntheticToneDataset
+from vietasr_tpu_torch.utils import tracing
 
 # the package's `freeze` function shadows its module of that name
 jax_freeze = importlib.import_module("vietasr_tpu.train.freeze")
@@ -317,10 +318,118 @@ def test_profiler_traces_only_the_asked_steps(tmp_path):
     files = os.listdir(tmp_path / "prof")
     assert files == ["trace_steps_1_3.json"]
     with open(tmp_path / "prof" / files[0]) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    steps = sorted(n for n in names if n and n.startswith("train_step_"))
-    assert steps == ["train_step_1", "train_step_2"]
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    # steps 1 and 2, as the file's name says: the window's session holds
+    # them, the three steps outside it ran untraced
+    assert names.count("vietasr.train.step") == 2
+    assert not any(n and n.startswith("train_step_") for n in names)
+    assert tracing.summary()["train.step"]["n"] == 2
     assert int(state.step) == 5
+
+
+def _step_ranges(prof, path):
+    """{index of a `vietasr.train.step` range: names of the program's
+    ranges inside it} and the names of the ranges at the top, in order."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        ev = sorted((e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"
+                     and e["name"].startswith(tracing.PREFIX)),
+                    key=lambda e: (e["ts"], -e["dur"]))
+    steps = [e for e in ev if e["name"] == "vietasr.train.step"]
+    inside, top = {}, []
+    for e in ev:
+        around = [i for i, st in enumerate(steps) if st is not e
+                  and st["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= st["ts"] + st["dur"]]
+        if around:
+            inside.setdefault(around[0], []).append(
+                e["name"][len(tracing.PREFIX):])
+        else:
+            top.append(e["name"][len(tracing.PREFIX):])
+    return inside, top
+
+
+def test_trainer_spans_and_counters_on_a_fit(tmp_path):
+    """Under a profiler, each step's parts are ranges inside its
+    `train.step`, each microbatch one `train.forward_backward`; the batch
+    waits lie between the steps; the counters sum the batches."""
+    _, cfg = _configs()
+    variables = init_quartznet(torch.Generator().manual_seed(0), cfg.encoder,
+                               cfg.num_classes, device="cpu")
+    state = TrainState.create(variables, make_optimizer("novograd", 1e-3))
+    tr = Trainer(cfg, use_specaug=False, log_every=2, device="cpu",
+                 prefetch_depth=2, grad_accum=2)
+    batches = [SyntheticToneDataset(seed=2).batch(4) for _ in range(3)]
+    batches[1].signal_lens[3] = 4000
+    with tracing.span("between"):          # the last session ends
+        pass
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tr.fit(state, batches)
+    inside, top = _step_ranges(prof, tmp_path / "fit.json")
+    assert top == ["train.batch_wait", "train.step"] * 3 \
+        + ["train.batch_wait"]
+    part = ["train.upload", "train.forward_backward",
+            "train.forward_backward", "train.optimizer"]
+    assert inside == {0: part, 1: part + ["train.log_read"], 2: part}
+    s = tracing.summary()
+    assert s["train.step"]["n"] == 3 and s["train.batch_wait"]["n"] == 4
+    assert s["train.forward_backward"]["n"] == 6
+    signal = sum(int(b.signal_lens.sum()) for b in batches)
+    size = sum(b.signal.size for b in batches)
+    assert (s["train.steps"], s["train.rows"], s["train.signal_samples"],
+            s["train.padded_samples"]) == (3, 12, signal, size - signal)
+    assert int(state.step) == 3
+
+
+def test_profile_window_open_at_the_end_of_fit_is_written(tmp_path):
+    """A fit with fewer steps than profile_stop stops its profiler and
+    writes the steps it traced; no span records after fit."""
+    _, cfg = _configs()
+    variables = init_quartznet(torch.Generator().manual_seed(0), cfg.encoder,
+                               cfg.num_classes, device="cpu")
+    state = TrainState.create(variables, make_optimizer("sgd", 1e-3))
+    tr = Trainer(cfg, use_specaug=False, log_every=0, device="cpu",
+                 prefetch_depth=0, profile_dir=str(tmp_path / "prof"),
+                 profile_start=1, profile_stop=10)
+    tr.fit(state, [SyntheticToneDataset(seed=2).batch(2)] * 3)
+    assert not torch.autograd._profiler_enabled()
+    assert tr._profiler is None
+    assert os.listdir(tmp_path / "prof") == ["trace_steps_1_3.json"]
+    with open(tmp_path / "prof" / "trace_steps_1_3.json") as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert names.count("vietasr.train.step") == 2
+    assert not tracing.enabled()
+    with tracing.span("after"):
+        pass
+    assert "after" not in tracing.summary()
+
+
+def test_a_failed_fit_stops_its_profile_window_and_writes_nothing(
+        tmp_path):
+    """fit raising inside an open window stops the profiler without a
+    synchronize or an export, and raises the step's own error."""
+    _, cfg = _configs()
+    variables = init_quartznet(torch.Generator().manual_seed(0), cfg.encoder,
+                               cfg.num_classes, device="cpu")
+    state = TrainState.create(variables, make_optimizer("sgd", 1e-3))
+    tr = Trainer(cfg, use_specaug=False, log_every=0, device="cpu",
+                 prefetch_depth=0, profile_dir=str(tmp_path / "prof"),
+                 profile_start=0, profile_stop=10)
+    step = tr._train_step
+
+    def fails_at_two(state, batch, generator):
+        if int(state.step) == 2:
+            raise RuntimeError("the step failed")
+        return step(state, batch, generator)
+
+    tr._train_step = fails_at_two
+    with pytest.raises(RuntimeError, match="the step failed"):
+        tr.fit(state, [SyntheticToneDataset(seed=2).batch(2)] * 4)
+    assert not torch.autograd._profiler_enabled()
+    assert tr._profiler is None
+    assert not os.path.exists(tmp_path / "prof")
 
 
 def test_trainer_value_schedules_reach_the_metrics():

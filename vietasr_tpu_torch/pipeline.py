@@ -59,6 +59,7 @@ from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
                                           ids_to_text)
 from vietasr_tpu_torch.ops.lm import (SPACE_TOKEN, char_lm_table, load_lm,
                                       word_lm_tables)
+from vietasr_tpu_torch.utils import tracing
 from vietasr_tpu_torch.utils.device import resolve_device
 from vietasr_tpu_torch.utils.typing import assert_waveform
 
@@ -249,28 +250,43 @@ class Transcriber:
         lengths -> (log_probs, enc_lens, greedy_preds, keep_mask): the
         frontend, the encoder and the greedy decode, with no host read
         (export.py traces it)."""
-        feats, flens = self._featurize(signal, lengths)
+        with tracing.span("pipeline.featurize"):
+            feats, flens = self._featurize(signal, lengths)
         kwargs = {}
         if self.cfg.architecture == "quartznet":
             kwargs["block_impl"] = self.opts.block_impl
             if self._q_tables:
                 kwargs["pw_fn"] = int8_pw_fn(self._q_tables)
-        log_probs, enc_lens = model_apply(
-            self.variables, feats, flens, cfg=self.cfg,
-            compute_dtype=self.compute_dtype, **kwargs)
-        preds, keep = greedy_decode(log_probs, enc_lens,
-                                    blank=self.cfg.num_classes)
+        with tracing.span("pipeline.encoder"):
+            log_probs, enc_lens = model_apply(
+                self.variables, feats, flens, cfg=self.cfg,
+                compute_dtype=self.compute_dtype, **kwargs)
+        with tracing.span("pipeline.greedy"):
+            preds, keep = greedy_decode(log_probs, enc_lens,
+                                        blank=self.cfg.num_classes)
         return log_probs, enc_lens, preds, keep
 
     def _fwd(self, batch: np.ndarray, lens: np.ndarray):
-        signal = torch.from_numpy(batch).to(self.device, non_blocking=True)
-        buf = self._pinned.get(batch.shape[1])
-        if buf is not None and batch.ctypes.data == buf.data_ptr():
-            # the copy ran on the target device's current stream
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            self._uploaded[batch.shape[1]] = done
-        return self._forward(signal, torch.from_numpy(lens).to(self.device))
+        if tracing.enabled():
+            signal_samples = int(lens.sum())
+            tracing.count("pipeline.forwards")
+            tracing.count("pipeline.rows", batch.shape[0])
+            tracing.count("pipeline.signal_samples", signal_samples)
+            tracing.count("pipeline.padded_samples",
+                          batch.size - signal_samples)
+        with tracing.span("pipeline.upload"):
+            signal = torch.from_numpy(batch).to(self.device,
+                                                non_blocking=True)
+            buf = self._pinned.get(batch.shape[1])
+            if buf is not None and batch.ctypes.data == buf.data_ptr():
+                # the copy ran on the target device's current stream
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                self._uploaded[batch.shape[1]] = done
+            # from pageable memory: returns once the stream's queued work,
+            # the signal's copy among it, is done
+            lengths = torch.from_numpy(lens).to(self.device)
+        return self._forward(signal, lengths)
 
     def _host_batch(self, rows: int, samples: int) -> np.ndarray:
         """A zeroed (rows, samples) float32 host array to pad a batch into.
@@ -295,7 +311,8 @@ class Transcriber:
             self._pinned[samples] = buf
         done = self._uploaded.pop(samples, None)
         if done is not None:
-            done.synchronize()
+            with tracing.span("pipeline.buffer_wait"):
+                done.synchronize()
         arr = buf.numpy()[:rows]
         arr.fill(0.0)
         return arr
@@ -389,14 +406,15 @@ class Transcriber:
         """One beam search over the rows of `beam`'s forwards ((rows,
         log_probs, enc_lens) each), their log-probs padded to the longest
         T; each row's text goes to its signal's place in `out`."""
-        t_max = max(lp.shape[1] for _, lp, _ in beam)
-        lp = torch.cat([F.pad(lp, (0, 0, 0, t_max - lp.shape[1]))
-                        for _, lp, _ in beam])
-        enc_lens = torch.cat([el for _, _, el in beam])
-        rows = [gi for group, _, _ in beam for gi in group]
-        for gi, text in zip(rows, self._device_beam(lp, enc_lens)):
-            out[gi] = text
-        beam.clear()
+        with tracing.span("pipeline.beam"):
+            t_max = max(lp.shape[1] for _, lp, _ in beam)
+            lp = torch.cat([F.pad(lp, (0, 0, 0, t_max - lp.shape[1]))
+                            for _, lp, _ in beam])
+            enc_lens = torch.cat([el for _, _, el in beam])
+            rows = [gi for group, _, _ in beam for gi in group]
+            for gi, text in zip(rows, self._device_beam(lp, enc_lens)):
+                out[gi] = text
+            beam.clear()
 
     def transcribe_batch(self, signals: List[np.ndarray]) -> List[str]:
         """Sort by length, then batch up to max_batch utterances of one
@@ -410,45 +428,56 @@ class Transcriber:
         the last bucket decodes one forward at a time. So a search holds
         at most 4 x max_batch rows of the last bucket's frames, however
         many signals a call has."""
-        for s in signals:
-            assert_waveform(np.asarray(s), port="transcribe.signal")
-        out: List[Optional[str]] = [None] * len(signals)
-        beam = []                  # (rows, log_probs, enc_lens) per forward
-        order = sorted(range(len(signals)), key=lambda i: len(signals[i]))
-        i = 0
-        while i < len(order):
-            bl = self._bucket_len(len(signals[order[i]]))
-            group = []
-            while (i < len(order) and len(group) < self.opts.max_batch
-                   and self._bucket_len(len(signals[order[i]])) == bl):
-                group.append(order[i])
-                i += 1
-            batch = self._host_batch(len(group), bl)
-            lens = np.zeros((len(group),), np.int32)
-            for row, gi in enumerate(group):
-                s = np.asarray(signals[gi], np.float32)
-                batch[row, : len(s)] = s[:bl]
-                lens[row] = min(len(s), bl)
-            lp, enc_lens, preds, keep = self._fwd(batch, lens)
-            if self.opts.decoder == "device_beam":
-                held = sum(len(g) for g, _, _ in beam)
-                if beam and (bl not in self.buckets or held + len(group)
-                             > _BEAM_BATCHES_PER_DECODE * self.opts.max_batch):
-                    self._decode_beam(beam, out)
-                beam.append((group, lp, enc_lens))
-                if bl not in self.buckets:
-                    self._decode_beam(beam, out)
-                continue
-            if self._decoder is not None:
-                texts = self._decoder.decode_batch(
-                    lp.float().cpu().numpy(), enc_lens.cpu().numpy())
-            else:
-                texts = [ids_to_text(ids, self.cfg.labels)
-                         for ids in collapse_batch(preds, keep)]
-            for row, gi in enumerate(group):
-                out[gi] = texts[row]
-        if beam:
-            self._decode_beam(beam, out)
+        with tracing.span("pipeline.batch"):
+            for s in signals:
+                assert_waveform(np.asarray(s), port="transcribe.signal")
+            out: List[Optional[str]] = [None] * len(signals)
+            beam = []          # (rows, log_probs, enc_lens) per forward
+            per_decode = _BEAM_BATCHES_PER_DECODE * self.opts.max_batch
+            order = sorted(range(len(signals)),
+                           key=lambda i: len(signals[i]))
+            i = 0
+            while i < len(order):
+                bl = self._bucket_len(len(signals[order[i]]))
+                group = []
+                while (i < len(order) and len(group) < self.opts.max_batch
+                       and self._bucket_len(len(signals[order[i]])) == bl):
+                    group.append(order[i])
+                    i += 1
+                with tracing.span("pipeline.pad"):
+                    batch = self._host_batch(len(group), bl)
+                    lens = np.zeros((len(group),), np.int32)
+                    for row, gi in enumerate(group):
+                        s = np.asarray(signals[gi], np.float32)
+                        batch[row, : len(s)] = s[:bl]
+                        lens[row] = min(len(s), bl)
+                lp, enc_lens, preds, keep = self._fwd(batch, lens)
+                if self.opts.decoder == "device_beam":
+                    held = sum(len(g) for g, _, _ in beam)
+                    if beam and (bl not in self.buckets
+                                 or held + len(group) > per_decode):
+                        self._decode_beam(beam, out)
+                    beam.append((group, lp, enc_lens))
+                    if bl not in self.buckets:
+                        self._decode_beam(beam, out)
+                    continue
+                if self._decoder is not None:
+                    with tracing.span("pipeline.readback"):
+                        lp_host = lp.float().cpu().numpy()
+                        lens_host = enc_lens.cpu().numpy()
+                    with tracing.span("pipeline.text"):
+                        texts = self._decoder.decode_batch(lp_host,
+                                                           lens_host)
+                else:
+                    with tracing.span("pipeline.readback"):
+                        ids = collapse_batch(preds, keep)
+                    with tracing.span("pipeline.text"):
+                        texts = [ids_to_text(row_ids, self.cfg.labels)
+                                 for row_ids in ids]
+                for row, gi in enumerate(group):
+                    out[gi] = texts[row]
+            if beam:
+                self._decode_beam(beam, out)
         return out  # type: ignore
 
     def transcribe_long(self, signal: np.ndarray, *,

@@ -22,7 +22,10 @@ pair (`ctc_impl="auto"`). On CPU tensors both take their plain versions,
 the featurizer the plain log-mel chain as JAX computes it.
 
 The Trainer can record a `torch.profiler` trace of steps [profile_start,
-profile_stop) into `profile_dir` (each step a `train_step_<n>` range).
+profile_stop) into `profile_dir`. While a profiler records, the loop's
+spans (utils/tracing.py) mark each step (`vietasr.train.step`) and its
+parts: the batch wait, the upload, each microbatch's forward and
+backward, the optimizer, the log read-back.
 
 The JAX train step returns a new state; here the step updates `state` in
 place and returns it. Random numbers (dither, SpecAugment masks, dropout)
@@ -60,6 +63,7 @@ from vietasr_tpu_torch.parallel.tp import conformer_tp_spec
 from vietasr_tpu_torch.train.metrics import levenshtein, word_error_rate
 from vietasr_tpu_torch.train.optim import global_norm
 from vietasr_tpu_torch.train.state import TrainState
+from vietasr_tpu_torch.utils import tracing
 from vietasr_tpu_torch.utils.device import resolve_device
 from vietasr_tpu_torch.utils.typing import assert_audio_batch, assert_labels
 
@@ -184,9 +188,10 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                            tp_group=tp_group)
 
     def grads_of(state: TrainState, stats, batch, generator, sched):
-        loss, (new_stats, _, _) = loss_fn(state.params, stats, batch,
-                                          generator, True, sched)
-        grads = torch.autograd.grad(loss, state.param_list())
+        with tracing.span("train.forward_backward"):
+            loss, (new_stats, _, _) = loss_fn(state.params, stats, batch,
+                                              generator, True, sched)
+            grads = torch.autograd.grad(loss, state.param_list())
         return loss.detach(), new_stats, grads
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -213,35 +218,36 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
             loss, new_stats, grads = grads_of(state, state.batch_stats, batch,
                                               generator, sched)
 
-        if group is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads]
-                             + [loss.reshape(1).to(torch.float32)])
-            dist.all_reduce(flat, group=group)
-            loss = flat[-1]
-            grads = [a.view_as(g) for a, g in zip(
-                flat[:-1].split([g.numel() for g in grads]), grads)]
-        params = state.param_list()
-        # a masked NaN row can leave the loss finite while the gradients are
-        # NaN (it still reaches the BN batch stats), so guard both
-        if tp_group is not None:
-            sharded = [conformer_tp_spec(p) is not None
-                       for p in tree_paths(state.params)]
-            state.optimizer.tensor_parallel(
-                [p for p, s in zip(params, sharded) if s], tp_group)
-            grad_norm = global_norm(grads, sharded, tp_group)
-        else:
-            grad_norm = global_norm(grads)
-        finite = torch.isfinite(loss) & (loss < 1e25) \
-            & torch.isfinite(grad_norm)
-        for p, g in zip(params, grads):
-            p.grad = torch.where(finite, g, torch.zeros_like(g))
-        state.optimizer.step(finite=finite)
-        for p in params:         # frozen parameters are not the optimizer's
-            p.grad = None
-        with torch.no_grad():
-            assign_tree(state.batch_stats, new_stats, finite)
-            state.step += 1
-            state.skipped_steps += (~finite).to(torch.int32)
+        with tracing.span("train.optimizer"):
+            if group is not None:
+                flat = torch.cat([g.reshape(-1) for g in grads]
+                                 + [loss.reshape(1).to(torch.float32)])
+                dist.all_reduce(flat, group=group)
+                loss = flat[-1]
+                grads = [a.view_as(g) for a, g in zip(
+                    flat[:-1].split([g.numel() for g in grads]), grads)]
+            params = state.param_list()
+            # a masked NaN row can leave the loss finite while the gradients
+            # are NaN (it still reaches the BN batch stats), so guard both
+            if tp_group is not None:
+                sharded = [conformer_tp_spec(p) is not None
+                           for p in tree_paths(state.params)]
+                state.optimizer.tensor_parallel(
+                    [p for p, s in zip(params, sharded) if s], tp_group)
+                grad_norm = global_norm(grads, sharded, tp_group)
+            else:
+                grad_norm = global_norm(grads)
+            finite = torch.isfinite(loss) & (loss < 1e25) \
+                & torch.isfinite(grad_norm)
+            for p, g in zip(params, grads):
+                p.grad = torch.where(finite, g, torch.zeros_like(g))
+            state.optimizer.step(finite=finite)
+            for p in params:     # frozen parameters are not the optimizer's
+                p.grad = None
+            with torch.no_grad():
+                assign_tree(state.batch_stats, new_stats, finite)
+                state.step += 1
+                state.skipped_steps += (~finite).to(torch.int32)
         metrics = {"loss": loss,
                    "grad_norm": torch.where(finite, grad_norm,
                                             torch.full_like(grad_norm,
@@ -381,40 +387,65 @@ class Trainer:
             else dist.get_rank(self.process_group)
         generator.manual_seed(self.seed + 1000 * rank)
         step = int(state.step)
-        for epoch in range(num_epochs):
-            t_epoch = time.time()
-            it = (_prefetch(iter(batcher), depth=self.prefetch_depth)
-                  if self.prefetch_depth > 0 else batcher)
-            for batch in it:
-                t0 = time.time()
-                self._profile_enter(step)
-                with (torch.profiler.record_function(f"train_step_{step}")
-                      if self._profiler else contextlib.nullcontext()):
-                    state, metrics = self._train_step(
-                        state, batch_to_tensors(batch, self.device),
-                        generator)
-                step += 1
-                self._profile_exit(step)
-                if self.log_every and step % self.log_every == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m.update(step=step, epoch=epoch,
-                             step_time=time.time() - t0)
-                    if self.monitor_progress:
-                        m.update(self._progress_sample(state, batch))
-                    self.history.append(m)
-                    for cb in self.callbacks:
-                        cb(self, m)
-                if (self.eval_every and eval_batcher is not None
-                        and step % self.eval_every == 0):
-                    self.evaluate(state, eval_batcher)
-                if (self.checkpoint_manager is not None
-                        and is_main_process()
-                        and self.checkpoint_every
-                        and step % self.checkpoint_every == 0):
-                    self.checkpoint_manager.save(state, step)
-            self.history.append({"epoch": epoch,
-                                 "epoch_time": time.time() - t_epoch})
+        try:
+            for epoch in range(num_epochs):
+                t_epoch = time.time()
+                it = iter(_prefetch(iter(batcher), depth=self.prefetch_depth)
+                          if self.prefetch_depth > 0 else batcher)
+                while True:
+                    with tracing.span("train.batch_wait"):
+                        batch = next(it, None)
+                    if batch is None:
+                        break
+                    t0 = time.time()
+                    self._profile_enter(step)
+                    log = self.log_every and (step + 1) % self.log_every == 0
+                    with tracing.span("train.step"):
+                        self._count_batch(batch)
+                        with tracing.span("train.upload"):
+                            tensors = batch_to_tensors(batch, self.device)
+                        state, metrics = self._train_step(state, tensors,
+                                                          generator)
+                        if log:
+                            with tracing.span("train.log_read"):
+                                m = {k: float(v) for k, v in metrics.items()}
+                    step += 1
+                    self._profile_exit(step)
+                    if log:
+                        m.update(step=step, epoch=epoch,
+                                 step_time=time.time() - t0)
+                        if self.monitor_progress:
+                            m.update(self._progress_sample(state, batch))
+                        self.history.append(m)
+                        for cb in self.callbacks:
+                            cb(self, m)
+                    if (self.eval_every and eval_batcher is not None
+                            and step % self.eval_every == 0):
+                        self.evaluate(state, eval_batcher)
+                    if (self.checkpoint_manager is not None
+                            and is_main_process()
+                            and self.checkpoint_every
+                            and step % self.checkpoint_every == 0):
+                        self.checkpoint_manager.save(state, step)
+                self.history.append({"epoch": epoch,
+                                     "epoch_time": time.time() - t_epoch})
+        except BaseException:
+            self._profile_abort()
+            raise
+        # a window still open when fit ends (fewer steps than profile_stop)
+        # is stopped and written, so no profiler, and no span, outlives fit
+        self._profile_exit(step, end=True)
         return state
+
+    @staticmethod
+    def _count_batch(batch) -> None:
+        if tracing.enabled():
+            signal_samples = int(batch.signal_lens.sum())
+            tracing.count("train.steps")
+            tracing.count("train.rows", batch.signal.shape[0])
+            tracing.count("train.signal_samples", signal_samples)
+            tracing.count("train.padded_samples",
+                          batch.signal.size - signal_samples)
 
     def _profile_enter(self, step: int) -> None:
         if self.profile_dir is None or self._profiler is not None \
@@ -426,8 +457,12 @@ class Trainer:
         self._profiler = torch.profiler.profile(activities=activities)
         self._profiler.start()
 
-    def _profile_exit(self, step: int) -> None:
-        if self._profiler is None or step != self.profile_stop:
+    def _profile_exit(self, step: int, *, end: bool = False) -> None:
+        """Stop and write the window at profile_stop, or at the end of fit
+        (`end`) if it is still open: trace_steps_<start>_<step>.json holds
+        steps [start, step)."""
+        if self._profiler is None or (step != self.profile_stop
+                                      and not end):
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -435,8 +470,17 @@ class Trainer:
         os.makedirs(self.profile_dir, exist_ok=True)
         self._profiler.export_chrome_trace(os.path.join(
             self.profile_dir,
-            f"trace_steps_{self.profile_start}_{self.profile_stop}.json"))
+            f"trace_steps_{self.profile_start}_{step}.json"))
         self._profiler = None
+
+    def _profile_abort(self) -> None:
+        """Stop a window still open when fit raises, writing nothing: a
+        failed device would raise again in a synchronize or the export,
+        over the error that ended fit."""
+        prof, self._profiler = self._profiler, None
+        if prof is not None:
+            with contextlib.suppress(Exception):
+                prof.stop()
 
     def _decode(self, state: TrainState, batch):
         """(hyps, refs, loss) of one batch, padded rows skipped."""
