@@ -287,13 +287,29 @@ def test_schedules_match_jax(name):
             float(want(step)), rtol=1e-6)
 
 
-def _run_both(jax_opt, port_factory, steps=5, seed=0):
-    """The same gradients into both; returns (jax params, port params)."""
+TWO = {"w": (4, 3), "b": (3,)}
+# 25 tensors of mixed shapes, as a QuartzNet's leaves come: kernels,
+# 1x1 weights, BN vectors, a one-element tensor, one ("zero") whose
+# gradient is zero at every step and one ("late") whose gradient is zero
+# for the first two steps
+MIXED = {**{f"t{i:02d}": s for i, s in enumerate(
+    [(11, 8), (8, 16), (16,), (16,), (5, 16), (16, 16), (16,), (16,),
+     (1, 4, 16), (16, 24), (24,), (24,), (9, 24), (24, 24), (24,), (24,),
+     (24, 5), (5,), (3, 2, 2), (7,), (2, 2)])},
+    "one": (1,), "zero": (6, 4), "late": (4, 4), "b": (5,)}
+ZERO_UNTIL = {"zero": 5, "late": 2}
+
+
+def _run_both(jax_opt, port_factory, steps=5, seed=0, shapes=TWO,
+              zero_until=None):
+    """The same gradients into both (tensor k's are zero in the steps
+    before zero_until[k]); returns (jax params, port params)."""
     rng = np.random.RandomState(seed)
-    w0 = {"w": rng.randn(4, 3).astype(np.float32),
-          "b": rng.randn(3).astype(np.float32)}
-    grads = [{k: (rng.randn(*v.shape) * 3).astype(np.float32)
-              for k, v in w0.items()} for _ in range(steps)]
+    zero_until = zero_until or {}
+    w0 = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.randn(*v.shape) * 3 * (i >= zero_until.get(k, 0)))
+              .astype(np.float32) for k, v in w0.items()}
+             for i in range(steps)]
     params = {k: jnp.asarray(v) for k, v in w0.items()}
     state = jax_opt.init(params)
     for g in grads:
@@ -302,7 +318,7 @@ def _run_both(jax_opt, port_factory, steps=5, seed=0):
                                         params)
         params = jax.tree_util.tree_map(jnp.add, params, updates)
     tensors = {k: torch.tensor(v, requires_grad=True) for k, v in w0.items()}
-    opt = port_factory([tensors["w"], tensors["b"]])
+    opt = port_factory(list(tensors.values()))
     for g in grads:
         for k in tensors:
             tensors[k].grad = torch.from_numpy(g[k])
@@ -343,6 +359,49 @@ def test_make_optimizer_matches_jax(name, kw):
     for k in ("w", "b"):
         np.testing.assert_allclose(got[k].detach().numpy(),
                                    np.asarray(want[k]), rtol=1e-6, atol=1e-6)
+
+
+NOVOGRAD_KW = dict(weight_decay=0.05, grad_averaging=True, luc=True,
+                   luc_trust=0.01)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("novograd", NOVOGRAD_KW),
+    ("adam", {}),
+    ("adamw", dict(weight_decay=0.01)),
+    ("sgd", dict(weight_decay=0.01)),
+    ("sgd", dict(weight_decay=0.01, larc=True)),
+    ("lamb", {})], ids=["novograd_wd_avg_luc", "adam", "adamw", "sgd",
+                        "sgd_larc", "lamb"])
+def test_optimizers_match_optax_on_a_mixed_tree(name, kw):
+    """Each optimizer of the reference set over 25 tensors at once, clipped
+    at 5.0 (the gradients' norm is ~136): five steps under a warmup-cosine
+    schedule against its optax chain. The one-element tensor and the zero
+    gradients put Novograd's v == 0 bootstrap (per tensor: "late" starts
+    at step 3) and the trust ratios' zero-norm branch at an index of their
+    vectors."""
+    import optax
+    from vietasr_tpu_torch.train.optim import Novograd
+
+    sched = ("CosineAnnealing", 0.05, 8)
+    jax_sched = jax_make_schedule(*sched, warmup_steps=2)
+    port_sched = make_schedule(*sched, warmup_steps=2)
+    if name == "novograd":
+        jax_opt = optax.chain(optax.clip_by_global_norm(5.0),
+                              jax_novograd(jax_sched, **kw))
+
+        def port(params):
+            return Novograd(params, port_sched, grad_clip_norm=5.0, **kw)
+    else:
+        jax_opt = jax_make_optimizer(name, jax_sched, grad_clip_norm=5.0,
+                                     **kw)
+        port = make_optimizer(name, port_sched, grad_clip_norm=5.0, **kw)
+    want, got = _run_both(jax_opt, port, shapes=MIXED, zero_until=ZERO_UNTIL)
+    assert len(got) >= 20
+    for k in MIXED:
+        np.testing.assert_allclose(got[k].detach().numpy(),
+                                   np.asarray(want[k]), rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
 
 
 def test_guarded_step_keeps_everything_when_not_finite():

@@ -25,7 +25,12 @@ The Trainer can record a `torch.profiler` trace of steps [profile_start,
 profile_stop) into `profile_dir`. While a profiler records, the loop's
 spans (utils/tracing.py) mark each step (`vietasr.train.step`) and its
 parts: the batch wait, the upload, each microbatch's forward and
-backward, the optimizer, the log read-back.
+backward, the optimizer, the log read-back. `train.optimizer` holds the
+data-parallel all-reduce, the guard's gradient norm, the optimizer's step
+and the BN statistics' guarded copy: each works on whole lists of tensors
+(train/optim.py), so the span's launches do not grow with the number of
+tensors, but for one copy a gradient that autograd lays out otherwise than
+its parameter (a weight used transposed).
 
 The JAX train step returns a new state; here the step updates `state` in
 place and returns it. Random numbers (dither, SpecAugment masks, dropout)
@@ -52,7 +57,7 @@ from vietasr_tpu_torch.frontend.cuda_frontend import (fused_supported,
                                                       make_fused_featurizer)
 from vietasr_tpu_torch.frontend.features import make_featurizer
 from vietasr_tpu_torch.models import model_apply
-from vietasr_tpu_torch.models.quartznet import assign_tree, tree_paths
+from vietasr_tpu_torch.models.quartznet import tree_leaves, tree_paths
 from vietasr_tpu_torch.ops.ctc_loss import CTC_IMPLS, ctc_loss
 from vietasr_tpu_torch.ops.greedy import (collapse_batch, greedy_decode,
                                           ids_to_text)
@@ -61,7 +66,7 @@ from vietasr_tpu_torch.parallel.distributed import (gather_eval_results,
                                                     is_main_process)
 from vietasr_tpu_torch.parallel.tp import conformer_tp_spec
 from vietasr_tpu_torch.train.metrics import levenshtein, word_error_rate
-from vietasr_tpu_torch.train.optim import global_norm
+from vietasr_tpu_torch.train.optim import Layouts, global_norm
 from vietasr_tpu_torch.train.state import TrainState
 from vietasr_tpu_torch.utils import tracing
 from vietasr_tpu_torch.utils.device import resolve_device
@@ -187,6 +192,8 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                            device=device, remat=remat, group=group,
                            tp_group=tp_group)
 
+    layouts = Layouts()
+
     def grads_of(state: TrainState, stats, batch, generator, sched):
         with tracing.span("train.forward_backward"):
             loss, (new_stats, _, _) = loss_fn(state.params, stats, batch,
@@ -228,7 +235,9 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                     flat[:-1].split([g.numel() for g in grads]), grads)]
             params = state.param_list()
             # a masked NaN row can leave the loss finite while the gradients
-            # are NaN (it still reaches the BN batch stats), so guard both
+            # are NaN (it still reaches the BN batch stats), so guard both;
+            # the optimizer's step and the statistics' copy select exactly
+            # over whole vectors, so nothing here takes one op a tensor
             if tp_group is not None:
                 sharded = [conformer_tp_spec(p) is not None
                            for p in tree_paths(state.params)]
@@ -236,16 +245,27 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
                     [p for p, s in zip(params, sharded) if s], tp_group)
                 grad_norm = global_norm(grads, sharded, tp_group)
             else:
-                grad_norm = global_norm(grads)
+                # one vector of the gradients, whose views the optimizer
+                # then reads by one list copy (autograd's are not all
+                # laid out as their parameters)
+                lay = layouts.of(params)
+                grad_norm = torch.sqrt(torch.sum(torch.square(
+                    lay.load("grads", grads))))
+                grads = lay.vector("grads")[1]
             finite = torch.isfinite(loss) & (loss < 1e25) \
                 & torch.isfinite(grad_norm)
             for p, g in zip(params, grads):
-                p.grad = torch.where(finite, g, torch.zeros_like(g))
+                p.grad = g
             state.optimizer.step(finite=finite)
             for p in params:     # frozen parameters are not the optimizer's
                 p.grad = None
             with torch.no_grad():
-                assign_tree(state.batch_stats, new_stats, finite)
+                stats = tree_leaves(state.batch_stats)
+                if stats:
+                    lay = layouts.of(stats)
+                    lay.store(stats, lay.load("new", _leaves_like(
+                        new_stats, state.batch_stats)), lay.load("old", stats),
+                        finite)
                 state.step += 1
                 state.skipped_steps += (~finite).to(torch.int32)
         metrics = {"loss": loss,
@@ -258,6 +278,16 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
         return state, metrics
 
     return train_step
+
+
+def _leaves_like(src, like) -> list:
+    """src's leaves, matched by key, in the order of tree_leaves(like)."""
+    if isinstance(like, dict):
+        return [leaf for k in like for leaf in _leaves_like(src[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [leaf for a, b in zip(src, like)
+                for leaf in _leaves_like(a, b)]
+    return [src]
 
 
 def make_eval_step(cfg: ModelConfig, *, ctc_impl: str = "auto", device=None):
